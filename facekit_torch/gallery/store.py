@@ -1,0 +1,155 @@
+"""Device-resident embedding gallery with capacity bucketing.
+
+Port of ``facekit/gallery/store.py``. The gallery is a device tensor whose
+capacity comes from a fixed bucket ladder, with a live count masking the
+padding rows, and a float32 host mirror:
+
+  * ``load`` (the ``/reload`` path) swaps in a freshly built tensor;
+  * ``add`` within the current capacity writes row ``count`` in place,
+    without a rebuild: every snapshot holder masks that row (it is padding
+    to them), so rows below any snapshot's count never change; crossing a
+    bucket boundary rebuilds at the next capacity;
+  * the device tensor is always a *copy* of the host mirror:
+    ``torch.from_numpy`` aliases its buffer, and ``add`` writes the mirror
+    in place (``facekit/gallery/store.py:154-172`` copies for the same
+    reason).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from facekit_torch.ops.similarity import cosine_topk
+from facekit_torch.utils.device import resolve_device
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _bucket_capacity(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    # beyond the ladder: round up to the next multiple of the largest bucket
+    top = buckets[-1]
+    return ((n + top - 1) // top) * top
+
+
+class GallerySnapshot(NamedTuple):
+    """Consistent view: the tensor, its live count and the matching names."""
+    arr: torch.Tensor
+    count: int
+    names: List[str]
+
+
+class GalleryStore:
+    """Names + device-resident L2-normalized embedding matrix + search."""
+
+    def __init__(self, embed_dim: int = 512,
+                 buckets: Sequence[int] = (1024, 8192, 65536, 1 << 20),
+                 dtype: str = "bfloat16", device=None):
+        if dtype not in _DTYPES:
+            raise ValueError(
+                f"gallery_dtype {dtype!r} is not ported yet: the int8 "
+                "gallery and its search kernel are ROADMAP Queue 2 #2 "
+                "(cosine_topk_int8_pallas)")
+        self.embed_dim = embed_dim
+        self.buckets = tuple(buckets)
+        self.dtype = _DTYPES[dtype]
+        self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self._names: List[str] = []
+        # host mirror, preallocated at device capacity (amortized appends)
+        self._host_buf = np.zeros((0, embed_dim), np.float32)
+        self._device_arr: torch.Tensor = None
+        self._rebuild()
+
+    # -- state ---------------------------------------------------------------
+
+    @property
+    def count(self) -> int:
+        return len(self._names)
+
+    @property
+    def names(self) -> List[str]:
+        return list(self._names)
+
+    @property
+    def capacity(self) -> int:
+        return self._device_arr.shape[0]
+
+    def _rebuild(self) -> None:
+        n = len(self._names)
+        cap = _bucket_capacity(max(n, 1), self.buckets)
+        if self._host_buf.shape[0] != cap:
+            buf = np.zeros((cap, self.embed_dim), np.float32)
+            buf[:n] = self._host_buf[:n]
+            self._host_buf = buf
+        self._device_arr = torch.from_numpy(self._host_buf).to(
+            device=self.device, dtype=self.dtype, copy=True)
+
+    # -- mutation (mirrors addEmbedding/resetEmbeddings/initMatMul) ----------
+
+    def load(self, names: Sequence[str], embeddings: np.ndarray) -> None:
+        """Atomically replace the gallery (the /reload path)."""
+        embeddings = np.asarray(embeddings, np.float32).reshape(-1, self.embed_dim)
+        if len(names) != embeddings.shape[0]:
+            raise ValueError(f"{len(names)} names for {embeddings.shape[0]} "
+                             "embeddings")
+        with self._lock:
+            self._names = list(names)
+            n = embeddings.shape[0]
+            cap = _bucket_capacity(max(n, 1), self.buckets)
+            self._host_buf = np.zeros((cap, self.embed_dim), np.float32)
+            self._host_buf[:n] = embeddings
+            self._rebuild()
+
+    def add(self, name: str, embedding: np.ndarray) -> None:
+        """Append one row (reference addEmbedding, src/arcface.cpp:150-160)."""
+        emb = np.asarray(embedding, np.float32).reshape(self.embed_dim)
+        with self._lock:
+            i = len(self._names)
+            # copy-on-write: snapshot() hands out self._names uncopied, so
+            # a mutation builds a new list instead of appending in place
+            self._names = self._names + [name]
+            if i >= self.capacity:
+                # bucket growth: host buffer + device tensor rebuild
+                buf = np.zeros((_bucket_capacity(i + 1, self.buckets),
+                                self.embed_dim), np.float32)
+                buf[:i] = self._host_buf[:i]
+                buf[i] = emb
+                self._host_buf = buf
+                self._rebuild()
+                return
+            self._host_buf[i] = emb
+            # in place: row i is padding to every outstanding snapshot
+            self._device_arr[i] = torch.tensor(emb, dtype=self.dtype,
+                                               device=self.device)
+
+    # -- search ---------------------------------------------------------------
+
+    def snapshot(self) -> GallerySnapshot:
+        """Atomic (tensor, count, names) view. The names list is shared,
+        not copied (every mutation rebinds it): treat it as immutable."""
+        with self._lock:
+            return GallerySnapshot(self._device_arr, len(self._names),
+                                   self._names)
+
+    def search(self, queries, k: int = 1
+               ) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+        """(B, D) queries -> (scores (B, k), indices (B, k), names).
+
+        ``names`` is the snapshot matching the indices, so a concurrent
+        reload cannot skew the id mapping. Queries are cast to the gallery
+        dtype before the search (``facekit/pipeline/recognize.py:222``).
+        """
+        arr, count, names = self.snapshot()
+        if count == 0:
+            raise ValueError(
+                "Feature matching: No faces in database")  # reference msg
+        q = torch.as_tensor(queries).to(device=self.device, dtype=self.dtype)
+        vals, idx = cosine_topk(arr, q.contiguous(), count, min(k, count))
+        return vals.cpu().numpy(), idx.cpu().numpy(), names

@@ -1,0 +1,383 @@
+// Gallery search for Hopper: scores = queries . gallery^T in f32, rows at or
+// past `count` masked to -1e30, per-query top-k under the total order
+// (score descending, row index ascending).
+//
+// Replaces: the TPU kernel `cosine_topk_pallas` -> `_search_kernel` ->
+// `_fold_tile` / `_topk_rows` in facekit/ops/similarity.py:273-338 (body
+// :260-270, shared fold :100-159). Same results: f32 accumulation, the
+// -1e30 mask, lowest index first among equal scores, and the sentinel
+// index 2**30 for empty slots, so that when k exceeds the live rows the
+// masked padding rows come back in ascending order, as lax.top_k returns
+// them.
+//
+// Bound on an H100 SXM (3.35 TB/s): the gallery is read once, N*D*itemsize
+// bytes: 1,048,576 x 512 bf16 is 1.07 GB, about 0.32 ms; f32 about 0.64 ms.
+// The products are 2*B*N*D operations; at B <= 8 they are far below the
+// card's rate, so the kernel is bound by bytes on the main path (B <= 8).
+//
+// Design, against that bound:
+//  * The Pallas grid runs in order on one core and carries the running
+//    top-k in VMEM from step to step. Nothing carries over between CTAs
+//    here, so pass 1 splits the rows across CTAs (grid.x = chunks of
+//    rows, grid.y = tiles of QT queries) and every warp streams its own
+//    contiguous rows. A lane reads its 16 elements of a row as 16-byte
+//    loads (bf16: 2, f32: 4), neighbouring lanes on neighbouring
+//    addresses, marked evict-first (the gallery is larger than L2 and is
+//    read once). The loads of the next U rows are issued before the
+//    arithmetic on the current ones, so a warp keeps loads in flight while
+//    it computes.
+//  * A warp holds its QT queries in registers (16 f32 values per query per
+//    lane), so a gallery byte is read from memory once per query tile and
+//    never through shared memory. QT is the smallest of 1, 2, 4, 8 that
+//    covers the batch, so a batch of one does no arithmetic for empty query
+//    slots. Each (row, query) dot is 16 FMAs per lane in a fixed order; the
+//    partials of 32/QT rows x QT queries are then summed over the warp by
+//    one transposed butterfly (31 shuffles for 32 dots, where a butterfly
+//    per dot takes 5 each), unrolled so the partials stay in registers.
+//    Every score is the same tree of the same instruction
+//    sequence, whatever QT is, so equal rows get bit-equal scores and ties
+//    resolve by index exactly.
+//  * Rows past count + k are never read: rows count..count+k-1 (score
+//    -1e30, ascending index) outrank every later padding row, so the scan
+//    covers n_rows = min(N, count + k) and skips the loads of rows past
+//    count. A mostly empty bucket costs what its live rows cost.
+//  * Each warp keeps a sorted top-k per query in shared memory. The 32
+//    scores of a group are filtered against their query's k-th entry
+//    (kept in a register of the lanes that hold that query) with one
+//    ballot; only scores that beat it are inserted, one at a time, by the
+//    whole warp. On random data that is about k*ln(rows/k) insertions per
+//    query per warp.
+//  * The 8 warps of a CTA merge their lists per query, the CTA writes
+//    (B, chunks, k) partials, and pass 2 (one warp per query) reduces the
+//    chunks*k candidates to k under the same order.
+// What it leaves for later: wgmma/TMA, a persistent grid, and a query tile
+// in shared memory for large B (at B = 256 the gallery is read once per
+// tile of 8 queries).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 512;          // embedding width (the wrapper checks it)
+constexpr int KMAX = 64;        // largest k (the wrapper checks it)
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int ELEMS = D / 32;   // elements of a row per lane
+constexpr float NEG_INF = -1e30f;
+constexpr int BIG_IDX = 1 << 30;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ bool beats(float v, int i, float tv, int ti) {
+  return v > tv || (v == tv && i < ti);
+}
+
+// One 16-byte load as floats: 8 bf16 (element 0 in the low half) or 4 f32.
+template <bool BF16>
+__device__ __forceinline__ void to_float(const uint4& u, float* o) {
+  if constexpr (BF16) {
+    o[0] = __uint_as_float(u.x << 16); o[1] = __uint_as_float(u.x & 0xffff0000u);
+    o[2] = __uint_as_float(u.y << 16); o[3] = __uint_as_float(u.y & 0xffff0000u);
+    o[4] = __uint_as_float(u.z << 16); o[5] = __uint_as_float(u.z & 0xffff0000u);
+    o[6] = __uint_as_float(u.w << 16); o[7] = __uint_as_float(u.w & 0xffff0000u);
+  } else {
+    o[0] = __uint_as_float(u.x); o[1] = __uint_as_float(u.y);
+    o[2] = __uint_as_float(u.z); o[3] = __uint_as_float(u.w);
+  }
+}
+
+// The transposed butterfly over a warp: lane l starts with 32 partial
+// sums and ends with the warp's total of sum l in v[0]. Each step halves
+// the values a lane holds: the lane keeps the half whose index bit matches
+// its lane bit HALF and adds the partner lane's copy of that half. Every
+// total is the same tree over the lanes' partials (float addition
+// commutes), so equal rows get bit-equal scores. HALF is a template
+// argument so that each loop's trip count is a constant when the compiler
+// unrolls it; a loop nest whose inner count depends on the outer index
+// stays rolled and puts v in local memory.
+template <int HALF>
+__device__ __forceinline__ void butterfly(float (&v)[32], int lane) {
+  const bool hi = lane & HALF;
+#pragma unroll
+  for (int e = 0; e < HALF; ++e) {
+    const float keep = hi ? v[e + HALF] : v[e];
+    const float send = hi ? v[e] : v[e + HALF];
+    v[e] = keep + __shfl_xor_sync(FULL, send, HALF);
+  }
+  if constexpr (HALF > 1) butterfly<HALF / 2>(v, lane);
+}
+
+// The lane's 16-byte pieces of rows first..first+U-1; zeros for rows at or
+// past `live` (padding rows and rows of the next warp are not read).
+template <int U, int LOADS, size_t ROW_BYTES>
+__device__ __forceinline__ void load_rows(uint4 (&buf)[U][LOADS],
+                                          const char* __restrict__ gallery,
+                                          int first, int live, int lane) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int row = first + u;
+    if (row < live) {
+      const uint4* gp = reinterpret_cast<const uint4*>(gallery + (size_t)row * ROW_BYTES);
+#pragma unroll
+      for (int t = 0; t < LOADS; ++t) buf[u][t] = __ldcs(gp + t * 32 + lane);
+    } else {
+#pragma unroll
+      for (int t = 0; t < LOADS; ++t) buf[u][t] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// Insert (v, i) into a warp's sorted list lv/li of length k. The caller
+// has checked that (v, i) beats lv[k-1]; all lanes pass the same (v, i).
+__device__ __forceinline__ void warp_insert(float* lv, int* li, int k,
+                                            float v, int i, int lane) {
+  const int e0 = lane, e1 = lane + 32;
+  float v0 = NEG_INF, v1 = NEG_INF;
+  int i0 = BIG_IDX, i1 = BIG_IDX;
+  if (e0 < k) { v0 = lv[e0]; i0 = li[e0]; }
+  if (e1 < k) { v1 = lv[e1]; i1 = li[e1]; }
+  const bool b0 = e0 < k && beats(v0, i0, v, i);
+  const bool b1 = e1 < k && beats(v1, i1, v, i);
+  // the list is sorted, so the entries that beat (v, i) are a prefix
+  const int pos = __popc(__ballot_sync(FULL, b0)) + __popc(__ballot_sync(FULL, b1));
+  __syncwarp();
+  if (e0 >= pos && e0 + 1 < k) { lv[e0 + 1] = v0; li[e0 + 1] = i0; }
+  if (e1 >= pos && e1 + 1 < k) { lv[e1 + 1] = v1; li[e1 + 1] = i1; }
+  if (lane == 0) { lv[pos] = v; li[pos] = i; }
+  __syncwarp();
+}
+
+// Offer 32 lane-held candidates (v, i) to a warp's list; `ok` marks the
+// lanes that hold one.
+__device__ __forceinline__ void warp_offer(float* lv, int* li, int k,
+                                           float v, int i, bool ok, int lane) {
+  unsigned m = __ballot_sync(FULL, ok && beats(v, i, lv[k - 1], li[k - 1]));
+  while (m) {
+    const int src = __ffs(m) - 1;
+    m &= m - 1;
+    const float cv = __shfl_sync(FULL, v, src);
+    const int ci = __shfl_sync(FULL, i, src);
+    if (beats(cv, ci, lv[k - 1], li[k - 1])) warp_insert(lv, li, k, cv, ci, lane);
+  }
+}
+
+template <bool BF16, int QT>
+__global__ void __launch_bounds__(THREADS, 1)
+topk_partial_kernel(const char* __restrict__ gallery,
+                    const char* __restrict__ queries,
+                    int n_rows, int count, int B, int k, int rows_per_cta,
+                    float* __restrict__ part_v, int* __restrict__ part_i) {
+  constexpr int ESIZE = BF16 ? 2 : 4;
+  constexpr int VEC = 16 / ESIZE;          // elements per 16-byte load
+  constexpr int LOADS = ELEMS / VEC;       // 16-byte loads per lane per row
+  constexpr int R = 32 / QT;               // rows per group
+  // rows per load step: 2 KB in flight per warp at QT = 8 (registers are
+  // short there: the queries take 128), 4 KB otherwise
+  constexpr int U0 = (QT == 8 ? 4 : 8) / LOADS;
+  constexpr int U = U0 < 1 ? 1 : (U0 > R ? R : U0);
+  constexpr size_t ROW_BYTES = (size_t)D * ESIZE;
+  static_assert(R * QT == 32 && R % U == 0, "a group is 32 (row, query) dots");
+
+  __shared__ float s_v[WARPS][QT][KMAX];
+  __shared__ int s_i[WARPS][QT][KMAX];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.y * QT;
+  const int nq = min(QT, B - q0);
+  const int chunk = blockIdx.x;
+  const int chunks = gridDim.x;
+
+  // the lane's elements of each query: element t*VEC+v is column
+  // t*32*VEC + lane*VEC + v, the same columns it loads of every row
+  float q[QT][ELEMS];
+#pragma unroll
+  for (int j = 0; j < QT; ++j) {
+    if (j < nq) {
+      const uint4* qp = reinterpret_cast<const uint4*>(queries + (size_t)(q0 + j) * ROW_BYTES);
+#pragma unroll
+      for (int t = 0; t < LOADS; ++t) to_float<BF16>(qp[t * 32 + lane], &q[j][t * VEC]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < ELEMS; ++e) q[j][e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < QT; ++j) {
+    for (int s = lane; s < KMAX; s += 32) {
+      s_v[warp][j][s] = NEG_INF;
+      s_i[warp][j][s] = BIG_IDX;
+    }
+  }
+  __syncwarp();
+
+  // Rows go through in groups of R: the R x QT dot partials of a group are
+  // reduced over the warp by one butterfly that leaves lane l with the
+  // total of (row l / QT, query l % QT).
+  const int my_r = lane / QT;
+  const int my_j = lane % QT;
+  float thr_v = NEG_INF;            // the k-th entry of query my_j's list
+  int thr_i = BIG_IDX;
+  const int rows_per_warp = rows_per_cta / WARPS;
+  const int begin = chunk * rows_per_cta + warp * rows_per_warp;
+  const int end = min(begin + rows_per_warp, n_rows);
+  const int live = min(end, count);
+  uint4 raw[U][LOADS];
+  load_rows<U, LOADS, ROW_BYTES>(raw, gallery, begin, live, lane);
+  for (int base = begin; base < end; base += R) {
+    float v[32];                    // v[r * QT + j]: this lane's partial
+#pragma unroll
+    for (int e = 0; e < 32; ++e) v[e] = 0.f;
+#pragma unroll
+    for (int r0 = 0; r0 < R; r0 += U) {
+      // the next U rows (the next group's first at the end of this one)
+      uint4 nxt[U][LOADS];
+      load_rows<U, LOADS, ROW_BYTES>(nxt, gallery, base + r0 + U, live, lane);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int t = 0; t < LOADS; ++t) {
+          float x[VEC];
+          to_float<BF16>(raw[u][t], x);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+#pragma unroll
+            for (int j = 0; j < QT; ++j)
+              v[(r0 + u) * QT + j] = fmaf(x[e], q[j][t * VEC + e], v[(r0 + u) * QT + j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int t = 0; t < LOADS; ++t) raw[u][t] = nxt[u][t];
+      }
+    }
+    butterfly<16>(v, lane);
+    const int row = base + my_r;
+    const float s = row < count ? v[0] : NEG_INF;
+    unsigned m = __ballot_sync(
+        FULL, row < end && my_j < nq && beats(s, row, thr_v, thr_i));
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float cv = __shfl_sync(FULL, s, src);
+      const int ci = base + src / QT;
+      const int cj = src % QT;
+      float* lv = s_v[warp][cj];
+      int* li = s_i[warp][cj];
+      if (beats(cv, ci, lv[k - 1], li[k - 1])) {
+        warp_insert(lv, li, k, cv, ci, lane);
+        if (my_j == cj) { thr_v = lv[k - 1]; thr_i = li[k - 1]; }
+      }
+    }
+  }
+  __syncthreads();
+
+  // merge the warps' lists: warp j folds query j's eight lists into warp 0's
+  if (warp < nq) {
+    const int j = warp;
+    float* lv = s_v[0][j];
+    int* li = s_i[0][j];
+    for (int w = 1; w < WARPS; ++w) {
+      for (int s0 = 0; s0 < k; s0 += 32) {
+        const int s = s0 + lane;
+        const bool ok = s < k;
+        const float v = ok ? s_v[w][j][s] : NEG_INF;
+        const int i = ok ? s_i[w][j][s] : BIG_IDX;
+        warp_offer(lv, li, k, v, i, ok, lane);
+      }
+    }
+    const size_t off = ((size_t)(q0 + j) * chunks + chunk) * k;
+    for (int s = lane; s < k; s += 32) {
+      part_v[off + s] = lv[s];
+      part_i[off + s] = li[s];
+    }
+  }
+}
+
+// Pass 2: one warp per query reduces its chunks*k partials to k.
+__global__ void __launch_bounds__(THREADS)
+topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
+                  int B, int chunks, int k,
+                  float* __restrict__ out_v, int* __restrict__ out_i) {
+  __shared__ float s_v[WARPS][KMAX];
+  __shared__ int s_i[WARPS][KMAX];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + warp;
+  if (b >= B) return;                      // whole warps only
+  float* lv = s_v[warp];
+  int* li = s_i[warp];
+  for (int s = lane; s < KMAX; s += 32) { lv[s] = NEG_INF; li[s] = BIG_IDX; }
+  __syncwarp();
+  const size_t total = (size_t)chunks * k;
+  const float* pv = part_v + (size_t)b * total;
+  const int* pi = part_i + (size_t)b * total;
+  for (size_t base = 0; base < total; base += 32) {
+    const size_t t = base + lane;
+    const bool ok = t < total;
+    const float v = ok ? pv[t] : NEG_INF;
+    const int i = ok ? pi[t] : BIG_IDX;
+    warp_offer(lv, li, k, v, i, ok, lane);
+  }
+  for (int s = lane; s < k; s += 32) {
+    out_v[(size_t)b * k + s] = lv[s];
+    out_i[(size_t)b * k + s] = li[s];
+  }
+}
+
+template <bool BF16, int QT>
+void launch_partial(int chunks, cudaStream_t s, const void* gallery,
+                    const void* queries, int n_rows, int count, int B, int k,
+                    int rows_per_cta, void* part_v, void* part_i) {
+  const dim3 grid(chunks, (B + QT - 1) / QT);
+  topk_partial_kernel<BF16, QT><<<grid, THREADS, 0, s>>>(
+      static_cast<const char*>(gallery), static_cast<const char*>(queries),
+      n_rows, count, B, k, rows_per_cta,
+      static_cast<float*>(part_v), static_cast<int*>(part_i));
+}
+
+// The query tile: the smallest of 1, 2, 4, 8 that covers B.
+template <bool BF16>
+void launch_partial_tiled(int chunks, cudaStream_t s, const void* gallery,
+                          const void* queries, int n_rows, int count, int B,
+                          int k, int rows_per_cta, void* part_v, void* part_i) {
+  if (B == 1) {
+    launch_partial<BF16, 1>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+  } else if (B == 2) {
+    launch_partial<BF16, 2>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+  } else if (B <= 4) {
+    launch_partial<BF16, 4>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+  } else {
+    launch_partial<BF16, 8>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+  }
+}
+
+}  // namespace
+
+// C entry point (loaded with ctypes). Launches both passes on `stream` and
+// returns cudaGetLastError() as an int; it never synchronizes. The caller
+// has checked shapes and alignment: gallery (>= n_rows, 512) and queries
+// (B, 512) contiguous and 16-byte aligned, 1 <= k <= 64, 1 <= B <= 256,
+// rows_per_cta a multiple of 256, partials (B, chunks, k).
+extern "C" int facekit_cosine_topk(const void* gallery, const void* queries,
+                                   int is_bf16, int n_rows, int count, int B,
+                                   int k, int rows_per_cta, int chunks,
+                                   void* part_v, void* part_i,
+                                   void* out_v, void* out_i, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    launch_partial_tiled<true>(chunks, s, gallery, queries, n_rows, count, B, k,
+                               rows_per_cta, part_v, part_i);
+  } else {
+    launch_partial_tiled<false>(chunks, s, gallery, queries, n_rows, count, B, k,
+                                rows_per_cta, part_v, part_i);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_merge_kernel<<<(B + WARPS - 1) / WARPS, THREADS, 0, s>>>(
+      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
+      B, chunks, k, static_cast<float*>(out_v), static_cast<int*>(out_i));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,434 @@
+"""The serving layer: the reference's HTTP contract on the torch pipeline.
+
+Port of ``facekit/server/app.py:207-1198`` for the routes of the embed +
+match slice: ``/insert/user``, ``/insert/face``, ``/delete/user``,
+``/delete/face``, ``/recognize``, ``/reload``, ``/search`` (k <= 64),
+``/health`` and ``/metrics``, with facekit's response strings verbatim:
+
+  * ``POST /recognize`` embeds the whole posted image as a face, with no
+    detection (src/app.cpp:255-267), micro-batched; "null" on failure;
+  * ``POST /insert/face`` persists to SQLite but does not update the live
+    gallery — ``GET /reload`` does (src/app.cpp:189 note).
+
+Host pixel work uses OpenCV. A config that needs a part not ported yet is
+refused at startup (``refuse_unported``). Device work runs on one executor
+thread; the kernels launch on the device's current stream.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import concurrent.futures
+import json
+import logging
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from facekit_torch.db import Database
+from facekit_torch.gallery import GalleryStore
+from facekit_torch.pipeline import FacePipeline
+from facekit_torch.utils import LatencyTracker, resolve_device
+from facekit_torch.weights import load_params, random_arcface_params
+
+log = logging.getLogger("facekit_torch.server")
+
+
+class _Cv2Pixels:
+    """Host pixel backend over OpenCV (``facekit/server/app.py:47-82``)."""
+
+    name = "cv2"
+
+    def __init__(self):
+        import cv2
+        self.cv2 = cv2
+
+    def decode(self, data: bytes, resize_wh=None):
+        cv2 = self.cv2
+        frame = cv2.imdecode(np.frombuffer(data, np.uint8),
+                             cv2.IMREAD_UNCHANGED)
+        if frame is None:
+            return None
+        if frame.ndim == 2:
+            frame = cv2.cvtColor(frame, cv2.COLOR_GRAY2BGR)
+        elif frame.shape[-1] == 4:  # PNG with alpha (IMREAD_UNCHANGED)
+            frame = cv2.cvtColor(frame, cv2.COLOR_BGRA2BGR)
+        if resize_wh is not None and frame.shape[:2] != resize_wh[::-1]:
+            frame = cv2.resize(frame, resize_wh)
+        return frame
+
+    def imread(self, path: str):
+        return self.cv2.imread(path)
+
+    def resize(self, img, wh):
+        return self.cv2.resize(img, wh)
+
+
+def refuse_unported(config) -> None:
+    """Raise for a config that needs a part the port does not have yet."""
+    reasons = []
+    if not config.api_imgIsCropped:
+        reasons.append("api_imgIsCropped: false needs face detection "
+                       "(ROADMAP.md Queue 1, detect slice)")
+    if config.gen:
+        reasons.append("gen: true (batch enrollment mode) is not ported yet "
+                       "(ROADMAP.md Queue 1, server remainder)")
+    if config.rec_quantize:
+        reasons.append("rec_quantize needs the int8 embedder (ROADMAP.md "
+                       "Queue 1, int8 slice)")
+    if config.gallery_dtype == "int8":
+        reasons.append("gallery_dtype: int8 needs the int8 search kernel "
+                       "(ROADMAP.md Queue 2, kernel #2)")
+    if config.mesh_shape:
+        reasons.append("mesh_shape needs multi-GPU serving (ROADMAP.md "
+                       "Queue 1, parallel)")
+    if config.extras.get("server_enginesDir"):
+        reasons.append("server_enginesDir needs engine export (ROADMAP.md "
+                       "Queue 1, export)")
+    if config.extras.get("server_hostOps", "cv2") != "cv2":
+        reasons.append("server_hostOps other than cv2 needs the native host "
+                       "ops (ROADMAP.md Queue 1, server remainder)")
+    if reasons:
+        raise ValueError("config needs parts facekit_torch has not ported "
+                         "yet: " + "; ".join(reasons))
+
+
+class FaceServer:
+    """Wires config -> embedder -> pipeline -> gallery -> db
+    (src/app.cpp:12-106)."""
+
+    def __init__(self, config, rec_params=None, warmup: bool = True,
+                 device=None):
+        """``rec_params``: embedder params in facekit's layout; None loads
+        ``config.rec_weights`` or, without weights, draws random ones from
+        seed 1 with numpy. ``device`` defaults to ``"cuda"``."""
+        refuse_unported(config)
+        self.config = config
+        self.device = resolve_device(device)
+        self.pixels = _Cv2Pixels()
+        if rec_params is None:
+            rec_params = (load_params(config.rec_weights) if config.rec_weights
+                          else random_arcface_params(
+                              config.rec_network, seed=1,
+                              input_size=config.rec_hw[0],
+                              embed_dim=config.rec_outputDim))
+        self.pipeline = FacePipeline(config, rec_params, device=self.device)
+        self.db = Database(config.database_path, config.rec_outputDim)
+        # micro-batching: each dispatch pads to the smallest bucket of
+        # server_batchBuckets that fits the queue (default: one bucket of
+        # server_batchSize)
+        self.batch_size = int(config.extras.get("server_batchSize", 8))
+        raw_buckets = config.extras.get("server_batchBuckets")
+        buckets = ([int(b) for b in raw_buckets] if raw_buckets
+                   else [self.batch_size])
+        self.batch_buckets = sorted(set(buckets))
+        self.batch_size = self.batch_buckets[-1]
+        self.batch_wait_ms = float(config.extras.get("server_batchWaitMs", 3.0))
+        self.gallery = GalleryStore(embed_dim=config.rec_outputDim,
+                                    buckets=config.gallery_bucket_sizes,
+                                    dtype=config.gallery_dtype,
+                                    device=self.device)
+        self.user_dict: Dict[str, str] = self.db.get_user_dict()
+        self.reload_gallery()
+        # one worker: device work serializes on the card anyway
+        self.executor = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        # host decode/resize off the event loop and off the device thread
+        self.decode_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=int(config.extras.get("server_decodeThreads", 4)))
+        # enrollment/admin host work (fsync-ing DB commits) gets its own
+        # pool so a bulk enrollment cannot starve serving decodes
+        self.enroll_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=int(config.extras.get("server_enrollThreads", 2)))
+        self.metrics = LatencyTracker()
+        if warmup:
+            # builds the search kernel and primes the embedder at every
+            # batch bucket, so no request pays either
+            rh, rw = config.rec_hw
+            snap = self.gallery.snapshot()
+            for b in self.batch_buckets:
+                self.pipeline.embed_and_match(
+                    np.zeros((b, rh, rw, 3), np.uint8), snap.arr,
+                    max(snap.count, 1))
+            self.pipeline.embed_cropped(np.zeros((rh, rw, 3), np.uint8))
+
+    def close(self) -> None:
+        """Stop the worker pools and close the database."""
+        for pool in (self.executor, self.decode_pool, self.enroll_pool):
+            pool.shutdown(wait=True)
+        self.db.close()
+
+    # -- the /recognize batch -------------------------------------------------
+
+    def pad_batch(self, items: List[np.ndarray]) -> np.ndarray:
+        """Stack and zero-pad to the smallest batch bucket that fits."""
+        target = next(b for b in self.batch_buckets if b >= len(items))
+        pad = [np.zeros_like(items[0])] * (target - len(items))
+        return np.stack(list(items) + pad)
+
+    def serving_embed(self, crops: np.ndarray, snap):
+        """Padded (B, rh, rw, 3) u8 crops -> (emb, sims (B, k), idx)
+        against a gallery snapshot, as device tensors."""
+        return self.pipeline.embed_and_match(crops, snap.arr, snap.count)
+
+    def recognize_batch(self, crops: List[np.ndarray]
+                        ) -> List[Optional[Dict[str, Any]]]:
+        """The micro-batcher's function: rh x rw BGR crops -> one
+        ``{"userId", "similarity"}`` per crop, or None each when the
+        gallery is empty."""
+        n = len(crops)
+        snap = self.gallery.snapshot()
+        if snap.count == 0:
+            log.warning("Feature matching: No faces in database")
+            return [None] * n
+        _, vals, idx = self.serving_embed(self.pad_batch(crops), snap)
+        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        return [{"userId": snap.names[int(idx[i, 0])],
+                 "similarity": float(vals[i, 0])} for i in range(n)]
+
+    # -- gallery management (reference /reload, src/app.cpp:354-365) ---------
+
+    def reload_gallery(self) -> int:
+        names, embs = self.db.get_embeddings()
+        self.gallery.load(names, embs)
+        self.user_dict = self.db.get_user_dict()
+        log.info("gallery reloaded: %d embeddings", len(names))
+        return len(names)
+
+
+def make_app(server: FaceServer):
+    from aiohttp import web
+
+    from facekit_torch.server.batcher import MicroBatcher, QueueFull
+
+    px = server.pixels
+    cfg = server.config
+
+    def run_blocking(fn, *args):
+        loop = asyncio.get_running_loop()
+        return loop.run_in_executor(server.executor, fn, *args)
+
+    def run_db(fn, *args):
+        """SQLite commits fsync: off the event loop, off the device thread
+        and off the decode pool."""
+        loop = asyncio.get_running_loop()
+        return loop.run_in_executor(server.enroll_pool, fn, *args)
+
+    # -- POST /insert/user (src/app.cpp:118-129) ------------------------------
+    async def insert_user(request):
+        try:
+            x = json.loads(await request.text())
+            user_id = x["userId"]
+            user_name = x["userName"]
+        except Exception:
+            return web.Response(status=400)
+        ret = await run_db(server.db.insert_user, user_id, user_name)
+        if ret == 1:
+            body = f"Success! User `{user_id}` inserted.\n"
+        else:
+            body = f"Fail! User `{user_id}` already in database.\n"
+        return web.Response(text=body)
+
+    # -- POST /insert/face (src/app.cpp:131-217), pre-cropped images ----------
+    def _insert_face_sync(body: str) -> str:
+        response = ""
+        try:
+            j = json.loads(body)
+        except json.JSONDecodeError:
+            return "Please check json input\n"
+        if "data" not in j:
+            return "Cant find field `data` in input!\n"
+        # the try wraps the whole loop (reference src/app.cpp:131-217): a
+        # failed element aborts the batch and its error string replaces the
+        # accumulated successes; earlier elements' inserts persist
+        try:
+            for el in j["data"]:
+                user_id = el["userId"]
+                img_path = el["imgPath"]
+                if not os.path.isfile(img_path):
+                    raise RuntimeError("Image path not found")
+                image = px.imread(img_path)
+                if image is None:
+                    raise RuntimeError("Image path not found")
+                # host-resize to the recognizer input first (reference
+                # src/app.cpp:148-162 cv::resize)
+                rh_, rw_ = cfg.rec_hw
+                if image.shape[:2] != (rh_, rw_):
+                    image = px.resize(image, (rw_, rh_))
+                # only the device call rides the device executor
+                emb = server.executor.submit(
+                    server.pipeline.embed_cropped, image).result()
+                ret = server.db.insert_face(user_id, img_path, emb)
+                if ret == 1:
+                    response += (f"Success! Embedding for `{user_id}` "
+                                 "inserted successfully.\n")
+                else:
+                    response += (f"Fail! Embedding for `{user_id}` "
+                                 "cannot be inserted.\n")
+        except RuntimeError as e:
+            log.warning("Exception: %s", e)
+            response = f"{e}\n"
+        return response
+
+    async def insert_face(request):
+        # a non-UTF-8 body must reach the JSON-failure contract path
+        try:
+            body = (await request.read()).decode("utf-8")
+        except UnicodeDecodeError:
+            return web.Response(text="Please check json input\n")
+        response = await run_db(_insert_face_sync, body)
+        return web.Response(text=response)
+
+    # -- GET /delete/user, /delete/face (src/app.cpp:219-241) ----------------
+    async def delete_user(request):
+        user_id = request.rel_url.query.get("id")
+        if user_id is None:
+            return web.Response(text="Failed\n")
+        await run_db(server.db.delete_user, user_id)
+        return web.Response(text="Success\n")
+
+    async def delete_face(request):
+        face_id = request.rel_url.query.get("id")
+        if face_id is None:
+            return web.Response(text="Failed\n")
+        await run_db(server.db.delete_face, int(face_id))
+        return web.Response(text="Success\n")
+
+    # -- POST /recognize (src/app.cpp:243-287), micro-batched -----------------
+    max_queue = int(cfg.extras.get("server_maxQueueDepth",
+                                   32 * server.batch_size))
+    recognize_batcher = MicroBatcher(server.recognize_batch, server.executor,
+                                     server.batch_size, server.batch_wait_ms,
+                                     max_queue=max_queue)
+    rh, rw = cfg.rec_hw
+
+    def run_decode(data, resize_wh=None):
+        """Image bytes -> BGR frame (or None), on the decode pool; the
+        queue wait is tracked as /metrics "decode_wait"."""
+        loop = asyncio.get_running_loop()
+        t0 = time.perf_counter()
+
+        def work():
+            server.metrics.observe("decode_wait", time.perf_counter() - t0)
+            return px.decode(data, resize_wh)
+        return loop.run_in_executor(server.decode_pool, work)
+
+    async def recognize(request):
+        data = await request.read()
+        with server.metrics.time("recognize"):
+            # the reference embeds the WHOLE image, no detection
+            # (:255-267), host-resizing to the recognizer input first
+            frame = await run_decode(data, (rw, rh))
+            retval = None
+            if frame is not None:
+                try:
+                    retval = await recognize_batcher.submit(frame)
+                except QueueFull:
+                    return web.Response(status=503,
+                                        text="Server overloaded\n")
+        if retval is None:
+            return web.Response(text="null",
+                                content_type="application/json")
+        return web.json_response(retval)
+
+    # -- GET /reload (src/app.cpp:354-365) ------------------------------------
+    async def reload(request):
+        await run_db(server.reload_gallery)
+        return web.Response(text="Success\n")
+
+    # -- facekit extensions ----------------------------------------------------
+    async def search_topk(request):
+        """POST /search?k=5 with raw image bytes: top-k gallery matches for
+        the whole image embedded as a face."""
+        try:
+            k = max(1, int(request.rel_url.query.get(
+                "k", cfg.gallery_topk or 5)))
+        except ValueError:
+            return web.Response(status=400, text="invalid k\n")
+        if k > 64:    # the search kernel's bound
+            return web.Response(status=400, text="k too large (max 64)\n")
+        data = await request.read()
+        frame = await run_decode(data, (rw, rh))
+
+        def _run():
+            if frame is None:
+                return None
+            emb = server.pipeline.embed_cropped(frame)
+            try:
+                vals, idx, names = server.gallery.search(
+                    emb[None].astype(np.float32), k=k)
+            except ValueError:
+                return None
+            return [{"userId": names[int(idx[0, j])],
+                     "userName": server.user_dict.get(
+                         names[int(idx[0, j])], ""),
+                     "similarity": float(vals[0, j])}
+                    for j in range(vals.shape[1])]
+
+        result = await run_blocking(_run)
+        if result is None:
+            return web.Response(text="null", content_type="application/json")
+        return web.json_response({"matches": result})
+
+    async def health(request):
+        return web.json_response({
+            "status": "ok",
+            "gallery_count": server.gallery.count,
+            "gallery_capacity": server.gallery.capacity,
+            "users": len(server.user_dict),
+        })
+
+    async def metrics(request):
+        snap = server.metrics.snapshot()
+        s = snap.setdefault("recognize", {})
+        b = recognize_batcher
+        if b.batches:
+            s["mean_batch_size"] = b.items / b.batches
+            s["batches"] = b.batches
+        s["queue_depth"] = b.depth
+        s["shed_count"] = b.sheds
+        s["max_queue"] = b.max_queue
+        return web.json_response(snap)
+
+    app = web.Application(client_max_size=64 * 1024 * 1024)
+    app.router.add_get("/metrics", metrics)
+    app.router.add_post("/insert/user", insert_user)
+    app.router.add_post("/insert/face", insert_face)
+    app.router.add_get("/delete/user", delete_user)
+    app.router.add_get("/delete/face", delete_face)
+    app.router.add_post("/recognize", recognize)
+    app.router.add_get("/reload", reload)
+    app.router.add_get("/health", health)
+    app.router.add_post("/search", search_topk)
+    return app
+
+
+def main(argv=None):
+    from facekit_torch.config import load_config
+
+    ap = argparse.ArgumentParser("facekit_torch server")
+    ap.add_argument("-c", "--config", default=None)
+    ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--db", default=None)
+    ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda; cpu to "
+                         "run on the CPU)")
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO)
+    cfg = load_config(args.config) if args.config else load_config({})
+    if args.db:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, database_path=args.db)
+    device = resolve_device(args.device)
+    server = FaceServer(cfg, warmup=not args.no_warmup, device=device)
+    app = make_app(server)
+    from aiohttp import web
+    web.run_app(app, port=args.port or cfg.server_port)
+
+
+if __name__ == "__main__":
+    main()

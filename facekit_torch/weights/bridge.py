@@ -1,0 +1,167 @@
+"""Parameter carry-over from facekit's layout to the port's modules.
+
+facekit keeps parameters as a pytree of nested dicts and lists (NHWC
+layers, HWIO conv weights, ``facekit/models/layers.py:7``), saved as msgpack
+by ``flax.serialization.to_bytes`` (``facekit/weights/io.py:15-17``). The
+port's modules name their parameters after the same tree paths, joined
+with dots (``blocks.3.conv1``, ``output.linear.w``), so the carry-over is a
+flatten plus one layout change:
+
+  * conv weights go from HWIO to OIHW;
+  * the linear weight stays in torch's ``(out, in)`` layout
+    (``facekit/models/layers.py:198-201``);
+  * batch-norm keeps ``scale/bias/mean/var`` (eps 1e-5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import msgpack
+import numpy as np
+import torch
+
+from facekit_torch.models.arcface import block_specs
+
+_EXT_NDARRAY = 1         # flax's msgpack ext codes
+_EXT_NPSCALAR = 3
+
+
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+    shape = tuple(shape)
+    if dtype_name == b"bfloat16":
+        # numpy has no bfloat16: widen the bits to float32 (exact)
+        bits = np.frombuffer(buf, "<u2").astype("<u4") << 16
+        return bits.view("<f4").reshape(shape)
+    return np.frombuffer(buf, np.dtype(dtype_name.decode())).reshape(shape).copy()
+
+
+def _ext_hook(code: int, data: bytes):
+    if code == _EXT_NDARRAY:
+        return _ndarray_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
+    raise ValueError(f"unsupported msgpack ext type {code}")
+
+
+def load_params(path: str) -> Dict[str, Any]:
+    """Read a param file that ``facekit.weights.save_params`` wrote.
+
+    Returns the nested dicts as stored: flax writes a list as a dict with
+    keys ``"0"``, ``"1"``, ...; ``from_jax`` accepts either form.
+    """
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False,
+                               strict_map_key=False)
+    if _has_chunked(tree):
+        raise ValueError(f"{path}: chunked (>1 GiB) array leaves are not "
+                         "supported")
+    return tree
+
+
+def _has_chunked(node) -> bool:
+    if isinstance(node, dict):
+        return ("__msgpack_chunked_array__" in node
+                or any(_has_chunked(v) for v in node.values()))
+    return False
+
+
+def _flatten(node, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    if isinstance(node, Mapping):
+        items = node.items()
+    elif isinstance(node, (list, tuple)):
+        items = enumerate(node)
+    else:
+        out[prefix] = np.asarray(node, np.float32)
+        return
+    for key, value in items:
+        _flatten(value, f"{prefix}.{key}" if prefix else str(key), out)
+
+
+def from_jax(params, network: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """facekit param pytree (numpy or array leaves) -> ``network``'s
+    ``state_dict``.
+
+    Every key of the network must be supplied, every supplied key must be
+    used, and shapes must match; anything else raises.
+    """
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(params, "", flat)
+    expected = network.state_dict()
+    missing = sorted(set(expected) - set(flat))
+    unused = sorted(set(flat) - set(expected))
+    if missing or unused:
+        raise ValueError(f"param tree does not fit {type(network).__name__}: "
+                         f"missing {missing[:5]}, unused {unused[:5]}")
+    out = {}
+    for key, ref in expected.items():
+        arr = flat[key]
+        if arr.ndim == 4:                      # HWIO -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: shape {arr.shape} does not fit "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+    return out
+
+
+# -- random parameters, drawn with numpy -------------------------------------
+
+def _xavier_hwio(rng, o, i, kh, kw):
+    a = np.sqrt(6.0 / (i * kh * kw + o * kh * kw))
+    w = rng.uniform(-a, a, size=(o, i, kh, kw)).astype(np.float32)
+    return w.transpose(2, 3, 1, 0)
+
+
+def _bn(rng, c):
+    """Inference BN statistics near identity, drawn so the carry-over of
+    each field is exercised."""
+    return {
+        "scale": rng.uniform(0.8, 1.2, c).astype(np.float32),
+        "bias": rng.uniform(-0.1, 0.1, c).astype(np.float32),
+        "mean": rng.uniform(-0.1, 0.1, c).astype(np.float32),
+        "var": rng.uniform(0.8, 1.2, c).astype(np.float32),
+    }
+
+
+def random_arcface_params(network: str = "ir_50", seed: int = 0,
+                          input_size: int = 112,
+                          embed_dim: int = 512) -> Dict[str, Any]:
+    """Random ArcFace params in facekit's layout (the tree
+    ``facekit.models.arcface_init`` returns), drawn from ``seed`` with
+    numpy so both packages can be fed the same values."""
+    rng = np.random.default_rng(seed)
+    se = network.startswith("ir_se")
+    fmap = input_size // 16
+    blocks = []
+    for c, depth, _ in block_specs(network):
+        blk = {
+            "bn1": _bn(rng, c),
+            "conv1": _xavier_hwio(rng, depth, c, 3, 3),
+            "prelu": rng.uniform(0.2, 0.3, depth).astype(np.float32),
+            "conv2": _xavier_hwio(rng, depth, depth, 3, 3),
+            "bn2": _bn(rng, depth),
+        }
+        if c != depth:
+            blk["shortcut"] = {"conv": _xavier_hwio(rng, depth, c, 1, 1),
+                               "bn": _bn(rng, depth)}
+        if se:
+            blk["se"] = {"fc1": _xavier_hwio(rng, depth // 16, depth, 1, 1),
+                         "fc2": _xavier_hwio(rng, depth, depth // 16, 1, 1)}
+        blocks.append(blk)
+    lin_in = 512 * fmap * fmap
+    a = np.sqrt(6.0 / (lin_in + embed_dim))
+    return {
+        "input": {"conv": _xavier_hwio(rng, 64, 3, 3, 3), "bn": _bn(rng, 64),
+                  "prelu": rng.uniform(0.2, 0.3, 64).astype(np.float32)},
+        "blocks": blocks,
+        "output": {
+            "bn2d": _bn(rng, 512),
+            "linear": {"w": rng.uniform(-a, a, (embed_dim, lin_in))
+                       .astype(np.float32),
+                       "b": rng.uniform(-0.01, 0.01, embed_dim)
+                       .astype(np.float32)},
+            "bn1d": _bn(rng, embed_dim),
+        },
+    }
