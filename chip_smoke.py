@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Smoke test of facekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version at the top gallery bucket (N = 1,048,576), then
-drives the server's /recognize + enrollment path of configs/default.json
-(IR-50, bf16) on the card and checks what comes out. Prints one JSON line
-per phase, the ``kernels`` line, the card's name and power limit, and as
-the last line ``{"ok": true, "device": {...}}``. Any failed phase exits
-non-zero; nothing falls back to the CPU or to a plain version. Without
-CUDA it exits non-zero and prints no result. Imports nothing of JAX.
+Builds the port's three CUDA kernels from this checkout and holds each
+against its plain PyTorch version: the bf16/f32 and the int8 gallery
+searches at the top gallery bucket (N = 1,048,576), the s8 convolution at
+every conv shape of the int8 IR-50 at batch 64 and at the TPU kernel's own
+shape. Then it drives two serving paths on the card and checks what comes
+out: /recognize + enrollment of configs/default.json (IR-50, bf16) and of
+configs/throughput.json (int8 IR-50, int8 gallery, batches of 1, 8 and
+64), with dynamic and with calibrated activation scales. Each path runs
+with every kernel's launch count set to 0 just before it and read just
+after. Prints one JSON line per phase, the ``kernels`` line, the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``. Any failed phase exits non-zero; nothing falls back to the CPU
+or to a plain version. Without CUDA it exits non-zero and prints no
+result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,9 +34,30 @@ N_TOP = 1 << 20          # top bucket of the default gallery ladder
 DIM = 512
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,               # tensor cores, dense
-            "float32": 67e12}                 # outside the tensor cores
+            "float32": 67e12,                 # outside the tensor cores
+            "int8": 1979e12}                  # tensor cores, dense
 SCORE_ATOL = 1e-4        # f32 sums over D=512 in another order
 COS_DIST_MAX = 1e-3      # bf16 embeddings vs f32 (BASELINE.json north star)
+INT8_COS_DIST_MAX = 5e-3  # int8 embeddings vs f32 (facekit's own int8 bar,
+#                           tests/test_model_parity.py:158-175)
+SITES_PER_FORWARD = 52   # int8 IR-50: stem, 24 x (conv1, conv2), 3 shortcuts
+KERNEL4_SHAPE = (256, 112, 112, 64, 64, 3, 2, 1)   # N, H, W, C, O, k, s, p
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    from facekit_torch.ops.conv_s8 import conv_s8
+    from facekit_torch.ops.similarity import cosine_topk, cosine_topk_int8
+    for fn in (cosine_topk, cosine_topk_int8, conv_s8):
+        fn.launches = 0
+
+
+def launches():
+    from facekit_torch.ops.conv_s8 import conv_s8
+    from facekit_torch.ops.similarity import cosine_topk, cosine_topk_int8
+    return {"cosine_topk": cosine_topk.launches,
+            "cosine_topk_int8": cosine_topk_int8.launches,
+            "conv_s8": conv_s8.launches}
 
 
 def emit(obj) -> None:
@@ -175,8 +202,7 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
     import torch
 
     from facekit_torch.config import load_config
-    from facekit_torch.ops.similarity import (cosine_topk,
-                                              cosine_topk_reference)
+    from facekit_torch.ops.similarity import cosine_topk_reference
     from facekit_torch.pipeline import FacePipeline
     from facekit_torch.server import FaceServer
     from facekit_torch.weights import random_arcface_params
@@ -194,7 +220,7 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
             tmp, "facekit.db"))
         server = FaceServer(cfg, rec_params=params, device=device)
         try:
-            cosine_topk.launches = 0
+            reset_launches()
             # -- the main path: enrollment as /insert/face makes it, then
             #    /recognize through the micro-batcher's function
             for u in range(n_users):
@@ -207,10 +233,11 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
             answers = [server.recognize_batch([queries[0]]),
                        server.recognize_batch(list(queries))]
             torch.cuda.synchronize()
-            launches = cosine_topk.launches
-            if launches < 2:
-                raise AssertionError(f"search kernel launched {launches} "
-                                     "times on the /recognize path")
+            counts = launches()
+            if counts["cosine_topk"] < 2 or counts["cosine_topk_int8"] or \
+                    counts["conv_s8"]:
+                raise AssertionError(f"launches on the /recognize path of "
+                                     f"configs/default.json: {counts}")
 
             # -- checks
             snap = server.gallery.snapshot()
@@ -258,7 +285,7 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
                    "network": cfg.rec_network, "dtype": cfg.compute_dtype,
                    "users": n_users, "requests": len(queries),
                    "gallery_capacity": server.gallery.capacity,
-                   "launches": launches, "max_abs_err": err,
+                   "launches": counts["cosine_topk"], "max_abs_err": err,
                    "cos_dist_vs_f32_cpu": cos_dist,
                    "min_enrolled_similarity": float(sims[:4].min()),
                    "embed_match_ms_b1": embed_match_ms(1),
@@ -267,6 +294,373 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
             return rec
         finally:
             server.close()
+
+
+def int8_search_bound(n_rows: int, b: int, k: int):
+    """Least time (ms) for one int8 search on an H100 SXM and what bounds
+    it: the int8 rows the search needs and their f32 scales, the f32
+    queries read once, the outputs written once; 2*B*rows*D operations at
+    the int8 tensor-core rate."""
+    nbytes = n_rows * (DIM + 4) + b * DIM * 4 + b * k * 8
+    ops = 2 * b * n_rows * DIM
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["int8"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def int8_library_call(gq, gs, count, k):
+    """The library yardstick for the int8 search: ``torch._int_mm`` of the
+    quantized queries (padded to at least 32 rows, as it takes more than
+    16) and the gallery, scaled, then ``torch.topk``. Returns (fn of the
+    f32 queries, what is timed, why ``_int_mm(q, g[:count].T)`` itself was
+    refused or None)."""
+    import torch
+
+    from facekit_torch.ops.similarity import NEG_INF, quantize_rows_int8
+
+    def prep(q):
+        qq, qs = quantize_rows_int8(q)
+        pad = max(32, -(-qq.shape[0] // 8) * 8) - qq.shape[0]
+        return torch.nn.functional.pad(qq, (0, 0, 0, pad)), qs
+
+    def exact(q):
+        qq, qs = prep(q)
+        acc = torch._int_mm(qq, gq[:count].T)[:q.shape[0]]
+        return torch.topk((acc.float() * qs[:, None]) * gs[None, :count], k)
+
+    def masked(q):
+        qq, qs = prep(q)
+        acc = torch._int_mm(qq, gq.T)[:q.shape[0]]
+        s = (acc.float() * qs[:, None]) * gs[None, :]
+        s[:, count:] = NEG_INF
+        return torch.topk(s, k)
+
+    try:
+        exact(torch.zeros((1, DIM), device=gq.device))
+        return exact, "_int_mm(q, g[:count].T) + topk", None
+    except RuntimeError as e:
+        return (masked, "_int_mm(q, g.T) over all N rows, masked + topk",
+                str(e).splitlines()[0])
+
+
+def phase_int8_kernels(device, n=N_TOP, seed=2):
+    """The int8 search kernel against its plain version at N rows: scores
+    bit for bit, indices equal."""
+    import torch
+
+    from facekit_torch.ops.similarity import (cosine_topk_int8,
+                                              cosine_topk_int8_reference,
+                                              quantize_rows_int8)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def unit_rows(rows):
+        x = torch.randn((rows, DIM), generator=gen, device=device)
+        return x / x.norm(dim=1, keepdim=True)
+
+    g32 = unit_rows(n)
+    gq, gs = quantize_rows_int8(g32)
+    count = n - 37
+
+    def check(tag, kern, plain):
+        if not (torch.equal(kern[0], plain[0])
+                and torch.equal(kern[1], plain[1])):
+            raise AssertionError(f"int8 {tag}: kernel differs from the plain "
+                                 "version")
+
+    timings = []
+    for b in (1, 8, 64, 256):
+        for k in (1, 64):
+            qs = [unit_rows(b) for _ in range(4)]
+            check(f"B={b} k={k}", cosine_topk_int8(gq, gs, qs[0], count, k),
+                  cosine_topk_int8_reference(gq, gs, qs[0], count, k))
+            args = [(gq, gs, q, count, k) for q in qs]
+            bound, by = int8_search_bound(min(n, count + k), b, k)
+            lib_fn, lib_what, lib_refused = int8_library_call(gq, gs, count,
+                                                              k)
+            rec = {"phase": "kernel_int8_case", "N": n, "count": count,
+                   "B": b, "k": k, "max_abs_err": 0.0,
+                   "ms": cuda_ms(cosine_topk_int8, args, 20),
+                   "plain_ms": cuda_ms(cosine_topk_int8_reference, args, 3),
+                   "library_ms": cuda_ms(
+                       lambda g_, s_, q_, c_, k_: lib_fn(q_), args, 10),
+                   "library_call": lib_what, "library_refused": lib_refused,
+                   "bound_ms": bound, "bound_by": by}
+            emit(rec)
+            timings.append(rec)
+
+    # the query tiles the timed batches do not reach (2 and 4 queries)
+    for b in (2, 3):
+        q = unit_rows(b)
+        check(f"B={b} k=5", cosine_topk_int8(gq, gs, q, count, 5),
+              cosine_topk_int8_reference(gq, gs, q, count, 5))
+
+    # ties: row j duplicates row i < j and the query is that row, so the
+    # two equal top scores must come back lower index first
+    b = 8
+    lo = torch.arange(b, device=device) * (n // (2 * b)) + 17
+    hi = lo + n // 2
+    gqt, gst = gq.clone(), gs.clone()
+    gqt[hi], gst[hi] = gqt[lo], gst[lo]
+    q = g32[lo].contiguous()
+    v, i = cosine_topk_int8(gqt, gst, q, n, 2)
+    check("ties", (v, i), cosine_topk_int8_reference(gqt, gst, q, n, 2))
+    i = i.cpu().numpy()
+    if not (np.array_equal(i[:, 0], lo.cpu().numpy())
+            and np.array_equal(i[:, 1], hi.cpu().numpy())
+            and torch.equal(v[:, 0], v[:, 1])):
+        raise AssertionError(f"int8 ties: got {i.tolist()}")
+    del gqt, gst
+
+    # k > count: the masked padding rows follow in ascending order
+    q = unit_rows(8)
+    kern = cosine_topk_int8(gq, gs, q, 3, 8)
+    check("k>count", kern, cosine_topk_int8_reference(gq, gs, q, 3, 8))
+    if not np.array_equal(kern[1].cpu().numpy()[:, 3:],
+                          np.tile(np.arange(3, 8), (8, 1))):
+        raise AssertionError(f"int8 k>count: {kern[1].tolist()}")
+    torch.cuda.synchronize()
+    return timings
+
+
+def ir50_conv_shapes(batch: int):
+    """{(N, H, W, C, O, k, stride, pad): [site names]} of the int8 IR-50's
+    52 conv sites at ``batch``, in the order a forward meets them."""
+    from facekit_torch.models.arcface import block_specs
+    shapes = {}
+    h = 112
+    shapes.setdefault((batch, h, h, 3, 64, 3, 1, 1), []).append("input")
+    for i, (in_c, depth, stride) in enumerate(block_specs("ir_50")):
+        shapes.setdefault((batch, h, h, in_c, depth, 3, 1, 1),
+                          []).append(f"b{i}.conv1")
+        shapes.setdefault((batch, h, h, depth, depth, 3, stride, 1),
+                          []).append(f"b{i}.conv2")
+        if in_c != depth:
+            shapes.setdefault((batch, h, h, in_c, depth, 1, stride, 0),
+                              []).append(f"b{i}.shortcut")
+        h = (h - 1) // stride + 1
+    if sum(len(v) for v in shapes.values()) != SITES_PER_FORWARD:
+        raise AssertionError("IR-50 does not have 52 conv sites")
+    return shapes
+
+
+def conv_bound(n, h, w, c, o, ks, stride, pad):
+    """Least time (ms) of one s8 conv on an H100 SXM and what bounds it:
+    x and w read once, the int32 output written once; 2*M*O*K operations
+    at the int8 tensor-core rate."""
+    oh = (h + 2 * pad - ks) // stride + 1
+    ow = (w + 2 * pad - ks) // stride + 1
+    nbytes = n * h * w * c + o * ks * ks * c + 4 * n * oh * ow * o
+    ops = 2 * n * oh * ow * o * ks * ks * c
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["int8"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_conv(device, batch=64, seed=3):
+    """The s8 conv kernel against its plain version (bit for bit) at every
+    conv shape of the int8 IR-50 at ``batch`` and at the TPU kernel's own
+    shape; cuDNN's bf16 conv of the same shape timed beside it as a guide
+    only (another function, which the port does not call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from facekit_torch.ops.conv_s8 import conv_s8, conv_s8_reference
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cases = [(shape, len(sites), ",".join(sites[:3])
+              + (",..." if len(sites) > 3 else ""))
+             for shape, sites in ir50_conv_shapes(batch).items()]
+    cases.append((KERNEL4_SHAPE, 0, "kernel #4 (conv_s8_s2_pallas)"))
+    out = []
+    for (n, h, w, c, o, ks, stride, pad), per_forward, sites in cases:
+        xs = [torch.randint(-127, 128, (n, h, w, c), generator=gen,
+                            device=device, dtype=torch.int8)
+              for _ in range(2)]
+        wt = torch.randint(-127, 128, (o, ks, ks, c), generator=gen,
+                           device=device, dtype=torch.int8)
+        got = conv_s8(xs[0], wt, stride, pad)
+        ref = conv_s8_reference(xs[0], wt, stride, pad)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"conv_s8 {(n, h, w, c, o, ks, stride, pad)}: "
+                f"{int((got != ref).sum())} outputs differ from the plain "
+                "version")
+        del got, ref
+        args = [(x, wt, stride, pad) for x in xs]
+        xb = [x.permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
+        wb = wt.permute(0, 3, 1, 2).to(torch.bfloat16)
+        bound, by = conv_bound(n, h, w, c, o, ks, stride, pad)
+        rec = {"phase": "conv_s8_case",
+               "shape": {"N": n, "H": h, "W": w, "C": c, "O": o, "k": ks,
+                         "stride": stride, "pad": pad},
+               "sites": sites, "launches_per_forward": per_forward,
+               "max_abs_err": 0,
+               "ms": cuda_ms(conv_s8, args, 10),
+               "plain_ms": cuda_ms(conv_s8_reference, args, 2),
+               "bf16_cudnn_ms": cuda_ms(
+                   lambda x_, w_: F.conv2d(x_, w_, stride=stride,
+                                           padding=pad),
+                   [(x, wb) for x in xb], 10),
+               "library_ms": None,
+               "bound_ms": bound, "bound_by": by}
+        emit(rec)
+        out.append(rec)
+        del xs, xb
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_server_throughput(device, repo_dir, seed=4, n_users=32):
+    """configs/throughput.json's /recognize + enrollment path on the card:
+    the int8 IR-50 (every conv through conv_s8) and the int8 gallery
+    (cosine_topk_int8), batches of 1, 8 and 64 crops; with dynamic
+    activation scales (no calibration folder), then with scales
+    calibrated from a folder of crops."""
+    import cv2
+
+    from facekit_torch.config import load_config
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.server import FaceServer
+    from facekit_torch.weights import random_arcface_params
+
+    rng = np.random.default_rng(seed)
+    cfg = load_config(os.path.join(repo_dir, "configs", "throughput.json"))
+    params = random_arcface_params(cfg.rec_network, seed=seed)
+    rh, rw = cfg.rec_hw
+    crops = rng.integers(0, 256, (n_users, rh, rw, 3), dtype=np.uint8)
+    fresh = rng.integers(0, 256, (64, rh, rw, 3), dtype=np.uint8)
+    enrolled_q = [0, 5, 10, n_users - 1]
+    # requests of 1, 8 and 64 crops, each led by enrolled crops
+    batches = [crops[:1],
+               np.concatenate([crops[enrolled_q], fresh[:4]]),
+               np.concatenate([crops[enrolled_q], fresh[:60]])]
+    e_cpu = FacePipeline(dataclasses.replace(
+        cfg, rec_quantize=False, compute_dtype="float32"), params,
+        device="cpu").embed_cropped_batch(batches[1])
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        calib_dir = os.path.join(tmp, "crops")
+        os.mkdir(calib_dir)
+        for i, c in enumerate(crops[:16]):
+            cv2.imwrite(os.path.join(calib_dir, f"c{i:02d}.png"), c)
+        for mode in ("dynamic", "calibrated"):
+            extras = dict(cfg.extras)
+            extras.pop("rec_calibrationDir", None)
+            if mode == "calibrated":
+                extras["rec_calibrationDir"] = calib_dir
+            run_cfg = dataclasses.replace(
+                cfg, extras=extras,
+                database_path=os.path.join(tmp, f"{mode}.db"))
+            server = FaceServer(run_cfg, rec_params=params, device=device)
+            try:
+                results.append(_throughput_run(
+                    server, mode, crops, batches, enrolled_q, e_cpu, rng))
+            finally:
+                server.close()
+    return results
+
+
+def _throughput_run(server, mode, crops, batches, enrolled_q, e_cpu, rng):
+    import torch
+
+    from facekit_torch.ops.preprocess import rec_normalize
+    from facekit_torch.ops.similarity import cosine_topk_int8_reference
+
+    want = "static" if mode == "calibrated" else "dynamic"
+    if server.pipeline.rec_net.int8 != want:
+        raise AssertionError(f"{mode}: the embedder is "
+                             f"{server.pipeline.rec_net.int8}")
+    rh, rw = server.config.rec_hw
+    n_users = len(crops)
+    reset_launches()
+    # -- the main path: enrollment as /insert/face makes it, then
+    #    /recognize through the micro-batcher's function at 1, 8, 64 crops
+    for u in range(n_users):
+        uid = f"user{u:02d}"
+        server.db.insert_user(uid, f"User {u}")
+        emb = server.pipeline.embed_cropped(crops[u])
+        if server.db.insert_face(uid, f"crop{u}.jpg", emb) != 1:
+            raise AssertionError(f"insert_face failed for {uid}")
+    server.reload_gallery()
+    answers = [server.recognize_batch(list(b)) for b in batches]
+    torch.cuda.synchronize()
+    counts = launches()
+    forwards = n_users + len(batches)
+    if counts["conv_s8"] != SITES_PER_FORWARD * forwards or \
+            counts["cosine_topk_int8"] < len(batches) or \
+            counts["cosine_topk"]:
+        raise AssertionError(f"{mode}: launches {counts} on the throughput "
+                             f"path ({forwards} forwards, {len(batches)} "
+                             "batches)")
+
+    # -- checks
+    snap = server.gallery.snapshot()
+    if snap.arr.dtype != torch.int8:
+        raise AssertionError(f"{mode}: gallery {snap.arr.dtype}")
+    min_sim = 1.0
+    for b, ans in zip(batches, answers):
+        emb, vals, idx = server.serving_embed(server.pad_batch(list(b)), snap)
+        names = [snap.names[int(i)] for i in idx[:len(b), 0].cpu()]
+        if [a["userId"] for a in ans] != names:
+            raise AssertionError(f"{mode}: recognize_batch {ans} != "
+                                 f"serving_embed {names}")
+        _, plain_i = cosine_topk_int8_reference(snap.arr, snap.scales,
+                                                emb.float(), snap.count, 1)
+        if not torch.equal(plain_i[:len(b), 0], idx[:len(b), 0]):
+            raise AssertionError(f"{mode}: userIds differ from the plain "
+                                 "search")
+        sims = vals[:len(b), 0].cpu().numpy()
+        for j in range(min(len(b), len(enrolled_q))):
+            u = enrolled_q[j] if len(b) > 1 else 0
+            if names[j] != f"user{u:02d}" or sims[j] < 0.99:
+                raise AssertionError(f"{mode}: enrolled crop {u}: got "
+                                     f"{names[j]} at similarity {sims[j]}")
+            min_sim = min(min_sim, float(sims[j]))
+
+    # drift from the port's f32 float embedder (on the CPU)
+    e_gpu = server.pipeline.embed_cropped_batch(batches[1])
+    if not np.all(np.isfinite(e_gpu)) or e_gpu.shape != (8, DIM):
+        raise AssertionError(f"{mode}: embeddings not finite (8, 512)")
+    cos_dist = float((1 - (e_cpu * e_gpu).sum(-1)).max())
+    if cos_dist > INT8_COS_DIST_MAX:
+        raise AssertionError(f"{mode}: int8 card vs f32 CPU embeddings: "
+                             f"cosine distance {cos_dist}")
+
+    # batch invariance on the card: a 50x louder neighbour changes nothing
+    with torch.inference_mode():
+        x = rec_normalize(torch.tensor(batches[2],
+                                       device=server.device).float())
+        y = x.clone()
+        y[3] *= 50.0
+        net = server.pipeline.rec_net
+        ex, ey = net(x), net(y)
+    keep = [i for i in range(x.shape[0]) if i != 3]
+    if not torch.equal(ex[keep], ey[keep]):
+        raise AssertionError(f"{mode}: embeddings move with a loud batch "
+                             "neighbour")
+
+    # -- embed + match latency at each batch bucket
+    def embed_match_ms(b, reps=12):
+        ts = []
+        for _ in range(reps):
+            batch = rng.integers(0, 256, (b, rh, rw, 3), np.uint8)
+            t0 = time.perf_counter()
+            _, v, _ = server.serving_embed(server.pad_batch(list(batch)),
+                                           snap)
+            v.cpu()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts[2:])
+    rec = {"phase": "server_throughput", "config": "configs/throughput.json",
+           "scales": mode, "network": server.config.rec_network,
+           "dtype": server.config.compute_dtype, "users": n_users,
+           "batches": [len(b) for b in batches], "forwards": forwards,
+           "gallery_capacity": server.gallery.capacity,
+           "launches": counts, "cos_dist_vs_f32_cpu": cos_dist,
+           "min_enrolled_similarity": min_sim, "batch_invariant": True,
+           "embed_match_ms_b1": embed_match_ms(1),
+           "embed_match_ms_b8": embed_match_ms(8),
+           "embed_match_ms_b64": embed_match_ms(64)}
+    emit(rec)
+    return rec
 
 
 def main() -> int:
@@ -295,8 +689,15 @@ def main() -> int:
 
     max_err, timings = phase_kernels("cuda")
     server = phase_server("cuda", repo_dir)
+    int8_timings = phase_int8_kernels("cuda")
+    convs = phase_conv("cuda")
+    tput = phase_server_throughput("cuda", repo_dir)
+
     main_case = next(t for t in timings if t["dtype"] == "bfloat16"
                      and t["B"] == 8 and t["k"] == 1)
+    int8_case = next(t for t in int8_timings if t["B"] == 64 and t["k"] == 1)
+    conv_case = next(c for c in convs if c["launches_per_forward"] == 0)
+    k4 = conv_case["shape"]
     emit({"kernels": [{
         "name": "cosine_topk", "route": "cuda",
         "source": "facekit_torch/ops/csrc/cosine_topk.cu",
@@ -307,7 +708,30 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": f"bf16 N={main_case['N']} count={main_case['count']} "
-                 "B=8 k=1"}]})
+                 "B=8 k=1"}, {
+        "name": "cosine_topk_int8", "route": "cuda",
+        "source": "facekit_torch/ops/csrc/cosine_topk_int8.cu",
+        "replaces": "facekit/ops/similarity.py:183",
+        "launches": tput[0]["launches"]["cosine_topk_int8"],
+        "max_abs_err": 0.0,
+        "ms": int8_case["ms"], "plain_ms": int8_case["plain_ms"],
+        "bound_ms": int8_case["bound_ms"], "bound_by": int8_case["bound_by"],
+        "library_ms": int8_case["library_ms"],
+        "library_call": int8_case["library_call"],
+        "shape": f"int8 N={int8_case['N']} count={int8_case['count']} "
+                 "B=64 k=1"}, {
+        "name": "conv_s8", "route": "cuda",
+        "source": "facekit_torch/ops/csrc/conv_s8.cu",
+        "replaces": "docs/experiments/pallas_s8_stride2_conv.py:86",
+        "launches": tput[0]["launches"]["conv_s8"],
+        "max_abs_err": 0,
+        "ms": conv_case["ms"], "plain_ms": conv_case["plain_ms"],
+        "bound_ms": conv_case["bound_ms"], "bound_by": conv_case["bound_by"],
+        "library_ms": None,
+        "library_note": "PyTorch has no s8 convolution on CUDA",
+        "bf16_cudnn_ms": conv_case["bf16_cudnn_ms"],
+        "shape": f"s8 N={k4['N']} {k4['H']}x{k4['W']}x{k4['C']} -> "
+                 f"{k4['O']}, 3x3 stride 2 pad 1"}]})
     print(power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -50,7 +50,7 @@ class FaceKitConfig:
     rec_knownPersonThreshold: float = 0.65
     rec_weights: Optional[str] = None
     rec_network: str = "ir_50"               # ir_50|ir_101|ir_152|ir_se_50|...
-    rec_quantize: bool = False               # int8 embedder (not ported yet)
+    rec_quantize: bool = False               # int8 embedder (models/arcface.py)
     det_quantize: bool = False               # int8 detector (not ported yet)
 
     # --- batch-enrollment ("gen") mode (reference src/app.cpp:69-99) -------

@@ -12,21 +12,27 @@ padding rows, and a float32 host mirror:
   * the device tensor is always a *copy* of the host mirror:
     ``torch.from_numpy`` aliases its buffer, and ``add`` writes the mirror
     in place (``facekit/gallery/store.py:154-172`` copies for the same
-    reason).
+    reason);
+  * ``dtype="int8"`` keeps int8 rows with per-row f32 scales on the device
+    (``quantize_rows_int8`` of the f32 mirror on every rebuild; one row and
+    its scale on ``add``) and searches them with ``cosine_topk_int8``
+    (``facekit/gallery/store.py:89-92``, ``:161-165``, ``:219-225``).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from facekit_torch.ops.similarity import cosine_topk
+from facekit_torch.ops.similarity import (cosine_topk, cosine_topk_int8,
+                                          quantize_rows_int8)
 from facekit_torch.utils.device import resolve_device
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.int8}
 
 
 def _bucket_capacity(n: int, buckets: Sequence[int]) -> int:
@@ -39,10 +45,12 @@ def _bucket_capacity(n: int, buckets: Sequence[int]) -> int:
 
 
 class GallerySnapshot(NamedTuple):
-    """Consistent view: the tensor, its live count and the matching names."""
+    """Consistent view: the tensor, its live count, the matching names and,
+    for an int8 gallery, its per-row scales (None otherwise)."""
     arr: torch.Tensor
     count: int
     names: List[str]
+    scales: Optional[torch.Tensor] = None
 
 
 class GalleryStore:
@@ -52,13 +60,13 @@ class GalleryStore:
                  buckets: Sequence[int] = (1024, 8192, 65536, 1 << 20),
                  dtype: str = "bfloat16", device=None):
         if dtype not in _DTYPES:
-            raise ValueError(
-                f"gallery_dtype {dtype!r} is not ported yet: the int8 "
-                "gallery and its search kernel are ROADMAP Queue 2 #2 "
-                "(cosine_topk_int8_pallas)")
+            raise ValueError(f"gallery_dtype {dtype!r}: one of "
+                             f"{sorted(_DTYPES)}")
         self.embed_dim = embed_dim
         self.buckets = tuple(buckets)
         self.dtype = _DTYPES[dtype]
+        self.quantized = dtype == "int8"
+        self._scales: Optional[torch.Tensor] = None
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._names: List[str] = []
@@ -88,8 +96,12 @@ class GalleryStore:
             buf = np.zeros((cap, self.embed_dim), np.float32)
             buf[:n] = self._host_buf[:n]
             self._host_buf = buf
-        self._device_arr = torch.from_numpy(self._host_buf).to(
-            device=self.device, dtype=self.dtype, copy=True)
+        if self.quantized:
+            self._device_arr, self._scales = quantize_rows_int8(
+                torch.from_numpy(self._host_buf).to(self.device, copy=True))
+        else:
+            self._device_arr = torch.from_numpy(self._host_buf).to(
+                device=self.device, dtype=self.dtype, copy=True)
 
     # -- mutation (mirrors addEmbedding/resetEmbeddings/initMatMul) ----------
 
@@ -126,17 +138,23 @@ class GalleryStore:
                 return
             self._host_buf[i] = emb
             # in place: row i is padding to every outstanding snapshot
-            self._device_arr[i] = torch.tensor(emb, dtype=self.dtype,
-                                               device=self.device)
+            row = torch.tensor(emb, device=self.device)
+            if self.quantized:
+                q, scale = quantize_rows_int8(row[None])
+                self._device_arr[i] = q[0]
+                self._scales[i] = scale[0]
+            else:
+                self._device_arr[i] = row.to(self.dtype)
 
     # -- search ---------------------------------------------------------------
 
     def snapshot(self) -> GallerySnapshot:
-        """Atomic (tensor, count, names) view. The names list is shared,
-        not copied (every mutation rebinds it): treat it as immutable."""
+        """Atomic (tensor, count, names, scales) view. The names list is
+        shared, not copied (every mutation rebinds it): treat it as
+        immutable."""
         with self._lock:
             return GallerySnapshot(self._device_arr, len(self._names),
-                                   self._names)
+                                   self._names, self._scales)
 
     def search(self, queries, k: int = 1
                ) -> Tuple[np.ndarray, np.ndarray, List[str]]:
@@ -144,12 +162,18 @@ class GalleryStore:
 
         ``names`` is the snapshot matching the indices, so a concurrent
         reload cannot skew the id mapping. Queries are cast to the gallery
-        dtype before the search (``facekit/pipeline/recognize.py:222``).
+        dtype before a float search (``facekit/pipeline/recognize.py:222``)
+        and go to the int8 search in f32.
         """
-        arr, count, names = self.snapshot()
+        arr, count, names, scales = self.snapshot()
         if count == 0:
             raise ValueError(
                 "Feature matching: No faces in database")  # reference msg
-        q = torch.as_tensor(queries).to(device=self.device, dtype=self.dtype)
-        vals, idx = cosine_topk(arr, q.contiguous(), count, min(k, count))
+        q = torch.as_tensor(queries).to(self.device)
+        if self.quantized:
+            vals, idx = cosine_topk_int8(arr, scales, q.float().contiguous(),
+                                         count, min(k, count))
+        else:
+            vals, idx = cosine_topk(arr, q.to(self.dtype).contiguous(), count,
+                                    min(k, count))
         return vals.cpu().numpy(), idx.cpu().numpy(), names

@@ -1,5 +1,8 @@
 from facekit_torch.models.arcface import (  # noqa: F401
     ARCFACE_STAGE_UNITS,
     ArcFace,
+    arcface_act_amax,
     block_specs,
+    calibrate_arcface_int8,
+    quantize_arcface,
 )

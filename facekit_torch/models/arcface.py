@@ -1,4 +1,4 @@
-"""ArcFace IR/IR-SE backbones as ``nn.Module``s, float path.
+"""ArcFace IR/IR-SE backbones as ``nn.Module``s, float and int8.
 
 Port of ``facekit/models/arcface.py`` (face.evoLVe family): the block
 specs (``:39-48``), the SE mean in f32 (``:59-63``), the IR block
@@ -9,12 +9,22 @@ L2-normalized in f32 with the norm clamped at 1e-12.
 Parameter names follow facekit's pytree paths (``input.conv``,
 ``blocks.3.shortcut.bn.scale``, ``output.linear.w``), so
 ``weights.bridge.from_jax`` maps one onto the other.
+
+int8 (``quantize_arcface_params``, ``:161-225``): every conv site (the
+stem, ``conv1``, ``conv2`` and the shortcut conv of every block) holds a
+``QConv`` with facekit's ``{"q", "scale"[, "ascale"]}`` leaves and runs
+``layers.conv2d_int8``; BN, PReLU, SE and the head stay float. Without
+``ascale`` the activation scales are dynamic, per sample; calibration
+(``calibrate_arcface_int8``) folds each site's activation maxima over f32
+forwards of the float model and fixes them. The int8-residual mode
+(``:126-158``) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -47,6 +57,42 @@ def _weight(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape))
 
 
+class QConv(nn.Module):
+    """An int8 conv site: ``q`` int8 OIHW (stored channels-last, so that
+    its (O, KH, KW, I) view is contiguous for the kernel), ``scale`` (O,)
+    f32 per output channel and, when calibrated, ``ascale`` the f32 scalar
+    activation scale."""
+
+    def __init__(self, o: int, i: int, k: int, calibrated: bool):
+        super().__init__()
+        self.register_buffer("q", torch.zeros(
+            (o, i, k, k), dtype=torch.int8).contiguous(
+                memory_format=torch.channels_last))
+        self.register_buffer("scale", torch.ones(o))
+        self.register_buffer("ascale",
+                             torch.ones(()) if calibrated else None)
+
+
+def _conv_site(o: int, i: int, k: int, int8: Optional[str]):
+    """A float OIHW weight, or a ``QConv`` for ``int8`` "dynamic" or
+    "static" (calibrated)."""
+    if int8 is None:
+        return _weight(o, i, k, k)
+    return QConv(o, i, k, calibrated=int8 == "static")
+
+
+def _conv(x, w, stride: int, padding: int, stats=None, name: str = ""):
+    """Dispatch on the site (``facekit/models/arcface.py:85-96``). With
+    ``stats`` (calibration) the input's amax is recorded under ``name``,
+    the key ``quantize_arcface`` reads the activation scale from."""
+    if stats is not None:
+        stats[name] = x.float().abs().amax()
+    if isinstance(w, QConv):
+        return L.conv2d_int8(x, w.q, w.scale, stride=stride, padding=padding,
+                             ascale=w.ascale)
+    return L.conv2d(x, w, stride=stride, padding=padding)
+
+
 class BatchNorm(nn.Module):
     """Inference BN over the last axis, facekit's parametrization."""
 
@@ -62,21 +108,25 @@ class BatchNorm(nn.Module):
 
 
 class _Stem(nn.Module):
-    def __init__(self):
+    def __init__(self, int8: Optional[str]):
         super().__init__()
-        self.conv = _weight(64, 3, 3, 3)
+        self.conv = _conv_site(64, 3, 3, int8)
         self.bn = BatchNorm(64)
         self.prelu = _weight(64)
 
-    def forward(self, x):
-        x = L.conv2d(x, self.conv, stride=1, padding=1)
-        return L.prelu(self.bn(x), self.prelu)
+    def forward(self, x, stats=None):
+        x = _conv(x, self.conv, stride=1, padding=1, stats=stats,
+                  name="input")
+        x = L.prelu(self.bn(x), self.prelu)
+        if stats is not None:
+            stats["stem.out"] = x.float().abs().amax()
+        return x
 
 
 class _Shortcut(nn.Module):
-    def __init__(self, in_c: int, depth: int):
+    def __init__(self, in_c: int, depth: int, int8: Optional[str]):
         super().__init__()
-        self.conv = _weight(depth, in_c, 1, 1)
+        self.conv = _conv_site(depth, in_c, 1, int8)
         self.bn = BatchNorm(depth)
 
 
@@ -97,31 +147,39 @@ class IRBlock(nn.Module):
     """bottleneck_IR(-SE): shortcut = subsample or conv1x1(stride)+BN;
     residual = BN -> conv3x3 -> PReLU -> conv3x3(stride) -> BN [-> SE]."""
 
-    def __init__(self, in_c: int, depth: int, stride: int, se: bool):
+    def __init__(self, in_c: int, depth: int, stride: int, se: bool,
+                 int8: Optional[str] = None):
         super().__init__()
         self.stride = stride
         self.bn1 = BatchNorm(in_c)
-        self.conv1 = _weight(depth, in_c, 3, 3)
+        self.conv1 = _conv_site(depth, in_c, 3, int8)
         self.prelu = _weight(depth)
-        self.conv2 = _weight(depth, depth, 3, 3)
+        self.conv2 = _conv_site(depth, depth, 3, int8)
         self.bn2 = BatchNorm(depth)
-        self.shortcut = _Shortcut(in_c, depth) if in_c != depth else None
+        self.shortcut = (_Shortcut(in_c, depth, int8) if in_c != depth
+                         else None)
         self.se = _SE(depth) if se else None
 
-    def forward(self, x):
+    def forward(self, x, stats=None, prefix: str = ""):
         if self.shortcut is not None:
-            sc = L.conv2d(x, self.shortcut.conv, stride=self.stride)
+            sc = _conv(x, self.shortcut.conv, stride=self.stride, padding=0,
+                       stats=stats, name=f"{prefix}.shortcut")
             sc = self.shortcut.bn(sc)
         else:
             sc = L.strided_identity(x, self.stride)
         r = self.bn1(x)
-        r = L.conv2d(r, self.conv1, stride=1, padding=1)
+        r = _conv(r, self.conv1, stride=1, padding=1, stats=stats,
+                  name=f"{prefix}.conv1")
         r = L.prelu(r, self.prelu)
-        r = L.conv2d(r, self.conv2, stride=self.stride, padding=1)
+        r = _conv(r, self.conv2, stride=self.stride, padding=1, stats=stats,
+                  name=f"{prefix}.conv2")
         r = self.bn2(r)
         if self.se is not None:
             r = self.se(r)
-        return r + sc
+        out = r + sc
+        if stats is not None:
+            stats[f"{prefix}.out"] = out.float().abs().amax()
+        return out
 
 
 class _Linear(nn.Module):
@@ -150,17 +208,25 @@ class _Head(nn.Module):
 
 
 class ArcFace(nn.Module):
-    """(N, H, W, 3) normalized RGB -> (N, embed_dim) L2-normalized f32."""
+    """(N, H, W, 3) normalized RGB -> (N, embed_dim) L2-normalized f32.
+
+    ``int8``: None (float), "dynamic" or "static" (calibrated activation
+    scales): which form the conv sites take."""
 
     def __init__(self, network: str = "ir_50", input_size: int = 112,
-                 embed_dim: int = 512):
+                 embed_dim: int = 512, int8: Optional[str] = None):
         super().__init__()
+        if int8 not in (None, "dynamic", "static"):
+            raise ValueError(f"int8={int8!r}: None, 'dynamic' or 'static'")
         self.network = network
+        self.input_size = input_size
+        self.embed_dim = embed_dim
+        self.int8 = int8
         self.compute_dtype = torch.float32
         se = network.startswith("ir_se")
-        self.input = _Stem()
+        self.input = _Stem(int8)
         self.blocks = nn.ModuleList(
-            IRBlock(in_c, depth, stride, se)
+            IRBlock(in_c, depth, stride, se, int8)
             for in_c, depth, stride in block_specs(network))
         self.output = _Head(input_size // 16, embed_dim)
 
@@ -176,8 +242,81 @@ class ArcFace(nn.Module):
                 p.data = p.data.to(dtype)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.input(x.to(self.compute_dtype))
-        for blk in self.blocks:
-            x = blk(x)
+    def forward(self, x: torch.Tensor, stats=None) -> torch.Tensor:
+        """``stats``: a dict to record each site's activation amax in (the
+        calibration forward, ``arcface_act_amax``)."""
+        x = self.input(x.to(self.compute_dtype), stats)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, stats, prefix=f"b{i}")
         return self.output(x)
+
+
+def _sites(net: ArcFace):
+    """(site name, parameter key) of every conv site, in facekit's names
+    (``arcface.py:207-224``)."""
+    yield "input", "input.conv"
+    for i, blk in enumerate(net.blocks):
+        yield f"b{i}.conv1", f"blocks.{i}.conv1"
+        yield f"b{i}.conv2", f"blocks.{i}.conv2"
+        if blk.shortcut is not None:
+            yield f"b{i}.shortcut", f"blocks.{i}.shortcut.conv"
+
+
+def quantize_arcface(net: ArcFace,
+                     act_amax: Optional[Dict[str, float]] = None) -> ArcFace:
+    """Post-training int8 quantization of a float f32 ``net``, the port of
+    ``quantize_arcface_params`` without ``int8_residual``: every conv
+    site's weight per output channel (``layers.quantize_conv_weight``);
+    with ``act_amax`` (per-site activation maxima) each site also gets the
+    static activation scale ``float32(max(amax, 1e-12) / 127)``, the
+    division taken in Python floats and rounded to f32 once, as facekit
+    does (``arcface.py:194-204``). Returns a new module on ``net``'s
+    device in f32; ``net`` is left as it is."""
+    if net.int8 is not None or net.compute_dtype != torch.float32:
+        raise ValueError("quantize_arcface takes a float f32 ArcFace")
+    state = net.state_dict()
+    dev = state["input.conv"].device
+    for name, key in _sites(net):
+        q, scale = L.quantize_conv_weight(state.pop(key))
+        state[f"{key}.q"] = q
+        state[f"{key}.scale"] = scale
+        if act_amax is not None:
+            state[f"{key}.ascale"] = torch.tensor(
+                np.float32(max(float(act_amax[name]), 1e-12) / 127.0),
+                device=dev)
+    out = ArcFace(net.network, net.input_size, net.embed_dim,
+                  int8="dynamic" if act_amax is None else "static")
+    out.load_state_dict(state)
+    return out.to(dev).eval()
+
+
+@torch.inference_mode()
+def arcface_act_amax(net: ArcFace, x: torch.Tensor) -> Dict[str, float]:
+    """Per-site activation amax of one forward of the float f32 ``net`` on
+    (N, H, W, 3) normalized RGB (``arcface.py:311-319``), keyed by the
+    names ``quantize_arcface`` reads: "input", "b{i}.conv1", "b{i}.conv2",
+    "b{i}.shortcut", and the block outputs "stem.out", "b{i}.out"."""
+    if net.int8 is not None or net.compute_dtype != torch.float32:
+        raise ValueError("arcface_act_amax runs the float f32 ArcFace")
+    stats: Dict[str, torch.Tensor] = {}
+    net(x, stats=stats)
+    names = list(stats)
+    values = torch.stack([stats[n] for n in names]).cpu().tolist()
+    return dict(zip(names, values))
+
+
+def calibrate_arcface_int8(net: ArcFace, batches: Iterable[torch.Tensor],
+                           headroom: float = 1.0) -> ArcFace:
+    """Post-training calibration (``arcface.py:322-347``): fold each site's
+    activation maxima over f32 forwards of the float ``net`` on the given
+    normalized-RGB batches, then quantize with static activation scales
+    from amax * headroom (in Python floats)."""
+    agg: Dict[str, float] = {}
+    n = 0
+    for x in batches:
+        for k, v in arcface_act_amax(net, x).items():
+            agg[k] = max(agg.get(k, 0.0), float(v))
+        n += 1
+    if n == 0:
+        raise ValueError("calibration needs at least one batch")
+    return quantize_arcface(net, {k: v * headroom for k, v in agg.items()})

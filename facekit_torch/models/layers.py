@@ -16,6 +16,11 @@ Rounding follows facekit's, for bf16 compute:
     bias, so it upcasts the operands (exact for bf16) and multiplies in
     f32. With ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's
     default, which the pipeline sets explicitly) that product is full f32.
+
+The int8 conv (``conv2d_int8``, ``layers.py:103-146``) quantizes the
+activation in f32, runs the s8 x s8 -> s32 convolution ``ops.conv_s8``
+(the hand-written kernel on the card; never ``F.conv2d``) and dequantizes
+as ``acc * (ascale * wscale)`` in f32 before the cast to the compute dtype.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from facekit_torch.ops.conv_s8 import conv_s8
 
 BN_EPS = 1e-5
 
@@ -41,6 +48,43 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                        padding=padding, groups=groups)
         out = (out + bias.float()[None, :, None, None]).to(x.dtype)
     return out.permute(0, 2, 3, 1)
+
+
+def quantize_conv_weight(w: torch.Tensor):
+    """Per-output-channel symmetric int8 quantization of an OIHW weight
+    (``facekit/models/layers.py:92-100``, there over HWIO's axes 0, 1, 2):
+    f32 amax over (I, H, W), scale = max(amax, 1e-12) / 127, q =
+    clip(round(w / scale), -127, 127). Returns (int8 OIHW, (O,) f32)."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=(1, 2, 3))
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(wf / scale[:, None, None, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def conv2d_int8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                stride: int = 1, padding: int = 0,
+                ascale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 conv of an NHWC tensor with an int8 OIHW weight and its (O,)
+    scales, dequantized with (activation scale * weight scale).
+
+    ``ascale`` None: the activation scale is dynamic, per sample:
+    max(amax over (H, W, C), 1e-12) / 127, so a sample's result does not
+    depend on its batch neighbours. Otherwise it is the calibrated f32
+    scalar. Returns the compute dtype of ``x``.
+    """
+    if ascale is None:
+        amax = x.float().abs().amax(dim=(1, 2, 3), keepdim=True)
+        ascale = torch.clamp_min(amax, 1e-12) / 127.0
+    else:
+        ascale = ascale.float()
+    # a true division and round half to even, as layers.py:135-136
+    xq = torch.clamp(torch.round(x.float() / ascale), -127, 127)
+    # OIHW -> (O, KH, KW, I): a view when wq is stored channels-last
+    acc = conv_s8(xq.to(torch.int8), wq.permute(0, 2, 3, 1), stride=stride,
+                  padding=padding)
+    out = acc.float() * (ascale * wscale.float())
+    return out.to(x.dtype)
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

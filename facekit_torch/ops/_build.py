@@ -3,7 +3,8 @@
 Each source under ``ops/csrc/`` exports a plain C function, so it compiles
 in seconds without PyTorch's headers. The library lands in
 ``build/facekit_torch/`` inside the checkout, named by a digest of its
-source and flags, so an edited source is rebuilt and a built one reused.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a built one reused.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "facekit_torch"
 
 #: kernel name -> source file under ops/csrc
-SOURCES = {"cosine_topk": "cosine_topk.cu"}
+SOURCES = {"cosine_topk": "cosine_topk.cu",
+           "cosine_topk_int8": "cosine_topk_int8.cu",
+           "conv_s8": "conv_s8.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -45,6 +48,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (_CSRC / SOURCES[name]).read_bytes()
+    for header in sorted(_CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -1,0 +1,120 @@
+"""s8 x s8 -> s32 convolution: the int8 embedder's every conv site.
+
+Two functions with one meaning, on NHWC int8 input and (O, KH, KW, C) int8
+weights (K runs along C), symmetric zero padding, int32 NHWC output, the
+exact integer sum:
+
+  * ``conv_s8_reference`` — the plain PyTorch version: a float64
+    ``F.conv2d``, exact because every |sum| <= 127**2 * KH*KW*C < 2**53;
+    zero padding of the quantized input is what facekit's
+    ``conv_general_dilated`` padding of ``xq`` gives;
+  * ``conv_s8`` — the wrapper: for CUDA tensors it launches the
+    hand-written Hopper kernel ``ops/csrc/conv_s8.cu`` (the port of the TPU
+    kernel ``conv_s8_s2_pallas``, ``docs/experiments/
+    pallas_s8_stride2_conv.py:86``, made general) or raises; for CPU
+    tensors it runs the plain version.
+
+PyTorch has no s8 convolution on CUDA, so no float path stands in for it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+_BLOCK_O = 64          # the kernel's tile of output channels
+
+
+def conv_s8_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                      padding: int = 0) -> torch.Tensor:
+    """x (N, H, W, C) int8, w (O, KH, KW, C) int8 -> (N, OH, OW, O) int32."""
+    out = F.conv2d(x.permute(0, 3, 1, 2).double(),
+                   w.permute(0, 3, 1, 2).double(), stride=stride,
+                   padding=padding)
+    return out.round().to(torch.int32).permute(0, 2, 3, 1).contiguous()
+
+
+def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+            padding: int = 0) -> torch.Tensor:
+    """The s8 convolution; see the module docstring for its meaning.
+
+    CPU tensors run ``conv_s8_reference``. CUDA tensors launch the kernel
+    on the current stream, without synchronizing; a shape it does not take
+    raises. ``conv_s8.launches`` counts the launches.
+    """
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return conv_s8_reference(x, w, stride, padding)
+    return _conv_s8_cuda(x, w, int(stride), int(padding))
+
+
+conv_s8.launches = 0
+
+
+@functools.cache
+def _library():
+    """The kernel's C entry point, built at first use."""
+    from facekit_torch.ops import _build
+    fn = _build.load("conv_s8").facekit_conv_s8
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"conv_s8: x on {x.device} and w on {w.device}; "
+                         "both must be on one CUDA device (or both on the "
+                         "CPU)")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"conv_s8: x {x.dtype}, w {w.dtype}; the kernel "
+                        "takes int8")
+    if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[3]:
+        raise ValueError(f"conv_s8: x {tuple(x.shape)} (N, H, W, C) and w "
+                         f"{tuple(w.shape)} (O, KH, KW, C) expected")
+    o, kh, kw, _ = w.shape
+    if kh != kw or kh not in (1, 3):
+        raise ValueError(f"conv_s8: kernel {kh}x{kw}; the kernel takes 1x1 "
+                         "or 3x3")
+    if stride not in (1, 2) or padding not in (0, 1):
+        raise ValueError(f"conv_s8: stride {stride}, padding {padding}; the "
+                         "kernel takes stride 1 or 2 and padding 0 or 1")
+    if o % _BLOCK_O:
+        raise ValueError(f"conv_s8: {o} output channels; the kernel takes a "
+                         f"multiple of {_BLOCK_O}")
+
+
+def _conv_s8_cuda(x, w, stride, padding):
+    _check(x, w, stride, padding)
+    c = x.shape[3]
+    if c % 4:
+        # the stem's 3 channels: zero channels add nothing to the sum
+        x = F.pad(x, (0, 4 - c % 4))
+        w = F.pad(w, (0, 4 - c % 4))
+        c = x.shape[3]
+    if c & (c - 1):
+        raise ValueError(f"conv_s8: {c} input channels; the kernel takes a "
+                         "power of two")
+    x, w = x.contiguous(), w.contiguous()
+    n, h, wd, _ = x.shape
+    o, ks = w.shape[0], w.shape[1]
+    oh = (h + 2 * padding - ks) // stride + 1
+    ow = (wd + 2 * padding - ks) // stride + 1
+    if n * h * wd * c >= 2 ** 31 or n * oh * ow * o >= 2 ** 31:
+        raise ValueError("conv_s8: tensors of 2**31 elements or more")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("conv_s8: x and w must be 16-byte aligned")
+    out = torch.empty((n, oh, ow, o), dtype=torch.int32, device=x.device)
+    fn = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd,
+                 c.bit_length() - 1, o, ks, stride, padding, oh, ow, stream)
+    if err != 0:
+        raise RuntimeError(f"conv_s8: kernel launch failed with CUDA error "
+                           f"{err}")
+    conv_s8.launches += 1
+    return out

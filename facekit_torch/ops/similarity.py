@@ -1,21 +1,28 @@
 """Cosine-similarity gallery search: f32 scores fused with top-k.
 
-Port of ``facekit/ops/similarity.py``. Two functions with one meaning:
+Port of ``facekit/ops/similarity.py``. Two searches, each a plain version
+and a wrapper:
 
   * ``cosine_topk_reference`` — the plain PyTorch version of
-    ``cosine_topk_xla`` (``similarity.py:42-56``); the CPU path and the
-    yardstick the kernel is held against;
-  * ``cosine_topk`` — the wrapper: for CUDA tensors it launches the
-    hand-written Hopper kernel ``ops/csrc/cosine_topk.cu`` (the port of the
-    TPU kernel ``cosine_topk_pallas``) or raises; for CPU tensors it runs
-    the plain version.
+    ``cosine_topk_xla`` (``similarity.py:42-56``); ``cosine_topk`` — its
+    wrapper: for CUDA tensors it launches the hand-written Hopper kernel
+    ``ops/csrc/cosine_topk.cu`` (the port of the TPU kernel
+    ``cosine_topk_pallas``) or raises; for CPU tensors it runs the plain
+    version;
+  * ``cosine_topk_int8_reference`` — the plain version of
+    ``cosine_topk_int8`` (``similarity.py:73-94``) over an int8 gallery
+    with per-row scales (``quantize_rows_int8``); ``cosine_topk_int8`` —
+    its wrapper, launching ``ops/csrc/cosine_topk_int8.cu`` (the port of
+    ``cosine_topk_int8_pallas``) for CUDA tensors.
 
-Meaning shared by both: scores are ``queries . gallery^T`` computed in f32
-from the upcast operands; gallery rows at or past ``count`` score -1e30;
+Meaning shared by all: gallery rows at or past ``count`` score -1e30;
 each query's top k come in the order (score descending, row index
 ascending), so among equal scores the lowest index wins and, when k
 exceeds the live rows, the padding rows follow in ascending order, as
-``lax.top_k`` returns them.
+``lax.top_k`` returns them. The float search scores ``queries .
+gallery^T`` in f32 from the upcast operands; the int8 search quantizes the
+queries per row and scores ``(f32(s8 . s8) * q_scale) * g_scale``, which
+the kernel reproduces bit for bit.
 """
 
 from __future__ import annotations
@@ -65,6 +72,67 @@ def cosine_topk(gallery: torch.Tensor, queries: torch.Tensor, count: int,
 cosine_topk.launches = 0
 
 
+def quantize_rows_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization, x ~= q * scale[:, None]
+    (``facekit/ops/similarity.py:59-70``): f32 row amax, scale =
+    max(amax, 1e-12) / 127, q = clip(round(x / scale), -127, 127) with a
+    true division and round half to even, as ``jnp.round`` rounds. Returns
+    (q int8 (N, D), scale f32 (N,))."""
+    x = x.float()
+    amax = x.abs().amax(dim=1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale[:, 0]
+
+
+def cosine_topk_int8_reference(gallery_q: torch.Tensor,
+                               gallery_scale: torch.Tensor,
+                               queries: torch.Tensor, count: int, k: int = 1
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gallery_q (N, D) int8 with per-row f32 scales (N,), f32 queries
+    (B, D) -> (B, k) f32 scores, (B, k) int32 indices.
+
+    The queries are quantized per row; the integer products are taken as
+    an f32 product of the upcast operands, which is exact (every partial
+    sum is an integer below 127**2 * D < 2**24) provided the product runs
+    in full f32: on a CUDA tensor with TF32 allowed it raises."""
+    if gallery_q.device.type == "cuda" and \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("cosine_topk_int8_reference needs full f32 "
+                           "products: set torch.backends.cuda.matmul."
+                           "allow_tf32 = False")
+    qq, qs = quantize_rows_int8(queries)
+    acc = qq.float() @ gallery_q.float().T
+    sims = acc * qs[:, None] * gallery_scale.float()[None, :]
+    rows = torch.arange(gallery_q.shape[0], device=gallery_q.device)
+    sims = sims.masked_fill(rows[None, :] >= count, NEG_INF)
+    vals, idx = torch.sort(sims, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+
+
+def cosine_topk_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
+                     queries: torch.Tensor, count: int, k: int = 1
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over an int8 gallery; see the module docstring for its
+    meaning.
+
+    CPU tensors run ``cosine_topk_int8_reference``. CUDA tensors quantize
+    the f32 queries with plain torch ops (as facekit does outside its
+    ``pallas_call``, ``similarity.py:198``) and launch the kernel, on the
+    current stream and without synchronizing; anything the kernel does not
+    take raises. ``cosine_topk_int8.launches`` counts the launches.
+    """
+    if all(t.device.type == "cpu" for t in (gallery_q, gallery_scale,
+                                             queries)):
+        return cosine_topk_int8_reference(gallery_q, gallery_scale, queries,
+                                          count, k)
+    return _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries,
+                                  int(count), int(k))
+
+
+cosine_topk_int8.launches = 0
+
+
 def _check(gallery: torch.Tensor, queries: torch.Tensor, count: int, k: int):
     if gallery.device.type != "cuda" or queries.device != gallery.device:
         raise ValueError(f"cosine_topk: gallery on {gallery.device} and "
@@ -95,6 +163,45 @@ def _check(gallery: torch.Tensor, queries: torch.Tensor, count: int, k: int):
         raise ValueError(f"cosine_topk: count={count} outside [0, N={n}]")
 
 
+def _check_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
+                queries: torch.Tensor, count: int, k: int):
+    dev = gallery_q.device
+    if dev.type != "cuda" or gallery_scale.device != dev or \
+            queries.device != dev:
+        raise ValueError(f"cosine_topk_int8: gallery on {dev}, scales on "
+                         f"{gallery_scale.device}, queries on "
+                         f"{queries.device}; all must be on one CUDA device "
+                         "(or all on the CPU)")
+    if gallery_q.dtype != torch.int8 or gallery_scale.dtype != torch.float32:
+        raise TypeError(f"cosine_topk_int8: gallery {gallery_q.dtype} with "
+                        f"scales {gallery_scale.dtype}; the kernel takes "
+                        "int8 rows with float32 scales")
+    if queries.dtype != torch.float32:
+        raise TypeError(f"cosine_topk_int8: queries {queries.dtype}; the "
+                        "kernel takes float32 queries")
+    if gallery_q.dim() != 2 or queries.dim() != 2 or \
+            gallery_scale.shape != gallery_q.shape[:1]:
+        raise ValueError("cosine_topk_int8: gallery (N, D), scales (N,) and "
+                         "queries (B, D) expected")
+    if gallery_q.shape[1] != DIM or queries.shape[1] != DIM:
+        raise ValueError(f"cosine_topk_int8: width {gallery_q.shape[1]}/"
+                         f"{queries.shape[1]}; the kernel takes D={DIM}")
+    if not (gallery_q.is_contiguous() and gallery_scale.is_contiguous()):
+        raise ValueError("cosine_topk_int8: gallery and scales must be "
+                         "contiguous")
+    if gallery_q.data_ptr() % 16:
+        raise ValueError("cosine_topk_int8: gallery must be 16-byte aligned")
+    n, b = gallery_q.shape[0], queries.shape[0]
+    if not 1 <= b <= MAX_B:
+        raise ValueError(f"cosine_topk_int8: batch {b} outside [1, {MAX_B}]")
+    if not 1 <= k <= min(MAX_K, n):
+        raise ValueError(f"cosine_topk_int8: k={k} outside [1, min({MAX_K}, "
+                         f"N={n})]")
+    if not 0 <= count <= n:
+        raise ValueError(f"cosine_topk_int8: count={count} outside "
+                         f"[0, N={n}]")
+
+
 def _launch_shape(n_rows: int, device: torch.device) -> Tuple[int, int]:
     """(rows per CTA, chunks): about four CTAs per SM, each a multiple of
     256 rows (32 per warp)."""
@@ -111,6 +218,17 @@ def _library():
     fn = _build.load("cosine_topk").facekit_cosine_topk
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _library_int8():
+    """The int8 kernel's C entry point, built at first use."""
+    from facekit_torch.ops import _build
+    fn = _build.load("cosine_topk_int8").facekit_cosine_topk_int8
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -138,4 +256,29 @@ def _cosine_topk_cuda(gallery, queries, count, k):
         raise RuntimeError(f"cosine_topk: kernel launch failed with CUDA "
                            f"error {err}")
     cosine_topk.launches += 1
+    return out_v, out_i
+
+
+def _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries, count, k):
+    _check_int8(gallery_q, gallery_scale, queries, count, k)
+    qq, qs = quantize_rows_int8(queries)      # plain torch ops, new tensors
+    n, b = gallery_q.shape[0], queries.shape[0]
+    n_rows = min(n, count + k)                # see _cosine_topk_cuda
+    rows_per_cta, chunks = _launch_shape(n_rows, gallery_q.device)
+    dev = gallery_q.device
+    part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    fn = _library_int8()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(gallery_q.data_ptr(), gallery_scale.data_ptr(),
+                 qq.data_ptr(), qs.data_ptr(), n_rows, count, b, k,
+                 rows_per_cta, chunks, part_v.data_ptr(), part_i.data_ptr(),
+                 out_v.data_ptr(), out_i.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"cosine_topk_int8: kernel launch failed with CUDA "
+                           f"error {err}")
+    cosine_topk_int8.launches += 1
     return out_v, out_i

@@ -11,8 +11,10 @@ match slice: ``/insert/user``, ``/insert/face``, ``/delete/user``,
     gallery — ``GET /reload`` does (src/app.cpp:189 note).
 
 Host pixel work uses OpenCV. A config that needs a part not ported yet is
-refused at startup (``refuse_unported``). Device work runs on one executor
-thread; the kernels launch on the device's current stream.
+refused at startup (``refuse_unported``). With ``rec_quantize`` the server
+calibrates the int8 embedder from ``extras.rec_calibrationDir`` at startup
+(``calibrate_from_config``). Device work runs on one executor thread; the
+kernels launch on the device's current stream.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import numpy as np
 from facekit_torch.db import Database
 from facekit_torch.gallery import GalleryStore
 from facekit_torch.pipeline import FacePipeline
+from facekit_torch.pipeline.recognize import CALIBRATION_HEADROOM
 from facekit_torch.utils import LatencyTracker, resolve_device
 from facekit_torch.weights import load_params, random_arcface_params
 
@@ -60,8 +63,12 @@ class _Cv2Pixels:
             frame = cv2.resize(frame, resize_wh)
         return frame
 
-    def imread(self, path: str):
-        return self.cv2.imread(path)
+    def imread(self, path: str, resize_wh=None):
+        img = self.cv2.imread(path)
+        if img is not None and resize_wh is not None \
+                and img.shape[:2] != resize_wh[::-1]:
+            img = self.cv2.resize(img, resize_wh)
+        return img
 
     def resize(self, img, wh):
         return self.cv2.resize(img, wh)
@@ -76,12 +83,9 @@ def refuse_unported(config) -> None:
     if config.gen:
         reasons.append("gen: true (batch enrollment mode) is not ported yet "
                        "(ROADMAP.md Queue 1, server remainder)")
-    if config.rec_quantize:
-        reasons.append("rec_quantize needs the int8 embedder (ROADMAP.md "
-                       "Queue 1, int8 slice)")
-    if config.gallery_dtype == "int8":
-        reasons.append("gallery_dtype: int8 needs the int8 search kernel "
-                       "(ROADMAP.md Queue 2, kernel #2)")
+    if config.extras.get("rec_int8Residual"):
+        reasons.append("rec_int8Residual (s8-resident block outputs) is not "
+                       "ported yet (ROADMAP.md Queue 1, int8 remainder)")
     if config.mesh_shape:
         reasons.append("mesh_shape needs multi-GPU serving (ROADMAP.md "
                        "Queue 1, parallel)")
@@ -94,6 +98,55 @@ def refuse_unported(config) -> None:
     if reasons:
         raise ValueError("config needs parts facekit_torch has not ported "
                          "yet: " + "; ".join(reasons))
+
+
+def _load_calibration_crops(folder: str, rec_hw, pixels, batch: int = 16,
+                            limit: int = 256):
+    """Yield (N, rec_h, rec_w, 3) uint8 BGR batches from a folder of face
+    images, resized to the embedder's input (``facekit/server/app.py:
+    142-165``); raises ValueError when none is readable."""
+    h, w = rec_hw
+    acc = []
+    n = 0
+    for fname in sorted(os.listdir(folder)):
+        img = pixels.imread(os.path.join(folder, fname), (w, h))
+        if img is None:
+            continue
+        acc.append(img)
+        n += 1
+        if len(acc) == batch:
+            yield np.stack(acc)
+            acc = []
+        if n >= limit:
+            break
+    if acc:
+        yield np.stack(acc)
+    if n == 0:
+        raise ValueError(f"no readable calibration images in {folder}")
+
+
+def calibrate_from_config(pipeline, config, pixels) -> bool:
+    """Apply the config's int8 calibration (``extras.rec_calibrationDir``
+    and ``rec_calibrationHeadroom``, default 1.25) to ``pipeline``
+    (``facekit/server/app.py:168-204``). Returns True if calibrated; a
+    missing or empty folder degrades to dynamic scales with a warning
+    rather than refusing to start."""
+    calib_dir = config.extras.get("rec_calibrationDir")
+    if not (calib_dir and config.rec_quantize):
+        return False
+    headroom = float(config.extras.get("rec_calibrationHeadroom",
+                                       CALIBRATION_HEADROOM))
+    try:
+        pipeline.calibrate_embedder(
+            _load_calibration_crops(calib_dir, config.rec_hw, pixels),
+            headroom=headroom)
+    except (OSError, ValueError) as e:
+        log.warning("int8 calibration skipped (%s); "
+                    "using dynamic activation scales", e)
+        return False
+    log.info("int8 embedder calibrated from %s (headroom %.2f)",
+             calib_dir, headroom)
+    return True
 
 
 class FaceServer:
@@ -116,6 +169,10 @@ class FaceServer:
                               input_size=config.rec_hw[0],
                               embed_dim=config.rec_outputDim))
         self.pipeline = FacePipeline(config, rec_params, device=self.device)
+        # optional int8 calibration from a folder of face crops: static
+        # activation scales replace the per-sample dynamic ones
+        self.calibrated = calibrate_from_config(self.pipeline, config,
+                                                self.pixels)
         self.db = Database(config.database_path, config.rec_outputDim)
         # micro-batching: each dispatch pads to the smallest bucket of
         # server_batchBuckets that fits the queue (default: one bucket of
@@ -144,14 +201,14 @@ class FaceServer:
             max_workers=int(config.extras.get("server_enrollThreads", 2)))
         self.metrics = LatencyTracker()
         if warmup:
-            # builds the search kernel and primes the embedder at every
-            # batch bucket, so no request pays either
+            # builds the kernels and primes the embedder at every batch
+            # bucket, so no request pays either
             rh, rw = config.rec_hw
             snap = self.gallery.snapshot()
             for b in self.batch_buckets:
                 self.pipeline.embed_and_match(
                     np.zeros((b, rh, rw, 3), np.uint8), snap.arr,
-                    max(snap.count, 1))
+                    max(snap.count, 1), gallery_scale=snap.scales)
             self.pipeline.embed_cropped(np.zeros((rh, rw, 3), np.uint8))
 
     def close(self) -> None:
@@ -171,7 +228,8 @@ class FaceServer:
     def serving_embed(self, crops: np.ndarray, snap):
         """Padded (B, rh, rw, 3) u8 crops -> (emb, sims (B, k), idx)
         against a gallery snapshot, as device tensors."""
-        return self.pipeline.embed_and_match(crops, snap.arr, snap.count)
+        return self.pipeline.embed_and_match(crops, snap.arr, snap.count,
+                                             gallery_scale=snap.scales)
 
     def recognize_batch(self, crops: List[np.ndarray]
                         ) -> List[Optional[Dict[str, Any]]]:

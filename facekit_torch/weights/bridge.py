@@ -10,7 +10,11 @@ flatten plus one layout change:
   * conv weights go from HWIO to OIHW;
   * the linear weight stays in torch's ``(out, in)`` layout
     (``facekit/models/layers.py:198-201``);
-  * batch-norm keeps ``scale/bias/mean/var`` (eps 1e-5).
+  * batch-norm keeps ``scale/bias/mean/var`` (eps 1e-5);
+  * a quantized tree (``quantize_arcface_params`` /
+    ``calibrate_arcface_int8``) has ``{"q", "scale"[, "ascale"]}`` leaves
+    at its conv sites: ``q`` goes to int8 OIHW without passing through a
+    float, ``scale`` and ``ascale`` stay f32, bit for bit.
 """
 
 from __future__ import annotations
@@ -73,7 +77,8 @@ def _flatten(node, prefix: str, out: Dict[str, np.ndarray]) -> None:
     elif isinstance(node, (list, tuple)):
         items = enumerate(node)
     else:
-        out[prefix] = np.asarray(node, np.float32)
+        arr = np.asarray(node)
+        out[prefix] = arr if arr.dtype == np.int8 else arr.astype(np.float32)
         return
     for key, value in items:
         _flatten(value, f"{prefix}.{key}" if prefix else str(key), out)
@@ -84,7 +89,9 @@ def from_jax(params, network: torch.nn.Module) -> Dict[str, torch.Tensor]:
     ``state_dict``.
 
     Every key of the network must be supplied, every supplied key must be
-    used, and shapes must match; anything else raises.
+    used, and shapes and dtypes (int8 or float) must match; anything else
+    raises. A quantized tree needs an ``ArcFace(int8=...)`` of the same
+    form: "static" where its sites carry ``ascale``, else "dynamic".
     """
     flat: Dict[str, np.ndarray] = {}
     _flatten(params, "", flat)
@@ -102,8 +109,12 @@ def from_jax(params, network: torch.nn.Module) -> Dict[str, torch.Tensor]:
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: shape {arr.shape} does not fit "
                              f"{tuple(ref.shape)}")
-        out[key] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+        if (arr.dtype == np.int8) != (ref.dtype == torch.int8):
+            raise ValueError(f"{key}: dtype {arr.dtype} does not fit "
+                             f"{ref.dtype}")
+        out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out
+
 
 
 # -- random parameters, drawn with numpy -------------------------------------

@@ -73,12 +73,58 @@ def test_device_tensor_is_a_copy_of_the_host_mirror(rng):
 
 
 def test_empty_search_and_int8_refusal(rng):
-    store = GalleryStore(device="cpu")
-    with pytest.raises(ValueError, match="Feature matching: No faces in "
-                                         "database"):
-        store.search(_unit(rng, 1))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        GalleryStore(dtype="int8", device="cpu")
+    """An empty gallery refuses a search with the reference's message, for
+    every dtype; a dtype the store does not have is refused at
+    construction (int8 is served since the int8 slice)."""
+    for dtype in ("bfloat16", "int8"):
+        store = GalleryStore(dtype=dtype, device="cpu")
+        with pytest.raises(ValueError, match="Feature matching: No faces in "
+                                             "database"):
+            store.search(_unit(rng, 1))
+    with pytest.raises(ValueError, match="gallery_dtype 'float16'"):
+        GalleryStore(dtype="float16", device="cpu")
+
+
+def test_int8_store_matches_facekit(rng):
+    """int8 rows and per-row scales equal facekit's (use_pallas=False), and
+    so do the search results, bit for bit: after load, after adds within
+    the capacity (in place), and after an add across a bucket."""
+    ours = GalleryStore(buckets=BUCKETS, dtype="int8", device="cpu")
+    ref = JaxStore(buckets=BUCKETS, dtype="int8", use_pallas=False)
+    emb = _unit(rng, 80)
+    names = [f"u{i}" for i in range(80)]
+    q = np.concatenate([emb[[3, 17, 40, 64]], _unit(rng, 3)])
+
+    def same():
+        snap, rsnap = ours.snapshot(), ref.snapshot()
+        assert snap.arr.dtype == torch.int8 and snap.scales.dtype == \
+            torch.float32
+        np.testing.assert_array_equal(snap.arr.numpy(), np.asarray(rsnap.arr))
+        np.testing.assert_array_equal(snap.scales.numpy(),
+                                      np.asarray(rsnap.scales))
+        for k in (1, 4):
+            v, i, n = ours.search(q, k=k)
+            rv, ri, rn = ref.search(jnp.asarray(q), k=k)
+            np.testing.assert_array_equal(i, ri)
+            np.testing.assert_array_equal(v, rv)
+            assert n == rn
+
+    for s in (ours, ref):
+        s.load(names[:20], emb[:20])
+    same()
+    arr = ours.snapshot().arr
+    for i in range(20, 64):
+        ours.add(names[i], emb[i])
+        ref.add(names[i], emb[i])
+    assert ours.snapshot().arr is arr and ours.capacity == 64   # in place
+    same()
+    ours.add(names[64], emb[64])
+    ref.add(names[64], emb[64])
+    assert ours.capacity == ref.capacity == 256
+    same()
+    v, i, _ = ours.search(q[:4])
+    np.testing.assert_array_equal(i[:, 0], [3, 17, 40, 64])
+    assert (v[:, 0] > 0.99).all()
 
 
 def test_default_device_without_cuda_raises():

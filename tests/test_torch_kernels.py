@@ -11,8 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from facekit_torch.ops.similarity import (_cosine_topk_cuda, cosine_topk,
-                                          cosine_topk_reference)
+from facekit_torch.ops.conv_s8 import _conv_s8_cuda, conv_s8, conv_s8_reference
+from facekit_torch.ops.similarity import (_cosine_topk_cuda,
+                                          _cosine_topk_int8_cuda, cosine_topk,
+                                          cosine_topk_int8,
+                                          cosine_topk_int8_reference,
+                                          cosine_topk_reference,
+                                          quantize_rows_int8)
 
 N = 1000
 
@@ -47,7 +52,41 @@ def test_kernel_path_refuses_cpu_tensors():
         _cosine_topk_cuda(torch.tensor(g), torch.tensor(q), N, 1)
 
 
-# -- the CUDA kernel (skipped without a card) ---------------------------------
+def _int8_gallery(g):
+    gq, gs = quantize_rows_int8(torch.tensor(g))
+    return gq, gs
+
+
+def test_int8_wrapper_runs_plain_version_on_cpu():
+    g, q = _data(4)
+    gq, gs = _int8_gallery(g)
+    before = cosine_topk_int8.launches
+    for a, b in zip(cosine_topk_int8(gq, gs, torch.tensor(q), 900, 3),
+                    cosine_topk_int8_reference(gq, gs, torch.tensor(q), 900,
+                                               3)):
+        assert torch.equal(a, b)
+    assert cosine_topk_int8.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        _cosine_topk_int8_cuda(gq, gs, torch.tensor(q), N, 1)
+
+
+def _s8(rng, shape):
+    return torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
+
+
+def test_conv_wrapper_runs_plain_version_on_cpu():
+    rng = np.random.default_rng(5)
+    x, w = _s8(rng, (2, 9, 9, 8)), _s8(rng, (64, 3, 3, 8))
+    before = conv_s8.launches
+    got = conv_s8(x, w, stride=2, padding=1)
+    assert got.dtype == torch.int32 and got.shape == (2, 5, 5, 64)
+    assert torch.equal(got, conv_s8_reference(x, w, 2, 1))
+    assert conv_s8.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        _conv_s8_cuda(x, w, 2, 1)
+
+
+# -- the CUDA kernels (skipped without a card) --------------------------------
 
 @pytest.fixture()
 def cuda_device():
@@ -88,3 +127,75 @@ def test_kernel_ties_and_checks(cuda_device, b):
         cosine_topk(gt, qt, N, 65)
     with pytest.raises(TypeError):
         cosine_topk(gt, qt.to(torch.bfloat16), N, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,count", [(1, 1, N), (2, 3, 777), (3, 5, N),
+                                       (8, 3, 777), (64, 1, N),
+                                       (256, 64, N), (5, 8, 3)])
+def test_int8_kernel_matches_plain_bit_for_bit(cuda_device, b, k, count):
+    g, q = _data(b + k + 1, b=b)
+    gq, gs = (t.to(cuda_device) for t in _int8_gallery(g))
+    qt = torch.tensor(q, device=cuda_device)
+    before = cosine_topk_int8.launches
+    vals, idx = cosine_topk_int8(gq, gs, qt, count, k)
+    ref_v, ref_i = cosine_topk_int8_reference(gq, gs, qt, count, k)
+    torch.cuda.synchronize()
+    assert cosine_topk_int8.launches == before + 1
+    np.testing.assert_array_equal(idx.cpu().numpy(), ref_i.cpu().numpy())
+    np.testing.assert_array_equal(vals.cpu().numpy(), ref_v.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 5])
+def test_int8_kernel_ties_and_checks(cuda_device, b):
+    g, q = _data(7, b=b, ties=True)
+    gq, gs = (t.to(cuda_device) for t in _int8_gallery(g))
+    vals, idx = cosine_topk_int8(gq, gs, torch.tensor(q, device=cuda_device),
+                                 N, 2)
+    np.testing.assert_array_equal(idx.cpu().numpy(),
+                                  np.stack([np.arange(b), 600 + np.arange(b)], 1))
+    assert torch.equal(vals[:, 0], vals[:, 1])
+    with pytest.raises(ValueError):
+        cosine_topk_int8(gq, gs, torch.tensor(q, device=cuda_device), N, 65)
+    with pytest.raises(TypeError):
+        cosine_topk_int8(gq, gs, torch.tensor(q, device=cuda_device)
+                         .to(torch.bfloat16), N, 1)
+
+
+# (N, H, W, C, O, kernel, stride, padding): every stride, padding, kernel
+# size and C_in in {3, 64}, odd sizes so the pixel tiles have ragged ends
+CONV_CASES = [(2, 13, 11, 3, 64, 3, 1, 1), (2, 13, 11, 64, 64, 3, 1, 1),
+              (2, 13, 11, 64, 128, 3, 2, 1), (2, 13, 11, 3, 64, 3, 2, 1),
+              (2, 13, 11, 64, 64, 3, 1, 0), (3, 9, 9, 64, 128, 1, 2, 0),
+              (3, 9, 9, 3, 64, 1, 1, 0), (1, 8, 8, 16, 64, 1, 1, 1),
+              (2, 7, 7, 512, 64, 3, 1, 1), (1, 14, 14, 4, 192, 3, 2, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,ks,stride,pad", CONV_CASES)
+def test_conv_kernel_matches_plain_bit_for_bit(cuda_device, n, h, w, c, o,
+                                                ks, stride, pad):
+    rng = np.random.default_rng(n * h + c + o + ks + stride + pad)
+    x = _s8(rng, (n, h, w, c)).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, c)).to(cuda_device)
+    before = conv_s8.launches
+    got = conv_s8(x, wt, stride, pad)
+    ref = conv_s8_reference(x, wt, stride, pad)
+    torch.cuda.synchronize()
+    assert conv_s8.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.int32
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        conv_s8(x, torch.zeros((32, 3, 3, 64), dtype=torch.int8,
+                               device=cuda_device))
+    with pytest.raises(ValueError, match="1x1 or 3x3"):
+        conv_s8(x, torch.zeros((64, 5, 5, 64), dtype=torch.int8,
+                               device=cuda_device))
+    with pytest.raises(TypeError):
+        conv_s8(x.float(), torch.zeros((64, 3, 3, 64), device=cuda_device))
