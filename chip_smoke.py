@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
 """Smoke test of facekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Builds the port's three CUDA kernels from this checkout and holds each
+Builds the port's four CUDA kernels from this checkout and holds each
 against its plain PyTorch version: the bf16/f32 and the int8 gallery
 searches at the top gallery bucket (N = 1,048,576), the s8 convolution at
 every conv shape of the int8 IR-50 at batch 64 and at the TPU kernel's own
-shape. Then it drives two serving paths on the card and checks what comes
-out: /recognize + enrollment of configs/default.json (IR-50, bf16) and of
-configs/throughput.json (int8 IR-50, int8 gallery, batches of 1, 8 and
-64), with dynamic and with calibrated activation scales. Each path runs
-with every kernel's launch count set to 0 just before it and read just
-after. Prints one JSON line per phase, the ``kernels`` line, the card's
-name and power limit, and as the last line ``{"ok": true, "device":
-{...}}``. Any failed phase exits non-zero; nothing falls back to the CPU
+shape, the fused IR block at IR-50's four identity-block shapes (batch 8
+and 64, bf16 and f32). Then it drives three serving paths on the card and
+checks what comes out: /recognize + enrollment of configs/default.json
+(IR-50, bf16), the same for configs/throughput.json (int8 IR-50, int8
+gallery, batches of 1, 8 and 64) with dynamic and with calibrated
+activation scales, and WS /inference of configs/default.json (480x640
+frames -> RetinaFace -> alignment -> IR-50 -> search, buckets 1 and 8),
+stage by stage against the port's CPU path. Each path runs with every
+kernel's launch count set to 0 just before it and read just after. Prints
+one JSON line per phase, the ``kernels`` line, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero; nothing falls back to the CPU
 or to a plain version. Without CUDA it exits non-zero and prints no
 result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -33,31 +37,54 @@ import numpy as np
 N_TOP = 1 << 20          # top bucket of the default gallery ladder
 DIM = 512
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12,               # tensor cores, dense
-            "float32": 67e12,                 # outside the tensor cores
-            "int8": 1979e12}                  # tensor cores, dense
+# NVIDIA H100 SXM data sheet, dense rates at 700 W
+PEAK_OPS = {"bfloat16": 989e12,               # tensor cores
+            "float32": 67e12,                 # FP32, outside the tensor cores
+            "int8": 1979e12}                  # tensor cores
 SCORE_ATOL = 1e-4        # f32 sums over D=512 in another order
 COS_DIST_MAX = 1e-3      # bf16 embeddings vs f32 (BASELINE.json north star)
 INT8_COS_DIST_MAX = 5e-3  # int8 embeddings vs f32 (facekit's own int8 bar,
 #                           tests/test_model_parity.py:158-175)
 SITES_PER_FORWARD = 52   # int8 IR-50: stem, 24 x (conv1, conv2), 3 shortcuts
 KERNEL4_SHAPE = (256, 112, 112, 64, 64, 3, 2, 1)   # N, H, W, C, O, k, s, p
+IR_BLOCKS_PER_FORWARD = 20   # float IR-50's stride-1 identity blocks
+# (H = W, C, blocks per forward) of those blocks
+IR_BLOCK_SHAPES = [(56, 64, 2), (28, 128, 3), (14, 256, 13), (7, 512, 2)]
+IR_BLOCK_F32_ATOL = 1e-4     # f32 sums over 9*C terms in another order
+IR_BLOCK_BF16_PAST = 1e-5    # share of bf16 outputs allowed past two steps
+DET_ATOL = {"loc": 1e-2, "conf": 2e-3, "ldm": 1e-2}  # bf16 vs f32 detector
+CROP_ATOL = 2.0              # aligned crops, 0..255 scale (bf16 passes)
+
+
+def _wrappers():
+    from facekit_torch.ops.conv_s8 import conv_s8
+    from facekit_torch.ops.ir_block import ir_block
+    from facekit_torch.ops.similarity import cosine_topk, cosine_topk_int8
+    return {"cosine_topk": cosine_topk, "cosine_topk_int8": cosine_topk_int8,
+            "conv_s8": conv_s8, "ir_block": ir_block}
 
 
 def reset_launches():
     """Every kernel's launch count to 0."""
-    from facekit_torch.ops.conv_s8 import conv_s8
-    from facekit_torch.ops.similarity import cosine_topk, cosine_topk_int8
-    for fn in (cosine_topk, cosine_topk_int8, conv_s8):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def launches():
-    from facekit_torch.ops.conv_s8 import conv_s8
-    from facekit_torch.ops.similarity import cosine_topk, cosine_topk_int8
-    return {"cosine_topk": cosine_topk.launches,
-            "cosine_topk_int8": cosine_topk_int8.launches,
-            "conv_s8": conv_s8.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+@contextlib.contextmanager
+def composed_blocks():
+    """Every IR block op by op (cuDNN convs), as the port ran them before
+    the fused kernel: a guide to what the kernel changes end to end."""
+    from facekit_torch.models.arcface import IRBlock
+    fusable = IRBlock.fusable
+    IRBlock.fusable = lambda self: False
+    try:
+        yield
+    finally:
+        IRBlock.fusable = fusable
 
 
 def emit(obj) -> None:
@@ -234,10 +261,13 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
                        server.recognize_batch(list(queries))]
             torch.cuda.synchronize()
             counts = launches()
+            forwards = n_users + 2
             if counts["cosine_topk"] < 2 or counts["cosine_topk_int8"] or \
-                    counts["conv_s8"]:
+                    counts["conv_s8"] or \
+                    counts["ir_block"] != IR_BLOCKS_PER_FORWARD * forwards:
                 raise AssertionError(f"launches on the /recognize path of "
-                                     f"configs/default.json: {counts}")
+                                     f"configs/default.json ({forwards} "
+                                     f"forwards): {counts}")
 
             # -- checks
             snap = server.gallery.snapshot()
@@ -270,8 +300,9 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
                 raise AssertionError(f"bf16 card vs f32 CPU embeddings: "
                                      f"cosine distance {cos_dist}")
 
-            # -- embed+match latency at each batch bucket
-            def embed_match_ms(b, reps=20):
+            # -- embed+match latency at each batch bucket, with the fused
+            #    blocks and (a guide) with the blocks op by op, in turns
+            def embed_match_ms(b, reps=12):
                 ts = []
                 for r in range(reps):
                     batch = rng.integers(0, 256, (b, rh, rw, 3), np.uint8)
@@ -280,16 +311,23 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
                         list(batch)), snap)
                     v.cpu()
                     ts.append((time.perf_counter() - t0) * 1e3)
-                return statistics.median(ts[2:])
+                return ts[2:]
+            lat = {}
+            for _ in range(2):
+                for b in (1, 8):
+                    lat.setdefault(f"embed_match_ms_b{b}", []).extend(
+                        embed_match_ms(b))
+                    with composed_blocks():
+                        lat.setdefault(f"embed_match_ms_b{b}_composed",
+                                       []).extend(embed_match_ms(b))
             rec = {"phase": "server", "config": "configs/default.json",
                    "network": cfg.rec_network, "dtype": cfg.compute_dtype,
                    "users": n_users, "requests": len(queries),
                    "gallery_capacity": server.gallery.capacity,
-                   "launches": counts["cosine_topk"], "max_abs_err": err,
-                   "cos_dist_vs_f32_cpu": cos_dist,
+                   "forwards": forwards, "launches": counts,
+                   "max_abs_err": err, "cos_dist_vs_f32_cpu": cos_dist,
                    "min_enrolled_similarity": float(sims[:4].min()),
-                   "embed_match_ms_b1": embed_match_ms(1),
-                   "embed_match_ms_b8": embed_match_ms(8)}
+                   **{k: statistics.median(v) for k, v in lat.items()}}
             emit(rec)
             return rec
         finally:
@@ -587,7 +625,7 @@ def _throughput_run(server, mode, crops, batches, enrolled_q, e_cpu, rng):
     forwards = n_users + len(batches)
     if counts["conv_s8"] != SITES_PER_FORWARD * forwards or \
             counts["cosine_topk_int8"] < len(batches) or \
-            counts["cosine_topk"]:
+            counts["cosine_topk"] or counts["ir_block"]:
         raise AssertionError(f"{mode}: launches {counts} on the throughput "
                              f"path ({forwards} forwards, {len(batches)} "
                              "batches)")
@@ -663,6 +701,286 @@ def _throughput_run(server, mode, crops, batches, enrolled_q, e_cpu, rng):
     return rec
 
 
+def ir_block_bound(n, h, w, c, dtype):
+    """Least time (ms) of one fused IR block on an H100 SXM and what bounds
+    it: x read once, the output written once, both weights and the (5, C)
+    f32 parameters read once; two convs of 2*N*H*W*9*C*C operations at the
+    dtype's peak."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * n * h * w * c + 2 * 9 * c * c) * item + 5 * c * 4
+    ops = 2 * (2 * n * h * w * 9 * c * c)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def random_ir_block(c, dtype, gen, device):
+    """An IR-50 identity block (stride 1, no shortcut conv, no SE) with
+    weights drawn from ``gen``; conv weights and PReLU slopes stored in
+    ``dtype``, as ``ArcFace.set_compute_dtype`` stores them."""
+    import torch
+
+    from facekit_torch.models.arcface import IRBlock
+    blk = IRBlock(c, c, 1, se=False)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen) * (hi - lo) + lo
+
+    a = (6.0 / (9 * c)) ** 0.5
+    with torch.no_grad():
+        for bn in (blk.bn1, blk.bn2):
+            bn.scale.copy_(uniform(c, 0.5, 1.5))
+            bn.bias.copy_(uniform(c, -0.2, 0.2))
+            bn.mean.copy_(uniform(c, -0.2, 0.2))
+            bn.var.copy_(uniform(c, 0.5, 1.5))
+        blk.conv1.copy_(uniform(blk.conv1.shape, -a, a))
+        blk.conv2.copy_(uniform(blk.conv2.shape, -a, a))
+        blk.prelu.copy_(uniform(c, 0.1, 0.4))
+    for p in (blk.conv1, blk.conv2, blk.prelu):
+        p.data = p.data.to(dtype)
+    return blk.to(device).eval()
+
+
+def phase_ir_block(device, seed=5):
+    """Kernel #3, the fused IR block, against its plain version at the four
+    IR-50 identity-block shapes, batch 8 and 64, bf16 and f32: f32 within
+    IR_BLOCK_F32_ATOL; bf16 within two bf16 steps of each output (2**-6 of
+    its magnitude, plus 2**-9 near 0) but for a share IR_BLOCK_BF16_PAST,
+    and every output within that plus ``u_rounding_bound``: both versions
+    round u to bf16 from f32 sums taken in another order (cuDNN's sums
+    land farther from a float64 version's than the kernel's do).
+    The block op by op (cuDNN convs, what the port ran before this kernel)
+    is timed beside it as a guide: no single PyTorch call computes it."""
+    import torch
+
+    from facekit_torch.ops.ir_block import (_ir_block_cuda, block_operands,
+                                            ir_block_reference,
+                                            u_rounding_bound)
+    gen = torch.Generator().manual_seed(seed)
+    dgen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for hw, c, per_forward in IR_BLOCK_SHAPES:
+            blk = random_ir_block(c, dt, gen, device)
+            w1, w2, par = block_operands(blk, dt)
+            for n in (8, 64):
+                xs = [torch.randn((n, hw, hw, c), generator=dgen,
+                                  device=device).to(dt) for _ in range(2)]
+                got = _ir_block_cuda(xs[0], w1, w2, par).float()
+                ref = ir_block_reference(xs[0], w1, w2, par).float()
+                err = (got - ref).abs()
+                if dname == "float32":
+                    past = float((err > IR_BLOCK_F32_ATOL).float().mean())
+                    ok = past == 0.0
+                else:
+                    steps = 2.0 ** -6 * ref.abs() + 2.0 ** -9
+                    past = float((err > steps).float().mean())
+                    bound = u_rounding_bound(xs[0], w1, w2, par)
+                    ok = past <= IR_BLOCK_BF16_PAST and \
+                        bool((err <= steps + bound).all())
+                    del steps, bound
+                if not torch.isfinite(got).all() or not ok:
+                    raise AssertionError(
+                        f"ir_block {dname} {(n, hw, hw, c)}: differs from "
+                        f"the plain version by up to {float(err.max())}, "
+                        f"{past} of the outputs past the tolerance")
+                args = [(x, w1, w2, par) for x in xs]
+                bound, by = ir_block_bound(n, hw, hw, c, dname)
+                with torch.inference_mode():
+                    eager = cuda_ms(blk.composed, [(x,) for x in xs], 10)
+                rec = {"phase": "ir_block_case", "dtype": dname,
+                       "shape": {"N": n, "H": hw, "W": hw, "C": c},
+                       "blocks_per_forward": per_forward,
+                       "max_abs_err": float(err.max()),
+                       "max_abs_ref": float(ref.abs().max()),
+                       "share_past_tolerance": past,
+                       "ms": cuda_ms(_ir_block_cuda, args, 10),
+                       "plain_ms": cuda_ms(ir_block_reference, args, 3),
+                       "eager_ms": eager, "library_ms": None,
+                       "bound_ms": bound, "bound_by": by}
+                emit(rec)
+                out.append(rec)
+                del xs, got, ref, err
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_server_inference(device, repo_dir, seed=6, n_users=32):
+    """configs/default.json's WS /inference path on the card, at full
+    width: 480x640 frames, RetinaFace-MobileNet0.25 at 288x320 with
+    landmarks, 5-point alignment, IR-50 and the search in bf16, a bf16
+    gallery of 32 users; the batch function WS /inference calls, at
+    buckets 1 and 8. Each stage is checked against the port's f32 CPU path
+    on the same inputs. The detector is the one the server draws without
+    ``det_weights`` (numpy seed 0). Random detector weights score every
+    anchor of any frame near 0.55 (they see mostly the letterbox's constant
+    pad), so the shipped threshold of 0.6 would find no face; at 0.5 every
+    frame has 4, and alignment, embedding and match run on valid slots."""
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.ops.align import warp_align_frames
+    from facekit_torch.ops.similarity import cosine_topk_reference
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.server import FaceServer
+    from facekit_torch.weights import (random_arcface_params,
+                                       random_retinaface_params)
+
+    rng = np.random.default_rng(seed)
+    cfg = load_config(os.path.join(repo_dir, "configs", "default.json"))
+    cfg = dataclasses.replace(cfg, det_threshold_bbox=0.5)
+    rec_params = random_arcface_params(cfg.rec_network, seed=seed)
+    det_params = random_retinaface_params(
+        seed=0, with_landmarks=cfg.det_withLandmarks)
+    fh, fw = cfg.frame_hw
+    rh, rw = cfg.rec_hw
+    frames = rng.integers(0, 256, (n_users + 4, fh, fw, 3), dtype=np.uint8)
+    enrolled_q = [0, 5, 10, n_users - 1]
+    queries = np.concatenate([frames[enrolled_q], frames[n_users:]])
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dataclasses.replace(cfg, database_path=os.path.join(
+            tmp, "facekit.db"))
+        server = FaceServer(cfg, rec_params=rec_params, device=device)
+        pipe = server.pipeline
+        try:
+            reset_launches()
+            # -- the main path: each user is a face of one of 32 frames,
+            #    enrolled 8 frames per batch; then WS /inference's batch
+            #    function at buckets 1 and 8
+            for s in range(0, n_users, 8):
+                res = pipe.recognize_frames(frames[s:s + 8],
+                                            return_crops=True)
+                # the valid slot with the most pixel variance: some slots
+                # are boxes on the frame's edge with empty crops, alike in
+                # every frame
+                spread = res.crops.std(dim=(2, 3, 4)).masked_fill(
+                    ~res.valid, -1.0)
+                if (spread.amax(1) < 10).any():
+                    raise AssertionError("a frame without a valid face that "
+                                         "holds pixels")
+                slot = spread.argmax(1).cpu()
+                for j in range(8):
+                    uid = f"user{s + j:02d}"
+                    server.db.insert_user(uid, f"User {s + j}")
+                    emb = res.embeddings[j, slot[j]].cpu().numpy()
+                    if server.db.insert_face(uid, f"frame{s + j}.jpg",
+                                             emb) != 1:
+                        raise AssertionError(f"insert_face failed for {uid}")
+            server.reload_gallery()
+            answers = [server.inference_batch([queries[0]]),
+                       server.inference_batch(list(queries))]
+            torch.cuda.synchronize()
+            counts = launches()
+            forwards = n_users // 8 + 2
+            if counts["ir_block"] != IR_BLOCKS_PER_FORWARD * forwards or \
+                    counts["cosine_topk"] != 2 or \
+                    counts["cosine_topk_int8"] or counts["conv_s8"]:
+                raise AssertionError(f"launches on the /inference path of "
+                                     f"configs/default.json ({forwards} "
+                                     f"forwards): {counts}")
+
+            # -- checks: the replies
+            sims = []
+            for j, u in enumerate(enrolled_q):
+                a = answers[1][j]
+                if a is None or a["userId"] != f"user{u:02d}" or \
+                        a["similarity"] < 0.99:
+                    raise AssertionError(f"frame of user {u}: reply {a}")
+                sims.append(a["similarity"])
+            if answers[0][0] is None or answers[0][0]["userId"] != "user00":
+                raise AssertionError(f"bucket 1: reply {answers[0]}")
+            for a in answers[0] + answers[1]:
+                if a is None or a["crop"].dtype != np.uint8 or \
+                        a["crop"].shape != (rh, rw, 3):
+                    raise AssertionError("a reply without a uint8 crop")
+
+            # -- checks, stage by stage, against the port's f32 CPU path
+            cpu = FacePipeline(dataclasses.replace(cfg,
+                                                   compute_dtype="float32"),
+                               rec_params, det_params, device="cpu")
+            q_cpu = torch.as_tensor(queries)
+            q_dev = q_cpu.to(device)
+            outs = pipe._detector_outputs(q_dev)
+            det_err = {name: float((a.float().cpu() - b).abs().max())
+                       for name, a, b in zip(("loc", "conf", "ldm"), outs,
+                                             cpu._detector_outputs(q_cpu))}
+            if any(det_err[k] > DET_ATOL[k] for k in DET_ATOL):
+                raise AssertionError(f"detector on the card vs f32 CPU: "
+                                     f"{det_err} (limits {DET_ATOL})")
+            det = pipe._select_faces(*outs)
+            c_det = cpu._select_faces(*(t.cpu() for t in outs))
+            box_err = max(float((det.boxes.cpu() - c_det.boxes).abs().max()),
+                          float((det.landmarks.cpu()
+                                 - c_det.landmarks).abs().max()))
+            if not torch.equal(det.valid.cpu(), c_det.valid) or \
+                    box_err > 1e-3 or not det.valid.all():
+                raise AssertionError(f"select_faces_batch on the card's "
+                                     f"outputs: valid {det.valid.tolist()} "
+                                     f"vs {c_det.valid.tolist()}, boxes and "
+                                     f"landmarks up to {box_err} px apart")
+            crops = warp_align_frames(q_dev, det.landmarks, cfg.rec_hw,
+                                      dtype=pipe.dtype)
+            c_crops = warp_align_frames(q_cpu, det.landmarks.cpu(),
+                                        cfg.rec_hw, dtype=pipe.dtype)
+            crop_err = float((crops.cpu() - c_crops).abs().max())
+            if crop_err > CROP_ATOL:
+                raise AssertionError(f"aligned crops on the card vs CPU: "
+                                     f"{crop_err} apart")
+            snap = server.gallery.snapshot()
+            res, vals, idx = server.serving_recognize(
+                server.pad_batch(list(queries)), snap)
+            e_dev = res.embeddings.reshape(-1, DIM)
+            e_cpu = cpu.embed_cropped_batch(
+                res.crops.reshape(-1, rh, rw, 3).cpu().numpy())
+            cos_dist = float((1 - (e_cpu * e_dev.cpu().numpy()).sum(-1))
+                             .max())
+            if not np.all(np.isfinite(e_cpu)) or cos_dist > COS_DIST_MAX:
+                raise AssertionError(f"bf16 card vs f32 CPU embeddings: "
+                                     f"cosine distance {cos_dist}")
+            plain = cosine_topk_reference(snap.arr, e_dev.to(snap.arr.dtype),
+                                          snap.count, 2)
+            err = check_search("inference search", (vals.reshape(-1, 1),
+                                                    idx.reshape(-1, 1)),
+                               plain, 1)
+
+            # -- frame-batch latency at each bucket, with the fused blocks
+            #    and (a guide) with the blocks op by op, in turns
+            def inference_ms(b, reps=10):
+                ts = []
+                for _ in range(reps):
+                    batch = list(rng.integers(0, 256, (b, fh, fw, 3),
+                                              np.uint8))
+                    t0 = time.perf_counter()
+                    server.inference_batch(batch)
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                return ts[2:]
+            lat = {}
+            for _ in range(2):
+                for b in (1, 8):
+                    lat.setdefault(f"inference_ms_b{b}", []).extend(
+                        inference_ms(b))
+                    with composed_blocks():
+                        lat.setdefault(f"inference_ms_b{b}_composed",
+                                       []).extend(inference_ms(b))
+            rec = {"phase": "server_inference",
+                   "config": "configs/default.json",
+                   "det_threshold_bbox": cfg.det_threshold_bbox,
+                   "network": cfg.rec_network, "dtype": cfg.compute_dtype,
+                   "users": n_users, "frames": [1, len(queries)],
+                   "forwards": forwards, "launches": counts,
+                   "faces_per_frame": det.valid.sum(1).tolist(),
+                   "det_max_err": det_err, "box_max_err": box_err,
+                   "crop_max_err": crop_err,
+                   "cos_dist_vs_f32_cpu": cos_dist, "max_abs_err": err,
+                   "min_enrolled_similarity": float(min(sims)),
+                   **{k: statistics.median(v) for k, v in lat.items()}}
+            emit(rec)
+            return rec
+        finally:
+            server.close()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -692,17 +1010,26 @@ def main() -> int:
     int8_timings = phase_int8_kernels("cuda")
     convs = phase_conv("cuda")
     tput = phase_server_throughput("cuda", repo_dir)
+    blocks = phase_ir_block("cuda")
+    inference = phase_server_inference("cuda", repo_dir)
 
     main_case = next(t for t in timings if t["dtype"] == "bfloat16"
                      and t["B"] == 8 and t["k"] == 1)
     int8_case = next(t for t in int8_timings if t["B"] == 64 and t["k"] == 1)
     conv_case = next(c for c in convs if c["launches_per_forward"] == 0)
     k4 = conv_case["shape"]
+    # kernel #3 at the main path's shapes: one bf16 IR-50 forward of 8
+    # crops runs its 20 identity blocks at the four shapes
+    b8 = [c for c in blocks if c["dtype"] == "bfloat16"
+          and c["shape"]["N"] == 8]
+
+    def per_forward(key):
+        return sum(c[key] * c["blocks_per_forward"] for c in b8)
     emit({"kernels": [{
         "name": "cosine_topk", "route": "cuda",
         "source": "facekit_torch/ops/csrc/cosine_topk.cu",
         "replaces": "facekit/ops/similarity.py:275",
-        "launches": server["launches"],
+        "launches": inference["launches"]["cosine_topk"],
         "max_abs_err": max(max_err, server["max_abs_err"]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -731,7 +1058,24 @@ def main() -> int:
         "library_note": "PyTorch has no s8 convolution on CUDA",
         "bf16_cudnn_ms": conv_case["bf16_cudnn_ms"],
         "shape": f"s8 N={k4['N']} {k4['H']}x{k4['W']}x{k4['C']} -> "
-                 f"{k4['O']}, 3x3 stride 2 pad 1"}]})
+                 f"{k4['O']}, 3x3 stride 2 pad 1"}, {
+        "name": "ir_block", "route": "cuda",
+        "source": "facekit_torch/ops/csrc/ir_block.cu",
+        "replaces": "docs/experiments/fused_block_kernel.py:84",
+        "launches": inference["launches"]["ir_block"],
+        "max_abs_err": max(c["max_abs_err"] for c in blocks),
+        "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
+        "bound_ms": per_forward("bound_ms"),
+        "bound_by": ("operations" if all(c["bound_by"] == "operations"
+                                         for c in b8) else "bytes"),
+        "library_ms": None,
+        "library_note": "no PyTorch call computes the fused block; eager_ms "
+                        "is the block op by op (cuDNN convs), as the port "
+                        "ran it before this kernel",
+        "eager_ms": per_forward("eager_ms"),
+        "shape": "bf16 N=8: the 20 identity blocks of one IR-50 forward "
+                 "(2 x 56x56x64, 3 x 28x28x128, 13 x 14x14x256, "
+                 "2 x 7x7x512), times summed"}]})
     print(power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

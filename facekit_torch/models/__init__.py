@@ -6,3 +6,4 @@ from facekit_torch.models.arcface import (  # noqa: F401
     calibrate_arcface_int8,
     quantize_arcface,
 )
+from facekit_torch.models.retinaface import RetinaFace  # noqa: F401

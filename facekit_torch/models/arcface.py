@@ -6,6 +6,10 @@ specs (``:39-48``), the SE mean in f32 (``:59-63``), the IR block
 order so torch-layout Linear weights apply unchanged, and the embedding is
 L2-normalized in f32 with the norm clamped at 1e-12.
 
+A float block with stride 1, an identity shortcut and no SE (20 of
+IR-50's 24) runs as one ``ops.ir_block`` call, the fused kernel on the
+card; the other blocks, and the calibration forward, run the composition.
+
 Parameter names follow facekit's pytree paths (``input.conv``,
 ``blocks.3.shortcut.bn.scale``, ``output.linear.w``), so
 ``weights.bridge.from_jax`` maps one onto the other.
@@ -29,6 +33,7 @@ import torch
 from torch import nn
 
 from facekit_torch.models import layers as L
+from facekit_torch.ops.ir_block import ir_block
 
 ARCFACE_STAGE_UNITS = {
     "ir_50": (3, 4, 14, 3),
@@ -93,18 +98,7 @@ def _conv(x, w, stride: int, padding: int, stats=None, name: str = ""):
     return L.conv2d(x, w, stride=stride, padding=padding)
 
 
-class BatchNorm(nn.Module):
-    """Inference BN over the last axis, facekit's parametrization."""
-
-    def __init__(self, channels: int):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("mean", torch.zeros(channels))
-        self.register_buffer("var", torch.ones(channels))
-
-    def forward(self, x):
-        return L.batch_norm(x, self.scale, self.bias, self.mean, self.var)
+BatchNorm = L.BatchNorm
 
 
 class _Stem(nn.Module):
@@ -160,7 +154,21 @@ class IRBlock(nn.Module):
                          else None)
         self.se = _SE(depth) if se else None
 
+    def fusable(self) -> bool:
+        """A float block of the form ``ops.ir_block`` computes: stride 1,
+        identity shortcut, no SE."""
+        return (self.stride == 1 and self.shortcut is None and self.se is None
+                and not isinstance(self.conv1, QConv))
+
     def forward(self, x, stats=None, prefix: str = ""):
+        # the calibration forward records the inner conv inputs, which a
+        # fused block never holds, so it keeps the composition below
+        if stats is None and self.fusable():
+            return ir_block(x, self)
+        return self.composed(x, stats, prefix)
+
+    def composed(self, x, stats=None, prefix: str = ""):
+        """The block op by op, as facekit's ``_block_apply``."""
         if self.shortcut is not None:
             sc = _conv(x, self.shortcut.conv, stride=self.stride, padding=0,
                        stats=stats, name=f"{prefix}.shortcut")

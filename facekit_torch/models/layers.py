@@ -27,8 +27,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from facekit_torch.ops.conv_s8 import conv_s8
 
@@ -117,3 +119,52 @@ def strided_identity(x: torch.Tensor, stride: int) -> torch.Tensor:
     if stride == 1:
         return x
     return x[:, ::stride, ::stride, :]
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype))
+
+
+def nearest_resize_to(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """torch F.interpolate(mode='nearest') to an explicit size (NHWC)."""
+    _, h, w, _ = x.shape
+    oh, ow = out_hw
+    rows = torch.tensor((np.arange(oh) * h) // oh, device=x.device)
+    cols = torch.tensor((np.arange(ow) * w) // ow, device=x.device)
+    return x[:, rows][:, :, cols]
+
+
+class BatchNorm(nn.Module):
+    """Inference BN over the last axis, facekit's parametrization."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x):
+        return batch_norm(x, self.scale, self.bias, self.mean, self.var)
+
+
+def conv_bn(x: torch.Tensor, w: torch.Tensor, bn: BatchNorm, stride: int = 1,
+            padding: int = 1, act: str = "relu", leaky_slope: float = 0.0,
+            groups: int = 1) -> torch.Tensor:
+    """conv -> BN -> (relu | leaky | none), the reference's conv_bn family
+    (``conversion/retina/models/net.py:9-38``)."""
+    x = bn(conv2d(x, w, stride=stride, padding=padding, groups=groups))
+    if act == "relu":
+        x = relu(x)
+    elif act == "leaky":
+        x = leaky_relu(x, leaky_slope)
+    return x
+
+
+def conv_dw(x: torch.Tensor, dw_w: torch.Tensor, dw_bn: BatchNorm,
+            pw_w: torch.Tensor, pw_bn: BatchNorm, stride: int) -> torch.Tensor:
+    """Depthwise-separable unit: dw3x3 (``groups`` = C) + BN + ReLU, then
+    pw1x1 + BN + ReLU (``conversion/retina/models/net.py:29-38``)."""
+    x = relu(dw_bn(conv2d(x, dw_w, stride=stride, padding=1,
+                          groups=x.shape[-1])))
+    return relu(pw_bn(conv2d(x, pw_w)))

@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "facekit_torch"
 #: kernel name -> source file under ops/csrc
 SOURCES = {"cosine_topk": "cosine_topk.cu",
            "cosine_topk_int8": "cosine_topk_int8.cu",
-           "conv_s8": "conv_s8.cu"}
+           "conv_s8": "conv_s8.cu",
+           "ir_block": "ir_block.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -1,10 +1,18 @@
-"""Image resampling as two matrix products, with OpenCV semantics.
+"""Image resampling as matrix products, with OpenCV semantics.
 
-Port of the linear part of ``facekit/ops/resize.py:62-105``: a separable
-resize is ``out = W_rows @ img @ W_cols^T`` per channel, with OpenCV's
-half-pixel source mapping ``src = (dst + 0.5) * in/out - 0.5``, a 2-tap
-triangle kernel and border replication by index clamping. It serves
-``embed_cropped`` on a crop that is not the recognizer's input size.
+Port of ``facekit/ops/resize.py``: a separable resize is ``out = W_rows @
+img @ W_cols^T`` per channel, with OpenCV's half-pixel source mapping
+``src = (dst + 0.5) * in/out - 0.5``, border replication by index
+clamping, and either a 2-tap triangle kernel (INTER_LINEAR) or the 4-tap
+Keys cubic with A = -0.75 (INTER_CUBIC).
+
+  * ``resize_image``: a fixed-geometry resize (``embed_cropped``, and the
+    letterbox's inner resize);
+  * ``letterbox``: aspect-preserving linear resize to the detector input,
+    centred with the reference's truncating integer placement, pad 128;
+  * ``crop_resize``: each box of a frame cropped and resized as two
+    matrices built from the box (``_dynamic_axis_matrix``). The windowed
+    ``origins`` variant of facekit is not ported (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -14,23 +22,44 @@ from typing import Tuple
 import numpy as np
 import torch
 
+_CUBIC_A = -0.75  # OpenCV's bicubic kernel coefficient
+
+
+def _cubic_kernel(x, xp=torch):
+    """Keys cubic convolution kernel with a=-0.75 (OpenCV INTER_CUBIC)."""
+    x = xp.abs(x)
+    a = _CUBIC_A
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0
+    far = ((a * x - 5.0 * a) * x + 8.0 * a) * x - 4.0 * a
+    return xp.where(x <= 1.0, near, xp.where(x < 2.0, far, 0.0 * x))
+
+
+def _linear_kernel(x, xp=torch):
+    return xp.maximum(1.0 - xp.abs(x), 0.0 * x)
+
+
+_KERNELS = {"linear": (_linear_kernel, 2), "cubic": (_cubic_kernel, 4)}
+
+
+def _tap_offsets(support: int) -> np.ndarray:
+    # 2 taps -> [0, 1]; 4 taps -> [-1, 0, 1, 2] around floor(src)
+    start = -(support // 2 - 1)
+    return np.arange(start, start + support)
+
 
 def resize_matrix(in_size: int, out_size: int, method: str = "linear",
                   dtype=torch.float32, device=None) -> torch.Tensor:
-    """Dense (out_size, in_size) linear interpolation matrix for one axis."""
-    if method != "linear":
-        raise ValueError(f"resize method {method!r} is not ported yet "
-                         "(only 'linear')")
+    """Dense (out_size, in_size) interpolation matrix for one axis."""
+    kernel, support = _KERNELS[method]
     scale = in_size / out_size
     dst = np.arange(out_size, dtype=np.float64)
     src = (dst + 0.5) * scale - 0.5
     base = np.floor(src)
     frac = src - base
     w = np.zeros((out_size, in_size), dtype=np.float64)
-    for t in (0, 1):
+    for t in _tap_offsets(support):
         idx = np.clip(base + t, 0, in_size - 1).astype(np.int64)
-        wt = np.maximum(1.0 - np.abs(t - frac), 0.0)
-        np.add.at(w, (np.arange(out_size), idx), wt)
+        np.add.at(w, (np.arange(out_size), idx), kernel(t - frac, xp=np))
     return torch.tensor(w, dtype=dtype, device=device)
 
 
@@ -55,3 +84,96 @@ def resize_image(img: torch.Tensor, out_hw: Tuple[int, int],
     if saturate:
         out = saturate_uint8(out)
     return out[0] if squeeze else out
+
+
+def letterbox_geometry(frame_hw: Tuple[int, int],
+                       target_hw: Tuple[int, int]):
+    """Integer letterbox placement as the reference computes it
+    (``src/retinaface.cpp:111-122``): float scales, a truncating int for
+    the scaled extent, integer-division centring. Returns (resized_h,
+    resized_w, offset_y, offset_x, scale)."""
+    fh, fw = frame_hw
+    th, tw = target_hw
+    scale_h = th / fh
+    scale_w = tw / fw
+    if scale_h > scale_w:
+        w, h = tw, int(scale_w * fh)
+        x, y = 0, (th - h) // 2
+        scale = scale_w
+    else:
+        w, h = int(scale_h * fw), th
+        x, y = (tw - w) // 2, 0
+        scale = scale_h
+    return h, w, y, x, scale
+
+
+def letterbox(img: torch.Tensor, target_hw: Tuple[int, int],
+              pad_value: float = 128.0, saturate: bool = True
+              ) -> torch.Tensor:
+    """Aspect-preserving INTER_LINEAR resize + centre pad.
+
+    ``img`` is (H, W, C) or (N, H, W, C) in the frame geometry; the output
+    is f32 in the detector input geometry, ``pad_value`` outside the image.
+    """
+    squeeze = img.dim() == 3
+    if squeeze:
+        img = img[None]
+    n, fh, fw, c = img.shape
+    h, w, y, x, _ = letterbox_geometry((fh, fw), target_hw)
+    th, tw = target_hw
+    out = torch.full((n, th, tw, c), pad_value, dtype=torch.float32,
+                     device=img.device)
+    out[:, y:y + h, x:x + w] = resize_image(img, (h, w), "linear",
+                                            saturate=saturate)
+    return out[0] if squeeze else out
+
+
+def _dynamic_axis_matrix(lo: torch.Tensor, hi: torch.Tensor, in_size: int,
+                         out_size: int, method: str) -> torch.Tensor:
+    """(..., out_size, in_size) matrices resampling the [lo, hi) crops.
+
+    ``lo``/``hi`` (any leading shape) are already floor-truncated, as the
+    reference truncates float box corners to ``cv::Point``
+    (``src/arcface.cpp:6``). Sampling coordinates are clamped to the crop,
+    so border replication matches cropping then resizing. All in f32, in
+    facekit's operation order."""
+    kernel, support = _KERNELS[method]
+    lo = lo.float()[..., None]
+    hi = torch.maximum(hi.float()[..., None], lo + 1.0)
+    scale = (hi - lo) / out_size
+    dst = torch.arange(out_size, dtype=torch.float32, device=lo.device)
+    src = lo + (dst + 0.5) * scale - 0.5
+    base = torch.floor(src)
+    frac = src - base
+    cols = torch.arange(in_size, dtype=torch.float32, device=lo.device)
+    w = None
+    for t in _tap_offsets(support):
+        idx = torch.minimum(torch.maximum(base + float(t), lo), hi - 1.0)
+        wt = kernel(float(t) - frac)
+        term = wt[..., None] * (cols == idx[..., None]).float()
+        w = term if w is None else w + term
+    return w
+
+
+def crop_resize(frame: torch.Tensor, boxes: torch.Tensor,
+                out_hw: Tuple[int, int] = (112, 112), method: str = "cubic",
+                saturate: bool = True) -> torch.Tensor:
+    """Crop each box from ``frame`` and resize it, as two matrix products.
+
+    ``frame`` (H, W, C) with ``boxes`` (F, 4), or frames (N, H, W, C) with
+    boxes (N, F, 4); boxes are (x1, y1, x2, y2) in pixels. Returns
+    (F, oh, ow, C) or (N, F, oh, ow, C) in f32: OpenCV's resize of
+    ``frame[y1:y2, x1:x2]`` (``src/arcface.cpp:3-17``)."""
+    single = frame.dim() == 3
+    if single:
+        frame, boxes = frame[None], boxes[None]
+    h, w = frame.shape[1:3]
+    oh, ow = out_hw
+    b = torch.floor(boxes.float())
+    wr = _dynamic_axis_matrix(b[..., 1], b[..., 3], h, oh, method)
+    wc = _dynamic_axis_matrix(b[..., 0], b[..., 2], w, ow, method)
+    tmp = torch.einsum("nfoh,nhwc->nfowc", wr, frame.float())
+    out = torch.einsum("nfpw,nfowc->nfopc", wc, tmp)
+    if saturate:
+        out = saturate_uint8(out)
+    return out[0] if single else out

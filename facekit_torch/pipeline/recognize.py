@@ -1,22 +1,33 @@
-"""The embed + match pipeline: the ``/recognize`` and enrollment path.
+"""The detect -> crop/align -> embed -> match pipeline.
 
-Port of ``FacePipeline``'s embed and match methods
-(``facekit/pipeline/recognize.py:304-354``, ``:491-534``): pre-cropped BGR
-faces -> ``rec_normalize`` -> ArcFace -> gallery search. PyTorch runs
-eagerly, so each method is the body of facekit's jitted program. The
-detect methods come with the detect slice.
+Port of ``facekit/pipeline/recognize.py``. PyTorch runs eagerly, so each
+method is the body of one of facekit's jitted programs:
 
-With ``rec_quantize`` the embedder is the int8 ArcFace, dynamic until
-``calibrate_embedder`` fixes its activation scales; the float weights stay
-on the host for that (``facekit/pipeline/recognize.py:373-416``). An int8
-gallery is searched with the f32 embeddings (``_match_queries``,
-``:208-225``).
+    letterbox + det_normalize -> RetinaFace -> decode + NMS (max_faces
+        slots per frame) -> 5-point alignment (or cubic crop-resize)
+        -> rec_normalize -> ArcFace -> gallery search
+
+  * ``detect_frames`` (``_detect_frames``, ``:168-189``), frames ->
+    ``Detections``;
+  * ``recognize_frame(s)`` (``:89-165``) -> ``FrameResult``;
+  * ``recognize_and_match`` (``:262-297``), the WS ``/inference`` batch:
+    frames -> (FrameResult, sims (N, F, k), gallery idx (N, F, k));
+  * ``embed_and_match`` / ``embed_cropped(_batch)`` (``:304-354``), the
+    ``/recognize`` and enrollment path on pre-cropped faces.
+
+The detector runs when ``det_params`` are given; landmarks are used when
+they carry the landmark head, and alignment when landmarks are used and
+the config sets ``rec_useAlignment`` (``:383-388``). With ``rec_quantize``
+the embedder is the int8 ArcFace, dynamic until ``calibrate_embedder``
+fixes its activation scales; the float weights stay on the host for that
+(``:373-416``). An int8 gallery is searched with the f32 embeddings
+(``_match_queries``, ``:208-225``).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -24,8 +35,12 @@ import torch
 from facekit_torch.config import FaceKitConfig
 from facekit_torch.models.arcface import (ArcFace, calibrate_arcface_int8,
                                           quantize_arcface)
-from facekit_torch.ops.preprocess import rec_normalize
-from facekit_torch.ops.resize import resize_image
+from facekit_torch.models.retinaface import RetinaFace
+from facekit_torch.ops.align import warp_align_frames
+from facekit_torch.ops.anchors import generate_anchors
+from facekit_torch.ops.boxes import Detections, select_faces_batch
+from facekit_torch.ops.preprocess import det_normalize, rec_normalize
+from facekit_torch.ops.resize import crop_resize, letterbox, resize_image
 from facekit_torch.ops.similarity import cosine_topk, cosine_topk_int8
 from facekit_torch.utils.device import resolve_device
 from facekit_torch.weights.bridge import from_jax
@@ -48,15 +63,26 @@ def _own_frames(arr, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(arr, device=device)
 
 
+class FrameResult(NamedTuple):
+    boxes: torch.Tensor        # (..., F, 4) frame pixels
+    scores: torch.Tensor       # (..., F)
+    valid: torch.Tensor        # (..., F) bool
+    embeddings: torch.Tensor   # (..., F, D) L2-normalized (garbage if invalid)
+    landmarks: Optional[torch.Tensor] = None   # (..., F, 5, 2) or None
+    crops: Optional[torch.Tensor] = None       # (..., F, rh, rw, 3) f32 BGR
+
+
 class FacePipeline:
-    """Owns the embedder for one config, on one device."""
+    """Owns the detector and the embedder for one config, on one device."""
 
     def __init__(self, config: FaceKitConfig, rec_params: Dict[str, Any],
-                 device=None):
-        """``rec_params``: the embedder's params in facekit's layout (what
-        ``facekit.models.arcface_init``, ``weights.load_params`` or
-        ``weights.random_arcface_params`` return), carried over by
-        ``weights.bridge.from_jax``. ``device`` defaults to ``"cuda"``."""
+                 det_params: Optional[Dict[str, Any]] = None, device=None):
+        """``rec_params`` / ``det_params``: the embedder's and detector's
+        params in facekit's layout (what ``facekit.models.arcface_init`` /
+        ``retinaface_init``, ``weights.load_params`` or
+        ``weights.random_*_params`` return), carried over by
+        ``weights.bridge.from_jax``. Without ``det_params`` only the
+        pre-cropped methods work. ``device`` defaults to ``"cuda"``."""
         self.config = config
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -75,6 +101,21 @@ class FacePipeline:
             self._rec_net_float = net.eval()
             net = quantize_arcface(net)
         self._serve(net)
+
+        self.det_net: Optional[RetinaFace] = None
+        self.use_landmarks = False
+        if det_params is not None:
+            if config.det_network != "mobilenet0.25":
+                raise ValueError(f"det_network {config.det_network!r}: only "
+                                 "mobilenet0.25 is ported")
+            det = RetinaFace(with_landmarks="ldm_head" in det_params)
+            det.load_state_dict(from_jax(det_params, det))
+            self.det_net = det.set_compute_dtype(self.dtype).to(
+                self.device).eval()
+            self.use_landmarks = det.ldm_head is not None
+            self.anchors = generate_anchors(config.det_hw, device=self.device)
+        self.align = self.use_landmarks and bool(
+            config.extras.get("rec_useAlignment", False))
 
     def _serve(self, net: ArcFace) -> None:
         self.rec_net = net.set_compute_dtype(self.dtype).to(self.device).eval()
@@ -98,6 +139,84 @@ class FacePipeline:
         net = calibrate_arcface_int8(float_net, batches, headroom=headroom)
         del float_net
         self._serve(net)
+
+    # -- detection ------------------------------------------------------------
+
+    @torch.inference_mode()
+    def _detector_outputs(self, frames: torch.Tensor):
+        """(N, fh, fw, 3) BGR frames on the device -> RetinaFace's (loc,
+        conf, ldm) on the letterboxed, normalized frames."""
+        if self.det_net is None:
+            raise ValueError("this pipeline has no detector (det_params)")
+        return self.det_net(det_normalize(letterbox(frames.float(),
+                                                    self.config.det_hw)))
+
+    def _select_faces(self, loc, conf, ldm) -> Detections:
+        """Detector outputs -> Detections with max_faces slots per frame,
+        on the device the outputs lie on."""
+        cfg = self.config
+        return select_faces_batch(
+            loc, conf, self.anchors, cfg.frame_hw, cfg.det_hw,
+            max_faces=cfg.det_maxFacesPerScene,
+            score_threshold=cfg.det_threshold_bbox,
+            iou_threshold=cfg.det_threshold_nms, nms_top_k=cfg.det_nmsTopK,
+            nms_exact=cfg.det_nmsExact,
+            ldm=ldm if self.use_landmarks else None)
+
+    @torch.inference_mode()
+    def _detect(self, frames: torch.Tensor) -> Detections:
+        return self._select_faces(*self._detector_outputs(frames))
+
+    def detect_frames(self, frames_bgr) -> Detections:
+        """Detection only: (N, H, W, 3) BGR frames -> Detections (boxes,
+        scores, valid, landmarks) in frame pixels, as device tensors."""
+        return self._detect(_own_frames(frames_bgr, self.device))
+
+    @torch.inference_mode()
+    def _recognize_frames(self, frames: torch.Tensor, return_crops: bool
+                          ) -> FrameResult:
+        det = self._detect(frames)
+        n, nf = det.valid.shape
+        if self.align:
+            faces = warp_align_frames(frames, det.landmarks,
+                                      self.config.rec_hw, dtype=self.dtype)
+        else:
+            faces = crop_resize(frames.float(), det.boxes, self.config.rec_hw,
+                                "cubic")
+        flat = faces.reshape(n * nf, *faces.shape[2:])
+        emb = self.rec_net(rec_normalize(flat)).reshape(n, nf, -1)
+        return FrameResult(det.boxes, det.scores, det.valid, emb,
+                           det.landmarks, faces if return_crops else None)
+
+    def recognize_frames(self, frames_bgr, return_crops: bool = False
+                         ) -> FrameResult:
+        """Batched path: (N, fh, fw, 3) BGR frames -> FrameResult with a
+        leading N; all N * max_faces crops embed in one ArcFace call."""
+        return self._recognize_frames(_own_frames(frames_bgr, self.device),
+                                      return_crops)
+
+    def recognize_frame(self, frame_bgr, return_crops: bool = False
+                        ) -> FrameResult:
+        """One (fh, fw, 3) BGR frame -> FrameResult without the batch axis
+        (the same numbers as a batch of one, as in facekit)."""
+        res = self._recognize_frames(
+            _own_frames(frame_bgr, self.device)[None], return_crops)
+        return FrameResult(*(None if t is None else t[0] for t in res))
+
+    def recognize_and_match(self, frames_bgr, gallery_arr: torch.Tensor,
+                            count: int, k: int = 1,
+                            return_crops: bool = False,
+                            gallery_scale: Optional[torch.Tensor] = None):
+        """Frames -> (FrameResult, sims (N, F, k), gallery idx (N, F, k)):
+        the WS ``/inference`` batch. Pass the fields of a
+        ``GalleryStore.snapshot()``; an int8 gallery needs its scales."""
+        res = self._recognize_frames(_own_frames(frames_bgr, self.device),
+                                     return_crops)
+        vals, idx = self.match_flat(res.embeddings, gallery_arr, count, k,
+                                    gallery_scale)
+        return res, vals, idx
+
+    # -- pre-cropped faces ----------------------------------------------------
 
     @torch.inference_mode()
     def _embed(self, imgs: torch.Tensor) -> torch.Tensor:

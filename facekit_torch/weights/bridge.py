@@ -176,3 +176,62 @@ def random_arcface_params(network: str = "ir_50", seed: int = 0,
             "bn1d": _bn(rng, embed_dim),
         },
     }
+
+
+def _kaiming_hwio(rng, o, i, kh, kw):
+    """torch Conv2d's default init (kaiming uniform, a = sqrt(5)), HWIO."""
+    bound = 1.0 / np.sqrt(i * kh * kw)
+    w = rng.uniform(-bound, bound, size=(o, i, kh, kw)).astype(np.float32)
+    return w.transpose(2, 3, 1, 0)
+
+
+def random_retinaface_params(seed: int = 0, with_landmarks: bool = True
+                             ) -> Dict[str, Any]:
+    """Random RetinaFace-MobileNet0.25 params in facekit's layout (the
+    tree ``facekit.models.retinaface_init`` returns), drawn from ``seed``
+    with numpy so both packages can be fed the same values."""
+    from facekit_torch.models.retinaface import (_FPN_IN, _NUM_ANCHORS,
+                                                 _OUT_CH, _STAGE1, _STAGE2,
+                                                 _STAGE3)
+    rng = np.random.default_rng(seed)
+
+    def conv_bn(cin, cout, k=3):
+        return {"conv": _kaiming_hwio(rng, cout, cin, k, k),
+                "bn": _bn(rng, cout)}
+
+    def conv_dw(cin, cout):
+        return {"dw_conv": _kaiming_hwio(rng, cin, 1, 3, 3),
+                "dw_bn": _bn(rng, cin),
+                "pw_conv": _kaiming_hwio(rng, cout, cin, 1, 1),
+                "pw_bn": _bn(rng, cout)}
+
+    def ssh():
+        c = _OUT_CH
+        return {"conv3x3": conv_bn(c, c // 2),
+                "conv5x5_1": conv_bn(c, c // 4),
+                "conv5x5_2": conv_bn(c // 4, c // 4),
+                "conv7x7_2": conv_bn(c // 4, c // 4),
+                "conv7x7_3": conv_bn(c // 4, c // 4)}
+
+    def head(dim):
+        return {"w": _kaiming_hwio(rng, _NUM_ANCHORS * dim, _OUT_CH, 1, 1),
+                "b": rng.uniform(-0.1, 0.1, _NUM_ANCHORS * dim)
+                .astype(np.float32)}
+
+    params = {
+        "stem": conv_bn(3, 8),
+        "stage1": [conv_dw(ci, co) for ci, co, _ in _STAGE1],
+        "stage2": [conv_dw(ci, co) for ci, co, _ in _STAGE2],
+        "stage3": [conv_dw(ci, co) for ci, co, _ in _STAGE3],
+        "fpn": {"output1": conv_bn(_FPN_IN[0], _OUT_CH, 1),
+                "output2": conv_bn(_FPN_IN[1], _OUT_CH, 1),
+                "output3": conv_bn(_FPN_IN[2], _OUT_CH, 1),
+                "merge1": conv_bn(_OUT_CH, _OUT_CH),
+                "merge2": conv_bn(_OUT_CH, _OUT_CH)},
+        "ssh1": ssh(), "ssh2": ssh(), "ssh3": ssh(),
+        "class_head": [head(2) for _ in range(3)],
+        "bbox_head": [head(4) for _ in range(3)],
+    }
+    if with_landmarks:
+        params["ldm_head"] = [head(10) for _ in range(3)]
+    return params

@@ -133,12 +133,18 @@ def test_arcface_bf16_within_cosine_bar():
 
 
 def test_arcface_ir50_f32_batch1_matches():
+    """IR-50 runs its 20 stride-1 identity blocks through ``ops.ir_block``
+    (the fused block's plain version on the CPU): f32 within 1e-4 of
+    facekit's op-by-op forward, and the port's bf16 forward within the
+    1e-3 cosine bar of that same f32 reference."""
     params, net = _arcface_pair("ir_50", seed=5)
     x = np.random.default_rng(3).uniform(-1, 1, (1, 112, 112, 3)) \
         .astype(np.float32)
     ref = np.asarray(arcface_apply(params, jnp.asarray(x), network="ir_50",
                                    dtype=jnp.float32))
     np.testing.assert_allclose(_embed(net, x), ref, rtol=0, atol=1e-4)
+    ours_bf16 = _embed(net.set_compute_dtype(torch.bfloat16), x)
+    assert (1 - (ours_bf16 * ref).sum(-1)).max() < 1e-3
 
 
 def test_from_jax_takes_facekit_init_and_msgpack(tmp_path):

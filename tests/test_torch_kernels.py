@@ -11,7 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from facekit_torch.models.arcface import IRBlock
 from facekit_torch.ops.conv_s8 import _conv_s8_cuda, conv_s8, conv_s8_reference
+from facekit_torch.ops.ir_block import (_conv3x3, _ir_block_cuda, _plain_u,
+                                        block_operands, ir_block,
+                                        ir_block_reference, u_rounding_bound)
 from facekit_torch.ops.similarity import (_cosine_topk_cuda,
                                           _cosine_topk_int8_cuda, cosine_topk,
                                           cosine_topk_int8,
@@ -84,6 +88,56 @@ def test_conv_wrapper_runs_plain_version_on_cpu():
     assert conv_s8.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         _conv_s8_cuda(x, w, 2, 1)
+
+
+def _ir_operands(rng, c, dtype=torch.float32):
+    """(w1, w2, par) of a random IR block: weights (C, 3, 3, C) in
+    ``dtype``, par (5, C) f32 = s1, b1, alpha, s2, b2."""
+    a = np.sqrt(6.0 / (9 * c))
+    w1, w2 = (torch.tensor(rng.uniform(-a, a, (c, 3, 3, c)),
+                           dtype=torch.float32).to(dtype) for _ in range(2))
+    par = torch.tensor(np.stack([rng.uniform(0.5, 1.5, c),
+                                 rng.uniform(-0.2, 0.2, c),
+                                 rng.uniform(0.1, 0.4, c),
+                                 rng.uniform(0.5, 1.5, c),
+                                 rng.uniform(-0.2, 0.2, c)]),
+                       dtype=torch.float32)
+    return w1, w2, par
+
+
+def test_ir_block_wrapper_runs_plain_version_on_cpu():
+    """An IR-50 identity block on a CPU tensor: ``ir_block`` is the plain
+    version on the block's operands, bit for bit, and launches nothing."""
+    rng = np.random.default_rng(6)
+    blk = IRBlock(64, 64, 1, se=False).eval()
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.tensor(rng.uniform(0.1, 0.3, p.shape)))
+    x = torch.tensor(rng.normal(size=(2, 7, 5, 64)), dtype=torch.float32)
+    before = ir_block.launches
+    got = ir_block(x, blk)
+    assert torch.equal(got, ir_block_reference(
+        x, *block_operands(blk, torch.float32)))
+    assert ir_block.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        _ir_block_cuda(x, *block_operands(blk, torch.float32))
+
+
+def test_u_rounding_bound_is_one_step_of_u():
+    """With u > 0 and w2 >= 0, moving every element of u one bf16 step up
+    moves m2 * s2 by exactly ``u_rounding_bound``."""
+    rng = np.random.default_rng(8)
+    w1, w2, par = _ir_operands(rng, 64, torch.bfloat16)
+    w1, w2, par = w1.abs(), w2.abs(), par.abs()
+    x = torch.tensor(rng.uniform(0.1, 1.0, (1, 5, 6, 64)),
+                     dtype=torch.float32).to(torch.bfloat16)
+    u = _plain_u(x, w1, par)
+    assert (u > 0).all()
+    up = (u.view(torch.int16) + 1).view(torch.bfloat16)
+    moved = (_conv3x3(up.double(), w2.double())
+             - _conv3x3(u.double(), w2.double())) * par[3].double()
+    np.testing.assert_allclose(u_rounding_bound(x, w1, w2, par).numpy(),
+                               moved.numpy(), rtol=1e-5)
 
 
 # -- the CUDA kernels (skipped without a card) --------------------------------
@@ -199,3 +253,57 @@ def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
                                device=cuda_device))
     with pytest.raises(TypeError):
         conv_s8(x.float(), torch.zeros((64, 3, 3, 64), device=cuda_device))
+
+
+# (N, H, W, C): the four IR-50 identity-block shapes, and ragged bands
+# (H not a multiple of the kernel's 4-row band, odd W)
+IR_BLOCK_CASES = [(2, 56, 56, 64), (2, 28, 28, 128), (1, 14, 14, 256),
+                  (1, 7, 7, 512), (3, 9, 13, 64), (1, 5, 3, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,c", IR_BLOCK_CASES)
+def test_ir_block_kernel_matches_plain(cuda_device, n, h, w, c, dtype):
+    """f32 within 1e-4 (sums over 9*C terms in another order than
+    cuDNN's). bf16: u and the output are each rounded to bf16 once, from
+    f32 sums taken in another order, so all but 1e-5 of the outputs lie
+    within two bf16 steps of the plain version's (2**-6 of the magnitude,
+    plus 2**-9 near 0), and every one within that plus the spread one step
+    of u in each input of conv2 can cause (``u_rounding_bound``)."""
+    torch.backends.cudnn.allow_tf32 = False
+    td = getattr(torch, dtype)
+    rng = np.random.default_rng(n * h * w + c)
+    w1, w2, par = (t.to(cuda_device) for t in _ir_operands(rng, c, td))
+    x = torch.tensor(rng.normal(size=(n, h, w, c)), dtype=torch.float32,
+                     device=cuda_device).to(td)
+    before = ir_block.launches
+    got = _ir_block_cuda(x, w1, w2, par)
+    ref = ir_block_reference(x, w1, w2, par)
+    torch.cuda.synchronize()
+    assert ir_block.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == td
+    err = (got.float() - ref.float()).abs()
+    if dtype == "float32":
+        assert err.max() <= 1e-4, err.max()
+    else:
+        steps = 2.0 ** -6 * ref.float().abs() + 2.0 ** -9
+        assert (err > steps).float().mean() <= 1e-5, err.max()
+        assert (err <= steps + u_rounding_bound(x, w1, w2, par)).all()
+
+
+@pytest.mark.cuda
+def test_ir_block_kernel_refuses_what_it_does_not_take(cuda_device):
+    rng = np.random.default_rng(7)
+    w1, w2, par = (t.to(cuda_device) for t in _ir_operands(rng, 32))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        _ir_block_cuda(torch.zeros((1, 7, 7, 32), device=cuda_device), w1,
+                       w2, par)
+    w1, w2, par = (t.to(cuda_device) for t in _ir_operands(rng, 64))
+    x = torch.zeros((1, 7, 7, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        _ir_block_cuda(x.half(), w1.half(), w2.half(), par)
+    with pytest.raises(TypeError):
+        _ir_block_cuda(x, w1.to(torch.bfloat16), w2, par)
+    with pytest.raises(ValueError, match="f32 expected"):
+        _ir_block_cuda(x, w1, w2, par[:4])

@@ -30,7 +30,8 @@ from facekit_torch.config import FaceKitConfig, load_config
 from facekit_torch.db import Database
 from facekit_torch.server import FaceServer, make_app
 from facekit_torch.server.app import main as server_main
-from facekit_torch.weights import random_arcface_params
+from facekit_torch.weights import (random_arcface_params,
+                                   random_retinaface_params)
 
 aiohttp = pytest.importorskip("aiohttp")
 from aiohttp.test_utils import TestClient, TestServer  # noqa: E402
@@ -198,10 +199,11 @@ def test_recognize_batch_pads_to_buckets(servers):
 
 
 @pytest.mark.parametrize("override", [
-    {"api_imgIsCropped": False}, {"extras": {"rec_int8Residual": True}},
+    {"det_network": "slim"}, {"extras": {"rec_int8Residual": True}},
     {"mesh_shape": {"gallery": 4}},
     {"gen": True}, {"extras": {"server_enginesDir": "/tmp/engines"}},
-    {"extras": {"server_hostOps": "native"}}])
+    {"extras": {"server_hostOps": "native"}}, {"det_network": "rfb"},
+    {"det_quantize": True}])
 def test_unported_configs_are_refused(override, tmp_path):
     cfg = FaceKitConfig(database_path=str(tmp_path / "x.db"), **_COMMON)
     cfg = dataclasses.replace(cfg, **override)
@@ -395,3 +397,169 @@ def test_import_loads_no_jax_and_no_facekit():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout) >= 15
+
+
+# -- detection on the server: WS /inference, /insert/face uncropped -------------
+
+# random detector weights score every anchor of any frame near 0.5 (the
+# letterbox's constant pad rows score highest), so a threshold of 0.5
+# finds det_maxFacesPerScene faces in every frame and 0.99 finds none
+_DET = dict(_COMMON, api_imgIsCropped=False, det_threshold_bbox=0.5)
+
+
+def _det_servers(tmp, det_override=None, extras=None):
+    """facekit's server and the port's on one config, one numpy-drawn
+    embedder and detector."""
+    rp = random_arcface_params("ir_tiny", seed=8)
+    dp = random_retinaface_params(seed=0)
+    cfg = dict(_DET, extras=dict({"rec_useAlignment": True}, **(extras or {})),
+               **(det_override or {}))
+    ref = JaxServer(JaxConfig(database_path=str(tmp / "jax.db"),
+                              use_pallas_search=False, **cfg),
+                    det_params=dp, rec_params=rp, warmup=False)
+    ours = FaceServer(FaceKitConfig(database_path=str(tmp / "torch.db"),
+                                    **cfg),
+                      rec_params=rp, det_params=dp, warmup=False,
+                      device="cpu")
+    return ref, ours
+
+
+def _enroll(servers, users):
+    """Write the same (userId, embedding) rows into both databases."""
+    for srv in servers:
+        for uid, emb in users:
+            srv.db.insert_user(uid, uid.title())
+            assert srv.db.insert_face(uid, f"{uid}.jpg", emb) == 1
+
+
+async def _ws_replies(client, frames):
+    """Send every frame on one socket before reading, then read as many
+    replies (they come back in message order)."""
+    ws = await client.ws_connect("/inference")
+    for f in frames:
+        await ws.send_bytes(f)
+    out = [(await ws.receive()).data for _ in frames]
+    await ws.close()
+    return out
+
+
+def _decode(b64):
+    import base64
+    return cv2.imdecode(np.frombuffer(base64.b64decode(b64), np.uint8),
+                        cv2.IMREAD_COLOR)
+
+
+async def test_ws_inference_matches_facekit(tmp_path):
+    """WS /inference with two frames in flight per socket: "null" while
+    the gallery is empty and for an undecodable frame; otherwise userId,
+    userName and isUnknown equal, similarity within 1e-4, and the best
+    face's decoded JPEG crop within 2 LSB of facekit's on 99.9% of its
+    pixels (either side truncates f32 crops that differ in the 4th decimal
+    to uint8, and JPEG spreads a 1-LSB flip over its 8x8 block)."""
+    servers = _det_servers(tmp_path, extras={"server_wsPipeline": 2})
+    ref, ours = servers
+    rng = np.random.default_rng(12)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+              for _ in range(3)]
+    jpgs = [_jpg(tmp_path / f"w{i}.jpg", f) for i, f in enumerate(frames)]
+    try:
+        async with _clients(servers) as clients:
+            for c in clients:
+                assert await _ws_replies(c, jpgs[:2]) == ["null", "null"]
+            # users: a face of frame 0, a face of frame 2, and a stranger.
+            # Slots 0 and 2 of these frames are degenerate boxes on the
+            # bottom edge whose crops are all zero, so they embed alike in
+            # every frame; the users come from slots that hold pixels.
+            decoded = [ours.pixels.decode(j) for j in jpgs]
+            res = ours.pipeline.recognize_frames(np.stack(decoded),
+                                                 return_crops=True)
+            assert res.crops[0, 1].std() > 10 and res.crops[2, 3].std() > 10
+            emb = res.embeddings
+            stranger = rng.normal(size=512).astype(np.float32)
+            _enroll(servers, [("ann", emb[0, 1].numpy()),
+                              ("bob", emb[2, 3].numpy()),
+                              ("cy", stranger / np.linalg.norm(stranger))])
+            await _same(clients, "get", "/reload")
+            sent = jpgs + [b"not an image", jpgs[0]]
+            got = [await _ws_replies(c, sent) for c in clients]
+            metrics = await (await clients[1].get("/metrics")).json()
+    finally:
+        ours.close()
+    assert metrics["inference"]["batches"] >= 1
+    assert got[0][3] == got[1][3] == "null"
+    for r_txt, o_txt in zip(got[0], got[1]):
+        if r_txt == "null":
+            assert o_txt == "null"
+            continue
+        r, o = json.loads(r_txt), json.loads(o_txt)
+        assert list(o) == list(r)
+        for key in ("userId", "userName", "isUnknown"):
+            assert o[key] == r[key]
+        assert abs(o["similarity"] - r["similarity"]) < 1e-4
+        ri, oi = _decode(r["image"]), _decode(o["image"])
+        assert oi.shape == ri.shape == (112, 112, 3)
+        diff = np.abs(oi.astype(int) - ri.astype(int))
+        assert (diff <= 2).mean() >= 0.999, diff.max()
+    users = [json.loads(t)["userId"] for t in got[1] if t != "null"]
+    assert users[0] == users[3] == "ann" and users[2] == "bob"
+
+
+@pytest.mark.parametrize("det_override,expected", [
+    ({}, "There are more than 1 faces in input image"),
+    ({"det_maxFacesPerScene": 1}, "1 face found in input image"),
+    ({"det_threshold_bbox": 0.99}, "Cant find any faces in input image")])
+async def test_insert_face_uncropped_matches_facekit(tmp_path, det_override,
+                                                     expected):
+    """``api_imgIsCropped: false``: /insert/face runs the detector on the
+    whole image and enrolls exactly one face; more than one face and none
+    fail with facekit's strings, verbatim. A frame without a face answers
+    WS /inference with "null" on both servers."""
+    servers = _det_servers(tmp_path, det_override)
+    ref, ours = servers
+    img = np.random.default_rng(13).integers(0, 256, (300, 400, 3),
+                                              dtype=np.uint8)
+    path = tmp_path / "face.jpg"
+    data = _jpg(path, img)
+    try:
+        async with _clients(servers) as clients:
+            await _same(clients, "post", "/insert/user", data=json.dumps(
+                {"userId": "dan", "userName": "Dan"}))
+            body = await _same(clients, "post", "/insert/face",
+                               data=json.dumps({"data": [
+                                   {"userId": "dan", "imgPath": str(path)}]}))
+            assert body.startswith(expected), body
+            assert ("inserted successfully" in body) == \
+                expected.startswith("1 face")
+            if "Cant find" in expected:
+                _enroll(servers, [("eve", np.eye(512, dtype=np.float32)[0])])
+                await _same(clients, "get", "/reload")
+                got = [await _ws_replies(c, [data]) for c in clients]
+                assert got == [["null"], ["null"]]
+    finally:
+        ours.close()
+    names, embs = Database(ours.config.database_path).get_embeddings()
+    r_names, r_embs = JaxDatabase(ref.config.database_path).get_embeddings()
+    assert names == r_names
+    np.testing.assert_allclose(embs, r_embs, atol=1e-4)
+
+
+def test_inference_batch_pads_and_picks_the_best_face(tmp_path):
+    """The WS batcher's function: frames padded to the batch bucket, one
+    reply per frame with the best valid face's uint8 crop."""
+    _, ours = _det_servers(tmp_path)
+    try:
+        frames = list(np.random.default_rng(14).integers(
+            0, 256, (3, 480, 640, 3), dtype=np.uint8))
+        assert ours.inference_batch(frames) == [None] * 3    # empty gallery
+        emb = ours.pipeline.recognize_frame(frames[1]).embeddings[3]
+        _enroll([ours], [("fay", emb.numpy())])
+        ours.reload_gallery()
+        outs = ours.inference_batch(frames)
+        assert ours.pad_batch(frames).shape == (8, 480, 640, 3)
+        assert outs[1]["userId"] == "fay" and outs[1]["similarity"] > 0.999
+        assert not outs[1]["isUnknown"]
+        for o in outs:
+            assert o["crop"].dtype == np.uint8
+            assert o["crop"].shape == (112, 112, 3)
+    finally:
+        ours.close()
