@@ -113,9 +113,26 @@ def refuse_unported(config) -> None:
     if config.extras.get("server_hostOps", "cv2") != "cv2":
         reasons.append("server_hostOps other than cv2 needs the native host "
                        "ops (ROADMAP.md Queue 1, server remainder)")
+    if config.extras.get("profiler_port"):
+        reasons.append("profiler_port (a live profiler server) is not ported "
+                       "yet (ROADMAP.md Queue 1, server remainder)")
     if reasons:
         raise ValueError("config needs parts facekit_torch has not ported "
                          "yet: " + "; ".join(reasons))
+
+
+def load_detector_params(config):
+    """``config.det_weights`` as facekit restores it: into a template with
+    the landmark head only when ``det_withLandmarks``
+    (``facekit/models/__init__.py:29-32``), so a head the template lacks
+    is dropped and one it needs but the file lacks refuses to start."""
+    params = load_params(config.det_weights)
+    if not config.det_withLandmarks:
+        return {k: v for k, v in params.items() if k != "ldm_head"}
+    if "ldm_head" not in params:
+        raise ValueError(f"{config.det_weights}: det_withLandmarks is true "
+                         "but the detector file has no ldm_head")
+    return params
 
 
 def _load_calibration_crops(folder: str, rec_hw, pixels, batch: int = 16,
@@ -190,7 +207,7 @@ class FaceServer:
                               input_size=config.rec_hw[0],
                               embed_dim=config.rec_outputDim))
         if det_params is None:
-            det_params = (load_params(config.det_weights) if config.det_weights
+            det_params = (load_detector_params(config) if config.det_weights
                           else random_retinaface_params(
                               seed=0, with_landmarks=config.det_withLandmarks))
         self.pipeline = FacePipeline(config, rec_params, det_params,

@@ -203,7 +203,7 @@ def test_recognize_batch_pads_to_buckets(servers):
     {"mesh_shape": {"gallery": 4}},
     {"gen": True}, {"extras": {"server_enginesDir": "/tmp/engines"}},
     {"extras": {"server_hostOps": "native"}}, {"det_network": "rfb"},
-    {"det_quantize": True}])
+    {"det_quantize": True}, {"extras": {"profiler_port": 9999}}])
 def test_unported_configs_are_refused(override, tmp_path):
     cfg = FaceKitConfig(database_path=str(tmp_path / "x.db"), **_COMMON)
     cfg = dataclasses.replace(cfg, **override)
@@ -541,6 +541,64 @@ async def test_insert_face_uncropped_matches_facekit(tmp_path, det_override,
     r_names, r_embs = JaxDatabase(ref.config.database_path).get_embeddings()
     assert names == r_names
     np.testing.assert_allclose(embs, r_embs, atol=1e-4)
+
+
+def _det_file(tmp, with_landmarks):
+    """A RetinaFace param file written by facekit's ``save_params``."""
+    from facekit.weights import save_params
+    path = str(tmp / "det.msgpack")
+    save_params(random_retinaface_params(seed=0,
+                                         with_landmarks=with_landmarks), path)
+    return path
+
+
+def test_det_weights_without_landmarks_flag_drop_the_head(tmp_path):
+    """``det_withLandmarks: false`` with a detector file that holds a
+    landmark head: facekit restores the file into a template without one,
+    so both servers run without landmarks and crop-resize the boxes
+    unaligned, with the same crops and embeddings."""
+    cfg = dict(_DET, det_weights=_det_file(tmp_path, True),
+               det_withLandmarks=False, extras={"rec_useAlignment": True})
+    rp = random_arcface_params("ir_tiny", seed=8)
+    ref = JaxServer(JaxConfig(database_path=str(tmp_path / "jax.db"),
+                              use_pallas_search=False, **cfg),
+                    rec_params=rp, warmup=False)
+    ours = FaceServer(FaceKitConfig(database_path=str(tmp_path / "t.db"),
+                                    **cfg),
+                      rec_params=rp, warmup=False, device="cpu")
+    try:
+        assert not ref.pipeline.use_landmarks and not ref.pipeline.align
+        assert not ours.pipeline.use_landmarks and not ours.pipeline.align
+        assert ours.pipeline.det_net.ldm_head is None
+        frames = np.random.default_rng(15).integers(0, 256, (2, 480, 640, 3),
+                                                    dtype=np.uint8)
+        res = ours.pipeline.recognize_frames(frames, return_crops=True)
+        r_res = ref.pipeline.recognize_frames(frames, return_crops=True)
+    finally:
+        ours.close()
+    assert res.landmarks is None and r_res.landmarks is None
+    np.testing.assert_array_equal(res.valid.numpy(), np.asarray(r_res.valid))
+    assert res.valid.all()
+    np.testing.assert_allclose(res.boxes.numpy(), np.asarray(r_res.boxes),
+                               atol=1e-3)
+    np.testing.assert_allclose(res.crops.numpy(), np.asarray(r_res.crops),
+                               atol=1)
+    np.testing.assert_allclose(res.embeddings.numpy(),
+                               np.asarray(r_res.embeddings), atol=1e-4)
+
+
+def test_det_weights_without_head_refuse_landmarks(tmp_path):
+    """``det_withLandmarks: true`` with a detector file that has no
+    landmark head: facekit's restore raises, and the port refuses to
+    start."""
+    from facekit.models import init_model_params
+    cfg = dict(_DET, det_weights=_det_file(tmp_path, False),
+               det_withLandmarks=True)
+    with pytest.raises(ValueError):
+        init_model_params(JaxConfig(**cfg))
+    with pytest.raises(ValueError, match="no ldm_head"):
+        FaceServer(FaceKitConfig(database_path=str(tmp_path / "t.db"), **cfg),
+                   warmup=False, device="cpu")
 
 
 def test_inference_batch_pads_and_picks_the_best_face(tmp_path):
