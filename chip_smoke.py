@@ -6,7 +6,7 @@ against its plain PyTorch version: the bf16/f32 and the int8 gallery
 searches at the top gallery bucket (N = 1,048,576), the s8 convolution at
 every conv shape of the int8 IR-50 at batch 64 and at the TPU kernel's own
 shape, the fused IR block at IR-50's four identity-block shapes (batch 8
-and 64, bf16 and f32). Then it drives three serving paths on the card and
+and 64, bf16 and f32, and batch 32 in bf16). Then it drives three serving paths on the card and
 checks what comes out: /recognize + enrollment of configs/default.json
 (IR-50, bf16), the same for configs/throughput.json (int8 IR-50, int8
 gallery, batches of 1, 8 and 64) with dynamic and with calibrated
@@ -50,6 +50,9 @@ KERNEL4_SHAPE = (256, 112, 112, 64, 64, 3, 2, 1)   # N, H, W, C, O, k, s, p
 IR_BLOCKS_PER_FORWARD = 20   # float IR-50's stride-1 identity blocks
 # (H = W, C, blocks per forward) of those blocks
 IR_BLOCK_SHAPES = [(56, 64, 2), (28, 128, 3), (14, 256, 13), (7, 512, 2)]
+# batches of ir_block_case: 8 and 64, and in bf16 32, the forward WS
+# /inference runs at bucket 8 (8 frames x 4 faces)
+IR_BLOCK_BATCHES = {"bfloat16": (8, 32, 64), "float32": (8, 64)}
 IR_BLOCK_F32_ATOL = 1e-4     # f32 sums over 9*C terms in another order
 IR_BLOCK_BF16_PAST = 1e-5    # share of bf16 outputs allowed past two steps
 DET_ATOL = {"loc": 1e-2, "conf": 2e-3, "ldm": 1e-2}  # bf16 vs f32 detector
@@ -743,7 +746,8 @@ def random_ir_block(c, dtype, gen, device):
 
 def phase_ir_block(device, seed=5):
     """Kernel #3, the fused IR block, against its plain version at the four
-    IR-50 identity-block shapes, batch 8 and 64, bf16 and f32: f32 within
+    IR-50 identity-block shapes, batch 8 and 64 (and 32 in bf16), bf16 and
+    f32: f32 within
     IR_BLOCK_F32_ATOL; bf16 within two bf16 steps of each output (2**-6 of
     its magnitude, plus 2**-9 near 0) but for a share IR_BLOCK_BF16_PAST,
     and every output within that plus ``u_rounding_bound``: both versions
@@ -764,7 +768,7 @@ def phase_ir_block(device, seed=5):
         for hw, c, per_forward in IR_BLOCK_SHAPES:
             blk = random_ir_block(c, dt, gen, device)
             w1, w2, par = block_operands(blk, dt)
-            for n in (8, 64):
+            for n in IR_BLOCK_BATCHES[dname]:
                 xs = [torch.randn((n, hw, hw, c), generator=dgen,
                                   device=device).to(dt) for _ in range(2)]
                 got = _ir_block_cuda(xs[0], w1, w2, par).float()

@@ -22,7 +22,7 @@
 // bound by operations (14x14x256 at batch 32: 14.8 GFLOP, 0.015 ms, against
 // 3.2 MB, 0.001 ms). chip_smoke.py computes the bound of every case it runs.
 //
-// Design, right and simple first (tensor cores and TMA are later work):
+// Both dtypes share the blocking:
 //  * A cluster of G = C/64 CTAs per (image, band of R = 4 output rows); CTA
 //    g of the cluster owns output channels 64g .. 64g+63 of both convs, so
 //    every IR-50 shape at batch 8 launches 112-128 CTAs. Each CTA builds t
@@ -30,19 +30,47 @@
 //    memory (zero rows outside the image, zero columns either side), and
 //    computes its 64 channels of u on the R+2 rows conv2 needs into its own
 //    shared memory (rounded to the dtype, zero rows outside the image).
-//    After a cluster barrier, conv2 reads all C channels of u from the
-//    cluster's CTAs through distributed shared memory, and the f32
-//    epilogue writes its 64 channels of the R output rows; a second
-//    barrier keeps every CTA's u alive until the cluster is done with it.
 //    conv1 on the halo rows is computed by both neighbouring bands:
-//    (R+2)/R of conv1's work. Shared memory per CTA: 86-112 KB in bf16,
-//    up to 211 KB in f32 (56x56x64).
-//  * Each conv is an implicit GEMM from shared memory: 64-pixel tiles x the
-//    CTA's 64 output channels, K = 9*C in the weight's (kh, kw, c) order, so
-//    a K stage of 32 is 32 channels of one tap. The weights (O, 3, 3, C)
-//    stream from L2 into a 32 x 64 f32 stage in shared memory; each of 256
-//    threads accumulates a 4-pixel x 4-channel f32 micro-tile (CUDA-core
-//    FMAs), two channels of A per shared load.
+//    (R+2)/R of conv1's work.
+//  * Each conv is an implicit GEMM from shared memory: the band's pixels x
+//    the CTA's 64 output channels, K = 9*C in the weight's (kh, kw, c)
+//    order, so a K stage is channels of one tap.
+//
+// bf16 (ir_block_bf16_kernel): warp-level tensor cores, mma.sync m16n8k16
+// bf16 -> f32 (bf16 products are exact in f32, as in the plain version;
+// only the order of the sums differs).
+//  * A band's pixels are split into m16 tiles. The 8 warps are WM (pixels)
+//    x 2 (32 channels each) x WK = 4/WM (split-K over the k16 steps of a
+//    stage), WM chosen per conv so that a warp holds 2-3 tiles (MT at
+//    most): 56x56 and 28x28 run WM = 4, 14x14 and 7x7 WM = 2 or 1, and the
+//    WK groups' sums meet in shared memory at the end. One tile per warp
+//    left the tensor cores waiting on the latency of each warp's mma chain.
+//  * A comes from the band with ldmatrix.x4: each lane passes the address of
+//    its own pixel row shifted by the tap, so the implicit-GEMM gather of a
+//    3x3 tap costs nothing. B: the weights (O, 3, 3, C) are K-contiguous per
+//    output channel, the .col layout; 64 x 64 bf16 stages (one tap, 64
+//    input channels) stream from L2 with cp.async.cg into a ring of NST = 3
+//    buffers, two stages ahead, one __syncthreads per stage.
+//  * conv2 reads its own shared memory (ldmatrix takes no other CTA's):
+//    after a cluster barrier each CTA copies all C channels of u on its R+2
+//    rows from the cluster's G CTAs into the t band's space, in 16-byte
+//    loads; a second cluster barrier, then conv2 runs like conv1. w2's first
+//    stages load while the copy runs.
+//  * Band pixels and weight rows are padded by 8 bf16 (16 bytes), so the 8
+//    row addresses of an ldmatrix fall in distinct bank groups.
+//  * Two CTAs fit on an SM at 14x14x256 and 7x7x512 (109 and 110 KB of
+//    shared memory, at most 128 registers): with one, only 30 clusters of 4
+//    (15 of 8) are resident, and batch 8 (32 and 16 clusters) took two
+//    waves. 56x56x64 and 28x28x128 take 145 and 119 KB, one CTA per SM.
+// f32 (ir_block_kernel): CUDA-core FMAs (TF32 would change its numerics).
+// Each of 256 threads accumulates a 4-pixel x 4-channel micro-tile of a
+// 64-pixel tile; 32 x 64 f32 weight stages through registers; conv2 reads u
+// from the cluster's CTAs through distributed shared memory; up to 211 KB
+// of shared memory (56x56x64).
+//
+// Left for later: wgmma and TMA for the bf16 path (a 64-row warpgroup tile,
+// weights multicast across the cluster), and the f32 path on anything but
+// CUDA cores.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -59,20 +87,13 @@ constexpr int TN = 64;   // output channels per tile
 constexpr int KC = 32;   // K per weight stage
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // two consecutive elements (8- or 4-byte aligned) as floats
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // four consecutive elements of global memory as floats
@@ -80,23 +101,9 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<uint32_t*>(&a);
-  q.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = q;
 }
 
 // One 3x3 conv over `rows` output rows of a band held in shared memory
@@ -283,14 +290,410 @@ ir_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   cluster.sync();                   // no CTA leaves while its u is read
 }
 
-template <typename T, int R>
-int launch(cudaStream_t s, const void* x, const void* w1, const void* w2,
-           const float* par, void* out, int N, int H, int W, int C) {
+// ---- bf16: warp-level tensor cores -----------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int NST = 3;            // weight stages in the ring
+constexpr int KS = 64;            // K per weight stage: 64 channels of one tap
+constexpr int WSTR = KS + 8;      // row stride (bf16) of a weight stage
+constexpr int USTR = TN + 8;      // pixel stride (bf16) of a CTA's u slice
+constexpr int MT = 3;             // m16 tiles a warp holds at once (x 4 n8 tiles)
+constexpr int RSTR = TN + 8;      // row stride (f32) of the split-K partial sums
+static_assert(TN * KS / 8 == 2 * THREADS, "two 16-byte chunks per thread");
+
+// The 8 warps of a conv are WM (pixels) x 2 (32 channels each) x WK = 4/WM
+// (k16 steps of a stage: split-K), so that a warp holds 2-3 m16 tiles even
+// where the band has few: a warp with one tile leaves the tensor cores
+// waiting on the latency of its mma chain. With WK > 1 the conv has one pass.
+__host__ __device__ __forceinline__ int warps_m(int mtiles) {
+  return mtiles > 2 * MT ? 4 : (mtiles > MT ? 2 : 1);
+}
+
+// Bytes of the band region: the t band (R+4, W+2, C+8) bf16, which later
+// holds conv2's copy of u, and at the end of each conv the split-K partial
+// sums (WK-1 groups of all its rows, f32), when they need more.
+__host__ __device__ __forceinline__ size_t band_bytes(int R, int W, int C) {
+  size_t bytes = (size_t)(R + 4) * (W + 2) * (C + 8) * 2;
+  for (int rows = R; rows <= R + 2; rows += 2) {
+    const int mtiles = (rows * W + 15) / 16;
+    const size_t part = (size_t)(4 / warps_m(mtiles) - 1) * mtiles * 16 * RSTR * 4;
+    bytes = part > bytes ? part : bytes;
+  }
+  return (bytes + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return static_cast<uint32_t>(__bfloat16_as_ushort(h.x)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(h.y)) << 16);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// This thread's share of a conv's weight stages (64 output channels x 64 K,
+// 512 chunks of 16 bytes): rows tid/8 and tid/8 + 32, chunk tid%8, eight
+// threads per 128-byte row.
+struct WeightStream {
+  const bf16* src;                // row tid/8, chunk tid%8 of stage 0
+  size_t rows32;                  // 32 rows of w, in elements
+  uint32_t dst;                   // the same in ring buffer 0
+  __device__ WeightStream(const bf16* w, int K, int o_base, const bf16* ring) {
+    const int row = threadIdx.x >> 3, ch = (threadIdx.x & 7) * 8;
+    src = w + (size_t)(o_base + row) * K + ch;
+    rows32 = (size_t)32 * K;
+    dst = smem_u32(ring + row * WSTR + ch);
+  }
+  // starts the copy of stage s into ring buffer buf
+  __device__ __forceinline__ void load(int s, int buf) const {
+    const uint32_t d = dst + buf * (TN * WSTR * 2);
+    cp_async16(d, src + s * KS);
+    cp_async16(d + 32 * WSTR * 2, src + rows32 + s * KS);
+  }
+  // the first NST-1 stages, one commit group each
+  __device__ __forceinline__ void prologue() const {
+#pragma unroll
+    for (int s = 0; s < NST - 1; ++s) {
+      load(s, s);
+      cp_async_commit();
+    }
+  }
+};
+
+// Starts pass `pass` of a conv for this warp: its m16 tiles are tile0 +
+// WM*i for i < ntile (<= MT) of the pass's tiles [pass*per_pass,
+// (pass+1)*per_pass) of all mtiles, wm its place among the WM warps along
+// pixels. Sets the byte offsets (tap (0,0), this lane's 8 channels of A) of
+// its pixel rows, where pixels past P read pixel 0 and are never stored, and
+// clears the accumulators.
+__device__ __forceinline__ void start_pass(uint32_t (&a_off)[MT],
+                                           float (&acc)[MT][4][4], int& tile0,
+                                           int& ntile, int wm, int WM, int pass,
+                                           int per_pass, int mtiles, int P, int W,
+                                           int CP) {
+  const int lane = threadIdx.x & 31;
+  const int t1 = min((pass + 1) * per_pass, mtiles);
+  tile0 = pass * per_pass + wm;
+  ntile = tile0 < t1 ? (t1 - tile0 + WM - 1) / WM : 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    int m = (tile0 + WM * i) * 16 + (lane & 15);
+    if (m >= P) m = 0;
+    a_off[i] = (uint32_t)(((m / W) * (W + 2) + m % W) * CP + (lane >> 4) * 8) * 2;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  }
+}
+
+// One 3x3 conv over `rows` output rows of the band in shared memory (rows of
+// W+2 pixels of pixel stride CP bf16, zero columns at 0 and W+1), for the
+// CTA's TN output channels, as an implicit GEMM on tensor cores. The caller
+// has started ws.prologue(). Calls epi(m, n, v0, v1) with the f32 sums of
+// band pixel m (m < rows*W; row m / W, column m % W) for channels n and n+1
+// (n even, < TN). With split-K the partial sums go through the band, so the
+// caller's band is dead when this returns.
+template <typename Epi>
+__device__ __forceinline__ void conv_mma(bf16* band, int CP, const WeightStream& ws,
+                                         const bf16* ring, int rows, int W, int C,
+                                         Epi epi) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W2 = W + 2;
+  const int S = 9 * C / KS;                        // stages per pass
+  const int P = rows * W;
+  const int mtiles = (P + 15) / 16;
+  const int WM = warps_m(mtiles);
+  const int WK = 4 / WM;
+  const int wm = warp % WM;
+  const int wn = (warp / WM) % 2;                  // channels wn*32 .. +31
+  const int wk = warp / (2 * WM);                  // k16 steps wk, wk+WK, ..
+  const int passes = (mtiles + WM * MT - 1) / (WM * MT);
+  const int per_pass = (mtiles + passes - 1) / passes;
+  const int total = passes * S;
+  const uint32_t band_s = smem_u32(band);
+  // B: lanes 0-7 / 8-15 / 16-23 / 24-31 address n-tile 0 k 0-7 / n-tile 0
+  // k 8-15 / n-tile 1 k 0-7 / n-tile 1 k 8-15 of a pair of n8 tiles
+  const uint32_t b_lane = smem_u32(ring) +
+      (uint32_t)((wn * 32 + (lane & 7) + (lane >> 4) * 8) * WSTR +
+                 ((lane >> 3) & 1) * 8) * 2;
+
+  float acc[MT][4][4];
+  uint32_t a_off[MT];
+  int pass = 0, tile0, ntile;
+  start_pass(a_off, acc, tile0, ntile, wm, WM, pass, per_pass, mtiles, P, W, CP);
+  int s = 0, kh = 0, kw = 0, c0 = 0;               // stage gs: tap (kh, kw), c0..
+  int buf = 0;                                     // its ring buffer
+  int ld_s = NST - 1, ld_buf = NST - 1;            // the stage loaded next
+
+  for (int gs = 0; gs < total; ++gs) {
+    cp_async_wait<NST - 2>();                      // stage gs has landed
+    __syncthreads();                               // ... for every thread, and
+                                                   // stage gs-1 is consumed
+    if (gs + NST - 1 < total) ws.load(ld_s, ld_buf);
+    cp_async_commit();
+    if (++ld_s == S) ld_s = 0;
+    if (++ld_buf == NST) ld_buf = 0;
+
+    const uint32_t a_tap = band_s + (uint32_t)(((kh * W2 + kw) * CP + c0) * 2);
+    const uint32_t b_st = b_lane + (uint32_t)(buf * TN * WSTR * 2);
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      if ((kk & (WK - 1)) != wk) continue;
+      uint32_t b[4][2], r[4];
+      ldmatrix_x4(r, b_st + kk * 32);
+      b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
+      ldmatrix_x4(r, b_st + 16 * WSTR * 2 + kk * 32);
+      b[2][0] = r[0]; b[2][1] = r[1]; b[3][0] = r[2]; b[3][1] = r[3];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (i < ntile) {
+          uint32_t a[4];
+          ldmatrix_x4(a, a_tap + a_off[i] + kk * 32);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+        }
+      }
+    }
+    if (++buf == NST) buf = 0;
+    if ((c0 += KS) == C) {
+      c0 = 0;
+      if (++kw == 3) { kw = 0; ++kh; }
+    }
+    if (++s < S) continue;
+
+    // the pass is done; lane l holds rows l/4 and l/4+8, columns 2(l%4) and
+    // 2(l%4)+1 of each n8 tile
+    s = kh = 0;
+    if (WK > 1) {
+      // split-K: groups wk > 0 leave their sums in the band, group 0 adds
+      // them in the order of wk
+      float* part = reinterpret_cast<float*>(band);
+      __syncthreads();                             // the band is read
+      if (wk > 0) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if (i < ntile) {
+            const int row = (WM * i + wm) * 16 + (lane >> 2);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float* q = part + ((wk - 1) * mtiles * 16 + row) * RSTR + wn * 32 +
+                         j * 8 + (lane & 3) * 2;
+              *reinterpret_cast<float2*>(q) = make_float2(acc[i][j][0], acc[i][j][1]);
+              *reinterpret_cast<float2*>(q + 8 * RSTR) =
+                  make_float2(acc[i][j][2], acc[i][j][3]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+      if (wk == 0) {
+        for (int g = 1; g < WK; ++g) {
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            if (i < ntile) {
+              const int row = (WM * i + wm) * 16 + (lane >> 2);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const float* q = part + ((g - 1) * mtiles * 16 + row) * RSTR +
+                                 wn * 32 + j * 8 + (lane & 3) * 2;
+                const float2 lo = *reinterpret_cast<const float2*>(q);
+                const float2 hi = *reinterpret_cast<const float2*>(q + 8 * RSTR);
+                acc[i][j][0] = __fadd_rn(acc[i][j][0], lo.x);
+                acc[i][j][1] = __fadd_rn(acc[i][j][1], lo.y);
+                acc[i][j][2] = __fadd_rn(acc[i][j][2], hi.x);
+                acc[i][j][3] = __fadd_rn(acc[i][j][3], hi.y);
+              }
+            }
+          }
+        }
+      }
+    }
+    if (wk == 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (i < ntile) {
+          const int m = (tile0 + WM * i) * 16 + (lane >> 2);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = wn * 32 + j * 8 + (lane & 3) * 2;
+            if (m < P) epi(m, n, acc[i][j][0], acc[i][j][1]);
+            if (m + 8 < P) epi(m + 8, n, acc[i][j][2], acc[i][j][3]);
+          }
+        }
+      }
+    }
+    if (++pass < passes)
+      start_pass(a_off, acc, tile0, ntile, wm, WM, pass, per_pass, mtiles, P, W, CP);
+  }
+}
+
+// Grid and clusters as ir_block_kernel's.
+template <int R>
+__global__ void __launch_bounds__(THREADS, 2)
+ir_block_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                     const bf16* __restrict__ w2, const float* __restrict__ par,
+                     bf16* __restrict__ out, int H, int W, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = (int)cluster.block_rank();
+  const int G = (int)cluster.num_blocks();
+  const int W2 = W + 2;
+  const int CP = C + 8;                            // pixel stride of the band
+  bf16* band = reinterpret_cast<bf16*>(smem);      // (R+4, W+2, C+8): t, then u
+  bf16* uslice = reinterpret_cast<bf16*>(smem + band_bytes(R, W, C));
+  bf16* ring = uslice + (size_t)(R + 2) * W2 * USTR;  // NST x (TN, KS+8)
+
+  const int n = blockIdx.y;
+  const int r0 = (blockIdx.x / G) * R;
+  const int o_base = g * TN;
+  const int K = 9 * C;
+  const bf16* xn = x + (size_t)n * H * W * C;
+  const float* s1 = par;
+  const float* b1 = par + C;
+  const float* alpha = par + 2 * C + o_base;
+  const float* s2 = par + 3 * C + o_base;
+  const float* b2 = par + 4 * C + o_base;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  const WeightStream ws1(w1, K, o_base, ring), ws2(w2, K, o_base, ring);
+  ws1.prologue();                                  // w1 loads while t builds
+
+  // t = bf16(f32(x)*s1 + b1) on image rows r0-2 .. r0+R+1, all C channels,
+  // 0 off the image; 8 channels (16 bytes) per step
+  const int C8 = C / 8;
+  for (int e = threadIdx.x; e < (R + 4) * W * C8; e += THREADS) {
+    const int c = (e % C8) * 8;
+    const int pix = e / C8;
+    const int i = pix / W, col = pix - (pix / W) * W;
+    const int gy = r0 - 2 + i;
+    uint4 v = zero;
+    if (gy >= 0 && gy < H) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(
+          xn + ((size_t)gy * W + col) * C + c));
+      const uint32_t xw[4] = {q.x, q.y, q.z, q.w};
+      uint32_t tw[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 xf = unpack_bf16x2(xw[k]);
+        const float2 s = __ldg(reinterpret_cast<const float2*>(s1 + c + 2 * k));
+        const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + c + 2 * k));
+        tw[k] = pack_bf16x2(__fadd_rn(__fmul_rn(xf.x, s.x), b.x),
+                            __fadd_rn(__fmul_rn(xf.y, s.y), b.y));
+      }
+      v = make_uint4(tw[0], tw[1], tw[2], tw[3]);
+    }
+    *reinterpret_cast<uint4*>(band + ((size_t)i * W2 + col + 1) * CP + c) = v;
+  }
+  // zero columns 0 and W+1 of the t band and of the u slice
+  for (int e = threadIdx.x; e < (R + 4) * 2 * C8; e += THREADS) {
+    const int i = e / (2 * C8);
+    const int rem = e - i * 2 * C8;
+    const int col = rem < C8 ? 0 : W + 1;
+    *reinterpret_cast<uint4*>(band + ((size_t)i * W2 + col) * CP +
+                              (rem % C8) * 8) = zero;
+  }
+  for (int e = threadIdx.x; e < (R + 2) * 2 * (TN / 8); e += THREADS) {
+    const int i = e / (2 * (TN / 8));
+    const int rem = e - i * 2 * (TN / 8);
+    const int col = rem < TN / 8 ? 0 : W + 1;
+    *reinterpret_cast<uint4*>(uslice + ((size_t)i * W2 + col) * USTR +
+                              (rem % (TN / 8)) * 8) = zero;
+  }
+  // (conv_mma's first __syncthreads publishes t)
+
+  // u on image rows r0-1 .. r0+R, this CTA's channels: prelu of conv1,
+  // rounded, 0 off the image
+  conv_mma(band, CP, ws1, ring, R + 2, W, C,
+           [&](int m, int c, float v0, float v1) {
+             const int i = m / W, col = m - (m / W) * W;
+             const int gy = r0 - 1 + i;
+             float2 u = make_float2(0.f, 0.f);
+             if (gy >= 0 && gy < H) {
+               const float2 a = __ldg(reinterpret_cast<const float2*>(alpha + c));
+               u.x = v0 > 0.f ? v0 : __fmul_rn(v0, a.x);
+               u.y = v1 > 0.f ? v1 : __fmul_rn(v1, a.y);
+             }
+             *reinterpret_cast<__nv_bfloat162*>(
+                 uslice + ((size_t)i * W2 + col + 1) * USTR + c) =
+                 __floats2bfloat162_rn(u.x, u.y);
+           });
+  cluster.sync();                   // every u slice is written; the ring and
+                                    // the t band are free
+  ws2.prologue();                   // w2 loads while u is gathered
+
+  // all C channels of u on the R+2 rows (zero columns included) from the
+  // cluster's CTAs into the band, 16 bytes per step
+  for (int e = threadIdx.x; e < (R + 2) * W2 * C8; e += THREADS) {
+    const int c = (e % C8) * 8;
+    const int pix = e / C8;
+    const bf16* src = cluster.map_shared_rank(uslice, c / TN);
+    *reinterpret_cast<uint4*>(band + (size_t)pix * CP + c) =
+        *reinterpret_cast<const uint4*>(src + (size_t)pix * USTR + c % TN);
+  }
+  cluster.sync();                   // the cluster is done with every u slice
+
+  // out on image rows r0 .. r0+R-1, this CTA's channels: bn2 of conv2 plus x
+  bf16* on = out + (size_t)n * H * W * C;
+  conv_mma(band, CP, ws2, ring, R, W, C,
+           [&](int m, int c, float v0, float v1) {
+             const int i = m / W, col = m - (m / W) * W;
+             const int gy = r0 + i;
+             if (gy >= H) return;
+             const size_t off = ((size_t)gy * W + col) * C + o_base + c;
+             const float2 res = __bfloat1622float2(
+                 *reinterpret_cast<const __nv_bfloat162*>(xn + off));
+             const float2 s = __ldg(reinterpret_cast<const float2*>(s2 + c));
+             const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + c));
+             *reinterpret_cast<__nv_bfloat162*>(on + off) = __floats2bfloat162_rn(
+                 __fadd_rn(__fadd_rn(__fmul_rn(v0, s.x), b.x), res.x),
+                 __fadd_rn(__fadd_rn(__fmul_rn(v1, s.y), b.y), res.y));
+           });
+}
+
+// Sets the kernel's shared memory and launches it on (bands * G, N) CTAs in
+// clusters of G = C / TN along x.
+template <typename T, typename Kernel>
+int launch_clusters(Kernel kernel, size_t smem, cudaStream_t s, const void* x,
+                    const void* w1, const void* w2, const float* par, void* out,
+                    int N, int H, int W, int C, int R) {
   const int G = C / TN;
-  const size_t smem = (size_t)(R + 4) * (W + 2) * C * sizeof(T) +
-                      (size_t)(R + 2) * (W + 2) * TN * sizeof(T) +
-                      (size_t)KC * TN * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ir_block_kernel<T, R>,
+  cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -306,11 +709,31 @@ int launch(cudaStream_t s, const void* x, const void* w1, const void* w2,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ir_block_kernel<T, R>, static_cast<const T*>(x),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
                            static_cast<const T*>(w1), static_cast<const T*>(w2), par,
                            static_cast<T*>(out), H, W, C);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int launch_bf16(cudaStream_t s, const void* x, const void* w1, const void* w2,
+                const float* par, void* out, int N, int H, int W, int C) {
+  const size_t smem = band_bytes(R, W, C) +
+                      ((size_t)(R + 2) * (W + 2) * USTR + (size_t)NST * TN * WSTR) *
+                          sizeof(bf16);
+  return launch_clusters<bf16>(ir_block_bf16_kernel<R>, smem, s, x, w1, w2, par,
+                               out, N, H, W, C, R);
+}
+
+template <int R>
+int launch_f32(cudaStream_t s, const void* x, const void* w1, const void* w2,
+               const float* par, void* out, int N, int H, int W, int C) {
+  const size_t smem = ((size_t)(R + 4) * (W + 2) * C +
+                       (size_t)(R + 2) * (W + 2) * TN + (size_t)KC * TN) *
+                      sizeof(float);
+  return launch_clusters<float>(ir_block_kernel<float, R>, smem, s, x, w1, w2, par,
+                                out, N, H, W, C, R);
 }
 
 }  // namespace
@@ -325,7 +748,6 @@ extern "C" int facekit_ir_block(const void* x, const void* w1, const void* w2,
                                 int C, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(par);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, 4>(s, x, w1, w2, p, out, N, H, W, C);
-  return launch<float, 4>(s, x, w1, w2, p, out, N, H, W, C);
+  if (dtype == 1) return launch_bf16<4>(s, x, w1, w2, p, out, N, H, W, C);
+  return launch_f32<4>(s, x, w1, w2, p, out, N, H, W, C);
 }

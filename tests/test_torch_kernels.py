@@ -255,10 +255,13 @@ def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
         conv_s8(x.float(), torch.zeros((64, 3, 3, 64), device=cuda_device))
 
 
-# (N, H, W, C): the four IR-50 identity-block shapes, and ragged bands
-# (H not a multiple of the kernel's 4-row band, odd W)
+# (N, H, W, C): the four IR-50 identity-block shapes, ragged bands (H not
+# a multiple of the kernel's 4-row band, odd W), the forward of WS
+# /inference at bucket 8 (8 frames x 4 faces), and an 8-CTA cluster on an
+# image whose band pixels are no multiple of the 16-row tensor-core tile
 IR_BLOCK_CASES = [(2, 56, 56, 64), (2, 28, 28, 128), (1, 14, 14, 256),
-                  (1, 7, 7, 512), (3, 9, 13, 64), (1, 5, 3, 128)]
+                  (1, 7, 7, 512), (3, 9, 13, 64), (1, 5, 3, 128),
+                  (32, 14, 14, 256), (1, 3, 5, 512)]
 
 
 @pytest.mark.cuda
