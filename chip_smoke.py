@@ -6,8 +6,8 @@ against its plain PyTorch version: the bf16/f32 and the int8 gallery
 searches at the top gallery bucket (N = 1,048,576), the s8 convolution at
 every conv shape of the int8 IR-50 at batch 64 and at the TPU kernel's own
 shape, the fused IR block at IR-50's four identity-block shapes (batch 8
-and 64, bf16 and f32, and batch 32 in bf16). Then it drives three serving paths on the card and
-checks what comes out: /recognize + enrollment of configs/default.json
+and 64, bf16 and f32, and batch 32 in bf16). Then it drives three serving
+paths on the card and checks what comes out: /recognize + enrollment of configs/default.json
 (IR-50, bf16), the same for configs/throughput.json (int8 IR-50, int8
 gallery, batches of 1, 8 and 64) with dynamic and with calibrated
 activation scales, and WS /inference of configs/default.json (480x640
@@ -747,10 +747,10 @@ def random_ir_block(c, dtype, gen, device):
 def phase_ir_block(device, seed=5):
     """Kernel #3, the fused IR block, against its plain version at the four
     IR-50 identity-block shapes, batch 8 and 64 (and 32 in bf16), bf16 and
-    f32: f32 within
-    IR_BLOCK_F32_ATOL; bf16 within two bf16 steps of each output (2**-6 of
-    its magnitude, plus 2**-9 near 0) but for a share IR_BLOCK_BF16_PAST,
-    and every output within that plus ``u_rounding_bound``: both versions
+    f32: f32 within IR_BLOCK_F32_ATOL; bf16 within two bf16 steps of each
+    output (2**-6 of its magnitude, plus 2**-9 near 0) but for a share
+    IR_BLOCK_BF16_PAST, and every output within that plus
+    ``u_rounding_bound``: both versions
     round u to bf16 from f32 sums taken in another order (cuDNN's sums
     land farther from a float64 version's than the kernel's do).
     The block op by op (cuDNN convs, what the port ran before this kernel)

@@ -302,10 +302,9 @@ constexpr int MT = 3;             // m16 tiles a warp holds at once (x 4 n8 tile
 constexpr int RSTR = TN + 8;      // row stride (f32) of the split-K partial sums
 static_assert(TN * KS / 8 == 2 * THREADS, "two 16-byte chunks per thread");
 
-// The 8 warps of a conv are WM (pixels) x 2 (32 channels each) x WK = 4/WM
-// (k16 steps of a stage: split-K), so that a warp holds 2-3 m16 tiles even
-// where the band has few: a warp with one tile leaves the tensor cores
-// waiting on the latency of its mma chain. With WK > 1 the conv has one pass.
+// WM of a conv with `mtiles` m16 tiles: its 8 warps are WM (pixels) x 2 (32
+// channels each) x WK = 4/WM (k16 steps of a stage, split-K). With WK > 1
+// the conv has one pass.
 __host__ __device__ __forceinline__ int warps_m(int mtiles) {
   return mtiles > 2 * MT ? 4 : (mtiles > MT ? 2 : 1);
 }
@@ -323,6 +322,8 @@ __host__ __device__ __forceinline__ size_t band_bytes(int R, int W, int C) {
   return (bytes + 15) / 16 * 16;
 }
 
+// two bf16 of a 32-bit word (the lower address in the low half) as floats,
+// and two floats rounded to nearest into one word
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
   return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
 }
