@@ -153,7 +153,10 @@ def check_search(name, kern, plain_k1, k):
 
 
 def phase_kernels(device, n=N_TOP, seed=0):
-    """The search kernel against its plain version at N rows."""
+    """The search kernel against its plain version at N rows: timed at B in
+    {1, 8, 32, 256} (bf16 B > 8 runs the tensor-core pass 1), k in {1,
+    64}; ties, k > count and the query tiles the timed batches miss
+    checked."""
     import torch
 
     from facekit_torch.ops.similarity import (cosine_topk,
@@ -169,7 +172,7 @@ def phase_kernels(device, n=N_TOP, seed=0):
     count = n - 37
     max_err, timings = 0.0, []
     for dname, g in galleries.items():
-        for b in (1, 8, 256):
+        for b in (1, 8, 32, 256):
             for k in (1, 64):
                 qs = [unit_rows(b, g.dtype) for _ in range(4)]
                 tag = f"{dname} B={b} k={k}"
@@ -191,38 +194,45 @@ def phase_kernels(device, n=N_TOP, seed=0):
                 emit(rec)
                 timings.append(rec)
 
-        # the query tiles the timed batches do not reach (2 and 4 queries)
-        for b in (2, 3):
+        # the query tiles the timed batches do not reach: 2 and 4 queries
+        # of the CUDA-core kernel; in bf16, one m16 tile (9, 16) and a full
+        # 64-query tile of the tensor-core kernel
+        for b in (2, 3, 9, 16, 64):
             q = unit_rows(b, g.dtype)
             max_err = max(max_err, check_search(
                 f"{dname} B={b} k=5", cosine_topk(g, q, count, 5),
                 cosine_topk_reference(g, q, count, 6), 5))
 
         # ties: row j duplicates row i < j and the query is that row, so
-        # the two equal top scores must come back lower index first
-        b = 8
-        lo = torch.arange(b, device=device) * (n // (2 * b)) + 17
-        hi = lo + n // 2
-        gt = g.clone()
-        gt[hi] = gt[lo]
-        v, i = cosine_topk(gt, gt[lo].contiguous(), n, 2)
-        i = i.cpu().numpy()
-        if not (np.array_equal(i[:, 0], lo.cpu().numpy())
-                and np.array_equal(i[:, 1], hi.cpu().numpy())
-                and torch.equal(v[:, 0], v[:, 1])):
-            raise AssertionError(f"{dname} ties: got {i.tolist()}")
-        del gt
+        # the two equal top scores must come back lower index first; the
+        # two rows sit in different chunks and, +5, at different places of
+        # their 128-row tiles
+        for b in (8, 16):
+            lo = torch.arange(b, device=device) * (n // (2 * b)) + 17
+            hi = lo + n // 2 + 5
+            gt = g.clone()
+            gt[hi] = gt[lo]
+            v, i = cosine_topk(gt, gt[lo].contiguous(), n, 2)
+            i = i.cpu().numpy()
+            if not (np.array_equal(i[:, 0], lo.cpu().numpy())
+                    and np.array_equal(i[:, 1], hi.cpu().numpy())
+                    and torch.equal(v[:, 0], v[:, 1])):
+                raise AssertionError(f"{dname} B={b} ties: got {i.tolist()}")
+            del gt
 
         # k > count: the masked padding rows follow in ascending order
-        q = unit_rows(8, g.dtype)
-        kern = cosine_topk(g, q, 3, 8)
-        max_err = max(max_err, check_search(
-            f"{dname} k>count", kern, cosine_topk_reference(g, q, 3, 9), 8))
-        if not np.array_equal(np.sort(kern[1].cpu().numpy()[:, :3], 1),
-                              np.tile(np.arange(3), (8, 1))) or \
-                not np.array_equal(kern[1].cpu().numpy()[:, 3:],
-                                   np.tile(np.arange(3, 8), (8, 1))):
-            raise AssertionError(f"{dname} k>count: {kern[1].tolist()}")
+        for b in (8, 33):
+            q = unit_rows(b, g.dtype)
+            kern = cosine_topk(g, q, 3, 8)
+            max_err = max(max_err, check_search(
+                f"{dname} B={b} k>count", kern,
+                cosine_topk_reference(g, q, 3, 9), 8))
+            if not np.array_equal(np.sort(kern[1].cpu().numpy()[:, :3], 1),
+                                  np.tile(np.arange(3), (b, 1))) or \
+                    not np.array_equal(kern[1].cpu().numpy()[:, 3:],
+                                       np.tile(np.arange(3, 8), (b, 1))):
+                raise AssertionError(f"{dname} B={b} k>count: "
+                                     f"{kern[1].tolist()}")
     torch.cuda.synchronize()
     return max_err, timings
 
@@ -1039,7 +1049,12 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": f"bf16 N={main_case['N']} count={main_case['count']} "
-                 "B=8 k=1"}, {
+                 "B=8 k=1",
+        "tensor_core_cases": [
+            {key: t[key] for key in ("B", "k", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}
+            for t in timings if t["dtype"] == "bfloat16"
+            and (t["B"], t["k"]) in ((256, 1), (256, 64), (32, 1))]}, {
         "name": "cosine_topk_int8", "route": "cuda",
         "source": "facekit_torch/ops/csrc/cosine_topk_int8.cu",
         "replaces": "facekit/ops/similarity.py:183",

@@ -7,8 +7,8 @@ and a wrapper:
     ``cosine_topk_xla`` (``similarity.py:42-56``); ``cosine_topk`` — its
     wrapper: for CUDA tensors it launches the hand-written Hopper kernel
     ``ops/csrc/cosine_topk.cu`` (the port of the TPU kernel
-    ``cosine_topk_pallas``) or raises; for CPU tensors it runs the plain
-    version;
+    ``cosine_topk_pallas``; bf16 batches above 8 on tensor cores) or
+    raises; for CPU tensors it runs the plain version;
   * ``cosine_topk_int8_reference`` — the plain version of
     ``cosine_topk_int8`` (``similarity.py:73-94``) over an int8 gallery
     with per-row scales (``quantize_rows_int8``); ``cosine_topk_int8`` —
@@ -37,6 +37,12 @@ NEG_INF = -1e30
 DIM = 512           # embedding width the kernel is built for
 MAX_K = 64          # the server caps /search at k <= 64
 MAX_B = 256         # largest query batch (64 frames x 4 face slots)
+# bf16 batches from MMA_MIN_B on take the tensor-core pass 1
+# (cosine_topk.cu topk_partial_mma_kernel): MMA_QUERIES queries and row
+# tiles of MMA_ROWS per CTA
+MMA_MIN_B = 9
+MMA_QUERIES = 64
+MMA_ROWS = 128
 
 
 def cosine_topk_reference(gallery: torch.Tensor, queries: torch.Tensor,
@@ -202,13 +208,29 @@ def _check_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
                          f"[0, N={n}]")
 
 
-def _launch_shape(n_rows: int, device: torch.device) -> Tuple[int, int]:
-    """(rows per CTA, chunks): about four CTAs per SM, each a multiple of
-    256 rows (32 per warp)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per = -(-n_rows // (4 * sms))
-    rows_per_cta = max(256, -(-per // 256) * 256)
+def _search_plan(n_rows: int, b: int, is_bf16: bool, sms: int
+                 ) -> Tuple[int, int]:
+    """(rows per CTA, chunks) of pass 1 over ``n_rows`` rows for a batch of
+    ``b`` on a card of ``sms`` SMs; rows per CTA times chunks covers
+    ``n_rows``.
+
+    bf16 at ``b >= MMA_MIN_B`` runs the tensor-core kernel: CTAs of
+    MMA_QUERIES queries, each chunk a multiple of MMA_ROWS rows, and about
+    one CTA per SM over the (query tiles, chunks) grid. Everything else
+    (f32, bf16 at b <= 8, the int8 search) runs about four CTAs per SM,
+    each chunk a multiple of 256 rows (32 per warp)."""
+    if is_bf16 and b >= MMA_MIN_B:
+        q_tiles = -(-b // MMA_QUERIES)
+        per = -(-n_rows // max(1, sms // q_tiles))
+        rows_per_cta = -(-per // MMA_ROWS) * MMA_ROWS
+    else:
+        per = -(-n_rows // (4 * sms))
+        rows_per_cta = max(256, -(-per // 256) * 256)
     return rows_per_cta, -(-n_rows // rows_per_cta)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -239,8 +261,9 @@ def _cosine_topk_cuda(gallery, queries, count, k):
     # rows count..count+k-1 (score -1e30, ascending index) outrank every
     # later padding row, so no row past count + k can reach the top k
     n_rows = min(n, count + k)
-    rows_per_cta, chunks = _launch_shape(n_rows, gallery.device)
     dev = gallery.device
+    rows_per_cta, chunks = _search_plan(
+        n_rows, b, gallery.dtype == torch.bfloat16, _sms(dev))
     part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -264,8 +287,8 @@ def _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries, count, k):
     qq, qs = quantize_rows_int8(queries)      # plain torch ops, new tensors
     n, b = gallery_q.shape[0], queries.shape[0]
     n_rows = min(n, count + k)                # see _cosine_topk_cuda
-    rows_per_cta, chunks = _launch_shape(n_rows, gallery_q.device)
     dev = gallery_q.device
+    rows_per_cta, chunks = _search_plan(n_rows, b, False, _sms(dev))
     part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)

@@ -35,6 +35,7 @@ def _data(seed, n=N, b=5, ties=False):
     if ties:
         # rows 600.. duplicate rows 0..; queries are those rows, so every
         # query has two equal top scores and the lower index must win
+        assert b <= 600 and 600 + b <= n
         g[600:600 + b] = g[:b]
         q = g[:b].copy()
     return g, q
@@ -153,7 +154,9 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,k,count", [(1, 1, N), (2, 3, 777), (3, 5, N),
-                                       (8, 3, 777), (256, 64, N), (5, 8, 3)])
+                                       (8, 3, 777), (256, 64, N), (5, 8, 3),
+                                       (9, 1, N), (16, 5, 777), (32, 1, N),
+                                       (64, 64, 777), (200, 64, N), (33, 8, 3)])
 def test_kernel_matches_plain(cuda_device, dtype, b, k, count):
     g, q = _data(b + k, b=b)
     td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
@@ -170,13 +173,20 @@ def test_kernel_matches_plain(cuda_device, dtype, b, k, count):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 2, 5])
+@pytest.mark.parametrize("b", [1, 2, 5, 16, 33])
 def test_kernel_ties_and_checks(cuda_device, b):
+    """Rows 600+j duplicate rows j; both float dtypes, so that batches above
+    8 also meet the bf16 tensor-core kernel, where rows j and 600+j sit at
+    different positions of their 128-row tiles and in different chunks."""
     g, q = _data(7, b=b, ties=True)
+    for td in (torch.float32, torch.bfloat16):
+        gt = torch.tensor(g, device=cuda_device).to(td)
+        qt = torch.tensor(q, device=cuda_device).to(td)
+        vals, idx = cosine_topk(gt, qt, N, 2)
+        np.testing.assert_array_equal(
+            idx.cpu().numpy(), np.stack([np.arange(b), 600 + np.arange(b)], 1))
+        assert torch.equal(vals[:, 0], vals[:, 1])
     gt, qt = torch.tensor(g, device=cuda_device), torch.tensor(q, device=cuda_device)
-    _, idx = cosine_topk(gt, qt, N, 2)
-    np.testing.assert_array_equal(idx.cpu().numpy(),
-                                  np.stack([np.arange(b), 600 + np.arange(b)], 1))
     with pytest.raises(ValueError):
         cosine_topk(gt, qt, N, 65)
     with pytest.raises(TypeError):

@@ -61,6 +61,30 @@ def test_plain_search_matches_xla_and_pallas(dtype, k, count):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [33, 64])
+@pytest.mark.parametrize("k", [1, 64])
+@pytest.mark.parametrize("count", [N, 777])
+def test_plain_search_matches_xla_and_pallas_large_batch(dtype, b, k, count):
+    """The batches above 8 that the card serves with its tensor-core kernel
+    (bf16) or its CUDA-core kernel (f32): one query tile of the kernel and a
+    ragged one. Entries are multiples of 1/64 up to 1/8 (exact in bf16), so
+    every partial sum is exact in f32 whatever the order: at b * k
+    positions, random unit rows hold near-ties below the sums' rounding
+    (XLA and PyTorch swapped one such pair at b=64, k=64), and here they
+    are true ties, which must resolve lowest index first in all three."""
+    rng = np.random.default_rng(b + k + count)
+    g, q = (rng.integers(-8, 9, size=(r, 512)).astype(np.float32) / 64
+            for r in (N, b))
+    (gj, qj), (gt, qt) = _both(g, q, dtype)
+    ours = cosine_topk_reference(gt, qt, count, k)
+    assert ours[0].shape == (b, k) and ours[1].dtype == torch.int32
+    _assert_same(ours, cosine_topk_xla(gj, qj, jnp.int32(count), k=k), dtype)
+    _assert_same(ours, cosine_topk_pallas(gj, qj, jnp.int32(count), k=k,
+                                          tile_n=256, interpret=True), dtype)
+    assert ours[1].max() < count
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_search_ties_lowest_index_first(dtype):
     (gj, qj), (gt, qt) = _both(*_data(7, ties=True), dtype)
     ours = cosine_topk_reference(gt, qt, N, 2)
