@@ -35,7 +35,6 @@ def _data(seed, n=N, b=5, ties=False):
     if ties:
         # rows 600.. duplicate rows 0..; queries are those rows, so every
         # query has two equal top scores and the lower index must win
-        assert b <= 600 and 600 + b <= n
         g[600:600 + b] = g[:b]
         q = g[:b].copy()
     return g, q

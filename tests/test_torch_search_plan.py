@@ -43,4 +43,4 @@ def test_search_plan_fills_the_card_at_full_gallery():
     4 query tiles x 33 chunks at B = 256, 131 chunks at B = 32."""
     assert _search_plan(1 << 20, 256, True, SMS) == (31872, 33)
     assert _search_plan(1 << 20, 32, True, SMS) == (8064, 131)
-    assert MMA_MIN_B == 9
+    assert MMA_MIN_B == 9          # the C entry point's rule: B > 8
