@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of facekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Builds the port's four CUDA kernels from this checkout and holds each
-against its plain PyTorch version: the bf16/f32 and the int8 gallery
+Builds the port's four CUDA kernels from this checkout (and checks the
+``ptxas -v`` lines of the searches' shared tensor-core pass 1) and holds
+each against its plain PyTorch version: the bf16/f32 and the int8 gallery
 searches at the top gallery bucket (N = 1,048,576), the s8 convolution at
 every conv shape of the int8 IR-50 at batch 64 and at the TPU kernel's own
 shape, the fused IR block at IR-50's four identity-block shapes (batch 8
@@ -26,6 +27,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -42,6 +44,9 @@ PEAK_OPS = {"bfloat16": 989e12,               # tensor cores
             "float32": 67e12,                 # FP32, outside the tensor cores
             "int8": 1979e12}                  # tensor cores
 SCORE_ATOL = 1e-4        # f32 sums over D=512 in another order
+# registers of the bf16 tensor-core search pass 1 before the s8 search
+# shared it (ptxas -v, sm_90a); the shared kernel must not take more
+MMA_BF16_REGISTERS = 72
 COS_DIST_MAX = 1e-3      # bf16 embeddings vs f32 (BASELINE.json north star)
 INT8_COS_DIST_MAX = 5e-3  # int8 embeddings vs f32 (facekit's own int8 bar,
 #                           tests/test_model_parity.py:158-175)
@@ -128,6 +133,42 @@ def search_bound(n_rows: int, b: int, k: int, dtype: str):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def mma_ptxas(logs):
+    """The ``ptxas -v`` lines of both instantiations of the searches'
+    shared tensor-core pass 1 (``topk_partial_mma_kernel`` in
+    ``ops/csrc/topk_mma.cuh``: bf16 in the cosine_topk build, s8 in the
+    cosine_topk_int8 build), by operand type; "not rebuilt" for a library
+    that was already built. Fails on a stack frame or a spill in either, or
+    on more than MMA_BF16_REGISTERS registers in the bf16 one."""
+    out = {}
+    for name, typ in (("cosine_topk", "bf16"), ("cosine_topk_int8", "s8")):
+        if name not in logs:
+            out[typ] = "not rebuilt"
+            continue
+        mangled = "t" if typ == "bf16" else "a"    # uint16_t, int8_t
+        lines, inside = [], False
+        for line in logs[name].splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                inside = f"topk_partial_mma_kernelI{mangled}E" in entry[1]
+            elif inside and ("stack frame" in line or "Used" in line):
+                lines.append(line.strip())
+        text = " ".join(lines)
+        regs = re.search(r"Used (\d+) registers", text)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", text)
+        if regs is None or frame is None:
+            raise AssertionError(f"no ptxas -v lines of the {typ} "
+                                 f"topk_partial_mma_kernel in {name}'s build")
+        out[typ] = {"registers": int(regs[1]), "stack_bytes": int(frame[1]),
+                    "spill_bytes": int(frame[2]) + int(frame[3]),
+                    "ptxas": lines}
+        if out[typ]["stack_bytes"] or out[typ]["spill_bytes"] or (
+                typ == "bf16" and out[typ]["registers"] > MMA_BF16_REGISTERS):
+            raise AssertionError(f"topk_partial_mma_kernel {typ}: {lines}")
+    return out
 
 
 def check_search(name, kern, plain_k1, k):
@@ -396,7 +437,9 @@ def int8_library_call(gq, gs, count, k):
 
 def phase_int8_kernels(device, n=N_TOP, seed=2):
     """The int8 search kernel against its plain version at N rows: scores
-    bit for bit, indices equal."""
+    bit for bit, indices equal. Timed at B in {1, 8, 64, 256} (B > 8 runs
+    the tensor-core pass 1), k in {1, 64}; ties, k > count and the query
+    tiles the timed batches miss checked."""
     import torch
 
     from facekit_torch.ops.similarity import (cosine_topk_int8,
@@ -439,36 +482,44 @@ def phase_int8_kernels(device, n=N_TOP, seed=2):
             emit(rec)
             timings.append(rec)
 
-    # the query tiles the timed batches do not reach (2 and 4 queries)
-    for b in (2, 3):
+    # the query tiles the timed batches do not reach: 2 and 4 queries of
+    # the CUDA-core kernel; in the tensor-core kernel one m16 tile (9), a
+    # full m16 pair (16), and queries 0-31 on warps 0-3 with one query in
+    # the first m16 tile of warps 4-7 (33)
+    for b in (2, 3, 9, 16, 33):
         q = unit_rows(b)
         check(f"B={b} k=5", cosine_topk_int8(gq, gs, q, count, 5),
               cosine_topk_int8_reference(gq, gs, q, count, 5))
 
     # ties: row j duplicates row i < j and the query is that row, so the
-    # two equal top scores must come back lower index first
-    b = 8
-    lo = torch.arange(b, device=device) * (n // (2 * b)) + 17
-    hi = lo + n // 2
-    gqt, gst = gq.clone(), gs.clone()
-    gqt[hi], gst[hi] = gqt[lo], gst[lo]
-    q = g32[lo].contiguous()
-    v, i = cosine_topk_int8(gqt, gst, q, n, 2)
-    check("ties", (v, i), cosine_topk_int8_reference(gqt, gst, q, n, 2))
-    i = i.cpu().numpy()
-    if not (np.array_equal(i[:, 0], lo.cpu().numpy())
-            and np.array_equal(i[:, 1], hi.cpu().numpy())
-            and torch.equal(v[:, 0], v[:, 1])):
-        raise AssertionError(f"int8 ties: got {i.tolist()}")
-    del gqt, gst
+    # two equal top scores must come back lower index first; the two rows
+    # sit in different chunks and, +5, at different places of their
+    # 128-row tiles
+    for b in (8, 16, 64):
+        lo = torch.arange(b, device=device) * (n // (2 * b)) + 17
+        hi = lo + n // 2 + 5
+        gqt, gst = gq.clone(), gs.clone()
+        gqt[hi], gst[hi] = gqt[lo], gst[lo]
+        q = g32[lo].contiguous()
+        v, i = cosine_topk_int8(gqt, gst, q, n, 2)
+        check(f"B={b} ties", (v, i),
+              cosine_topk_int8_reference(gqt, gst, q, n, 2))
+        i = i.cpu().numpy()
+        if not (np.array_equal(i[:, 0], lo.cpu().numpy())
+                and np.array_equal(i[:, 1], hi.cpu().numpy())
+                and torch.equal(v[:, 0], v[:, 1])):
+            raise AssertionError(f"int8 B={b} ties: got {i.tolist()}")
+        del gqt, gst
 
     # k > count: the masked padding rows follow in ascending order
-    q = unit_rows(8)
-    kern = cosine_topk_int8(gq, gs, q, 3, 8)
-    check("k>count", kern, cosine_topk_int8_reference(gq, gs, q, 3, 8))
-    if not np.array_equal(kern[1].cpu().numpy()[:, 3:],
-                          np.tile(np.arange(3, 8), (8, 1))):
-        raise AssertionError(f"int8 k>count: {kern[1].tolist()}")
+    for b in (8, 33):
+        q = unit_rows(b)
+        kern = cosine_topk_int8(gq, gs, q, 3, 8)
+        check(f"B={b} k>count", kern,
+              cosine_topk_int8_reference(gq, gs, q, 3, 8))
+        if not np.array_equal(kern[1].cpu().numpy()[:, 3:],
+                              np.tile(np.arange(3, 8), (b, 1))):
+            raise AssertionError(f"int8 B={b} k>count: {kern[1].tolist()}")
     torch.cuda.synchronize()
     return timings
 
@@ -1018,6 +1069,8 @@ def main() -> int:
           "built": sorted(logs)})
     for name, text in logs.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
+    emit({"phase": "ptxas", "kernel": "topk_partial_mma_kernel",
+          "instantiations": mma_ptxas(logs)})
 
     max_err, timings = phase_kernels("cuda")
     server = phase_server("cuda", repo_dir)
@@ -1065,7 +1118,11 @@ def main() -> int:
         "library_ms": int8_case["library_ms"],
         "library_call": int8_case["library_call"],
         "shape": f"int8 N={int8_case['N']} count={int8_case['count']} "
-                 "B=64 k=1"}, {
+                 "B=64 k=1",
+        "tensor_core_cases": [
+            {key: t[key] for key in ("B", "k", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}
+            for t in int8_timings if t["B"] in (64, 256)]}, {
         "name": "conv_s8", "route": "cuda",
         "source": "facekit_torch/ops/csrc/conv_s8.cu",
         "replaces": "docs/experiments/pallas_s8_stride2_conv.py:86",

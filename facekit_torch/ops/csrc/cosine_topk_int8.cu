@@ -15,11 +15,11 @@
 // Bound on an H100 SXM (3.35 TB/s): only the rows the search needs are
 // read, n_rows * (512 + 4) bytes with n_rows = min(N, count + k): at
 // N = 1,048,576 that is 0.541 GB, about 0.162 ms. The 2*B*n_rows*512
-// operations are far below the int8 tensor-core rate at B <= 64, so the
-// kernel is bound by bytes on the serving path.
+// operations take 0.035 ms at B = 64 at the int8 tensor-core rate (1,979
+// TOPS), so the search is bound by bytes up to B of about 300.
 //
-// Design, against that bound: PR 1's two-pass structure (cosine_topk.cu),
-// with the dot in integers.
+// B <= 8 (topk_int8_partial_kernel): the two-pass structure of
+// cosine_topk.cu's CUDA-core kernel, with the dot in integers.
 //  * A lane's share of a row is 16 bytes: one 16-byte load (evict-first),
 //    neighbouring lanes on neighbouring addresses, a warp reads a row in
 //    one 512-byte transaction. The loads of the next U rows are issued
@@ -31,11 +31,18 @@
 //  * The lane that ends with (row, query) loads that row's f32 scale (the
 //    scales are read once per row, beside the row) and forms the score.
 //  * Rows past count + k are never read (see cosine_topk.cu).
-// What it leaves for later: tensor cores and a query tile in shared
-// memory for large B (at B = 256 the gallery is read once per tile of 8
-// queries).
+//
+// B > 8 runs the tensor-core pass 1 that the bf16 search shares,
+// topk_partial_mma_kernel<int8_t> in topk_mma.cuh: mma.sync m16n8k32 s8
+// with s32 accumulators over a 64-query tile in shared memory, so the rows
+// leave HBM about once, not once per 8 queries; the epilogue forms the same
+// score, (f32(acc) * q_scale) * g_scale, and one list per query per CTA
+// takes it. Both write (B, chunks, k) partials for the one pass 2.
+//
+// What it leaves for later: k = 64 at B <= 8, and wgmma/TMA.
 
 #include "topk_fold.cuh"
+#include "topk_mma.cuh"
 
 namespace {
 
@@ -131,13 +138,14 @@ void launch_partial(int chunks, cudaStream_t s, const void* gallery,
 }  // namespace
 
 // C entry point (loaded with ctypes). Launches both passes on `stream` and
-// returns cudaGetLastError() as an int; it never synchronizes. The caller
-// has checked shapes and alignment: gallery (>= n_rows, 512) int8 and its
+// returns the CUDA error as an int; it never synchronizes. The caller has
+// checked shapes and alignment: gallery (>= n_rows, 512) int8 and its
 // (>= n_rows,) f32 scales, queries (B, 512) int8 (already quantized) and
 // their (B,) f32 scales, all contiguous, the int8 arrays 16-byte aligned;
-// 1 <= k <= 64, 1 <= B <= 256, rows_per_cta a multiple of 256, partials
-// (B, chunks, k). The query tile is the smallest of 1, 2, 4, 8 that
-// covers B.
+// 1 <= k <= 64, 1 <= B <= 256, partials (B, chunks, k). B > 8 runs
+// topk_partial_mma_kernel<int8_t> with rows_per_cta a multiple of 128;
+// B <= 8 the CUDA-core kernel with rows_per_cta a multiple of 256 and the
+// query tile the smallest of 1, 2, 4, 8 that covers B.
 extern "C" int facekit_cosine_topk_int8(const void* gallery, const void* gscale,
                                         const void* queries, const void* qscale,
                                         int n_rows, int count, int B, int k,
@@ -145,7 +153,12 @@ extern "C" int facekit_cosine_topk_int8(const void* gallery, const void* gscale,
                                         void* part_v, void* part_i,
                                         void* out_v, void* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 1) {
+  if (B > 8) {
+    const int err = launch_partial_mma<int8_t>(chunks, s, gallery, gscale, queries,
+                                               qscale, n_rows, count, B, k,
+                                               rows_per_cta, part_v, part_i);
+    if (err != 0) return err;
+  } else if (B == 1) {
     launch_partial<1>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
   } else if (B == 2) {
     launch_partial<2>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);

@@ -1,8 +1,9 @@
-// Warp-level bf16 tensor-core helpers for sm_90a, as inline PTX: cp.async
-// copies from global to shared memory, ldmatrix, and mma.sync m16n8k16 with
-// f32 accumulators. Shared by the fused IR block (ir_block.cu) and the bf16
-// gallery search at B > 8 (cosine_topk.cu). Functions only, no constants,
-// so that no name clashes with a kernel's own.
+// Warp-level tensor-core helpers for sm_90a, as inline PTX: cp.async
+// copies from global to shared memory, ldmatrix, mma.sync m16n8k16 (bf16 in,
+// f32 accumulators) and m16n8k32 (s8 in, s32 accumulators). Shared by the
+// fused IR block (ir_block.cu) and the gallery searches' tensor-core pass 1
+// (topk_mma.cuh). Functions only, no constants, so that no name clashes
+// with a kernel's own.
 
 #pragma once
 
@@ -41,6 +42,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x32, row) * b (32x8, col), s8 in, s32 accumulators. A lane holds
+// the same bytes of a and b as in mma_bf16 (4 consecutive bytes of K per
+// register, the same row and column groups), so the same ldmatrix loads
+// feed both, and d has mma_bf16's layout.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

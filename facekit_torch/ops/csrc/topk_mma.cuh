@@ -1,0 +1,299 @@
+// The tensor-core pass 1 that both gallery searches run at B > 8: the bf16
+// search (cosine_topk.cu) and the int8 search (cosine_topk_int8.cu). One
+// kernel, templated on the operand type, so that the two cannot diverge, as
+// facekit's two Pallas search kernels share `_fold_tile`
+// (facekit/ops/similarity.py:127-133) and the port's share topk_fold.cuh.
+//
+// The products of a batch are 2*B*N*D operations, 2.75e14 at B = 256, too
+// many for CUDA cores, and the CUDA-core kernels read the gallery once per 8
+// queries. So a CTA takes one tile of 64 queries (in shared memory, rows
+// padded by 16 bytes against ldmatrix bank conflicts; slots past the batch
+// are zero) and one chunk of rows; the grid is (query tiles, chunks) with the
+// query tile in blockIdx.x, so the CTAs that read the same rows run together
+// and all but the first find them in L2: the gallery leaves HBM about once.
+//  * Rows stream in stages of 128 rows x 128 bytes of K (+16 padding) with
+//    cp.async.cg into a ring of 4, three stages ahead: a row tile is 8
+//    stages in bf16, 4 in s8. Rows at or past min(n_rows, count) are not
+//    read (zeros, masked below).
+//  * Each 32-byte K step is one mma.sync per (m16, n8) tile: m16n8k16 bf16
+//    with f32 accumulators, or m16n8k32 s8 with s32 accumulators. A lane
+//    holds the same bytes of A and B in both (mma_bf16.cuh), so the ldmatrix
+//    addresses, in bytes, and the accumulator layout are the same. A is the
+//    query tile, B the gallery stage (a row is K-contiguous: the .col
+//    layout), both through ldmatrix.x4. The 8 warps cover a 64 x 128 score
+//    tile, 32 x 32 each (2 m16 x 4 n8); warps 0-3 hold queries 0-31, so a
+//    batch of 32 runs on every SM sub-partition, and m16 tiles wholly past
+//    the batch are skipped. Every score sums its K steps in the same order,
+//    so equal rows get bit-equal scores in bf16; in s8 the sum is an exact
+//    integer (|acc| <= 127^2 * 512 < 2^24) in any order.
+//  * After each row tile the scores go to a 64 x 128 f32 tile in shared
+//    memory, -1e30 past count: in bf16 the f32 accumulator, in s8 (f32(acc)
+//    * q_scale) * g_scale, the plain version's two multiplies in its order.
+//    Then each warp offers them to the sorted top-k of its queries (one list
+//    per query per CTA, 8 queries per warp), ballot against the k-th entry
+//    first, so only the winners are inserted. The CTA writes the lists as
+//    the (B, chunks, k) partials of the CUDA-core kernels, which pass 2
+//    (topk_fold.cuh) reduces.
+
+#pragma once
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
+#include "topk_fold.cuh"
+
+namespace {
+
+constexpr int MQ = 64;                 // queries per CTA
+constexpr int MR = 128;                // gallery rows per row tile
+constexpr int MKB = 128;               // bytes of K per gallery stage
+constexpr int MST = 4;                 // gallery stages in the ring
+constexpr int MPAD = 16;               // bytes of padding per shared row
+constexpr int SSTR = MR + 8;           // row stride (f32) of the score tile
+static_assert(MR * MKB / 16 == 4 * THREADS, "four 16-byte pieces per thread a stage");
+
+// The shapes of pass 1 for operand type T: uint16_t (bf16 bits) or int8_t.
+template <typename T>
+struct MmaTile {
+  static constexpr bool S8 = std::is_same_v<T, int8_t>;
+  using Acc = std::conditional_t<S8, int, float>;
+  static constexpr int ROW = D * (int)sizeof(T);    // bytes of a row
+  static constexpr int KSTAGES = ROW / MKB;         // stages per row tile
+  static constexpr int QSTR = ROW + MPAD;           // bytes per query-tile row
+  static constexpr int GSTR = MKB + MPAD;           // bytes per stage row
+  static constexpr uint32_t Q_BYTES = MQ * QSTR;
+  static constexpr uint32_t STAGE_BYTES = MR * GSTR;
+  static constexpr uint32_t S_BYTES = MQ * SSTR * 4;
+  static constexpr uint32_t L_BYTES = MQ * KMAX * 4;   // the lists' scores (or indices)
+  static constexpr uint32_t SMEM = Q_BYTES + MST * STAGE_BYTES + S_BYTES + 2 * L_BYTES;
+};
+
+__device__ __forceinline__ void mma_step(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  mma_bf16(d, a, b0, b1);
+}
+
+__device__ __forceinline__ void mma_step(int (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  mma_s8(d, a, b0, b1);
+}
+
+// Grid (query tiles of MQ, chunks of rows_per_cta rows, a multiple of MR).
+// gscale and qscale (the s8 rows' and queries' f32 scales) are read in s8
+// only.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+topk_partial_mma_kernel(const char* __restrict__ gallery,
+                        const float* __restrict__ gscale,
+                        const char* __restrict__ queries,
+                        const float* __restrict__ qscale,
+                        int n_rows, int count, int B, int k, int rows_per_cta,
+                        float* __restrict__ part_v, int* __restrict__ part_i) {
+  using Tile = MmaTile<T>;
+  using Acc = typename Tile::Acc;
+  constexpr int ROW = Tile::ROW, KSTAGES = Tile::KSTAGES;
+  constexpr int QSTR = Tile::QSTR, GSTR = Tile::GSTR;
+  constexpr uint32_t STAGE_BYTES = Tile::STAGE_BYTES;
+  static_assert(Tile::SMEM <= 232448, "227 KB of shared memory per CTA");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* qs = smem;                                        // (MQ, QSTR)
+  unsigned char* ring = smem + Tile::Q_BYTES;                      // MST x (MR, GSTR)
+  float* sc = reinterpret_cast<float*>(ring + MST * STAGE_BYTES);  // (MQ, SSTR)
+  float* list_v = sc + MQ * SSTR;                                  // (MQ, KMAX)
+  int* list_i = reinterpret_cast<int*>(list_v + MQ * KMAX);        // (MQ, KMAX)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q0 = blockIdx.x * MQ;
+  const int nq = min(MQ, B - q0);
+  const int chunk = blockIdx.y;
+  const int chunks = gridDim.y;
+  const int begin = chunk * rows_per_cta;
+  const int end = min(begin + rows_per_cta, n_rows);
+  const int live = min(end, count);
+  const int total = (end - begin + MR - 1) / MR * KSTAGES;   // stages to run
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  // the query tile, slots past the batch zero, 16 bytes per step
+  for (int e = tid; e < MQ * (ROW / 16); e += THREADS) {
+    const int r = e / (ROW / 16), c = (e % (ROW / 16)) * 16;
+    uint4 v = zero;
+    if (r < nq) v = __ldg(reinterpret_cast<const uint4*>(queries + (size_t)(q0 + r) * ROW + c));
+    *reinterpret_cast<uint4*>(qs + r * QSTR + c) = v;
+  }
+  // warp w keeps the lists of queries w, w + WARPS, ...
+  for (int j = warp; j < nq; j += WARPS) {
+    for (int s = lane; s < KMAX; s += 32) {
+      list_v[j * KMAX + s] = NEG_INF;
+      list_i[j * KMAX + s] = BIG_IDX;
+    }
+  }
+
+  // stage gs (row tile gs / KSTAGES, K bytes (gs % KSTAGES) * MKB ..) into
+  // ring buffer buf: this thread copies 16 bytes of rows tid/8 + 32u
+  const int ld_row = tid >> 3, ld_col = (tid & 7) * 16;
+  const uint32_t ring_s = smem_u32(ring);
+  auto load_stage = [&](int gs, int buf) {
+    const int row0 = begin + (gs / KSTAGES) * MR;
+    const int col = (gs % KSTAGES) * MKB + ld_col;
+#pragma unroll
+    for (int u = 0; u < MR / 32; ++u) {
+      const int r = ld_row + 32 * u;
+      const uint32_t off = buf * STAGE_BYTES + r * GSTR + ld_col;
+      if (row0 + r < live)
+        cp_async16(ring_s + off, gallery + (size_t)(row0 + r) * ROW + col);
+      else
+        *reinterpret_cast<uint4*>(ring + off) = zero;
+    }
+  };
+
+  // warp tile: queries wm*32 .. +31 (m16 tiles past the batch skipped), rows
+  // wn*32 .. +31 of the row tile
+  const int wm = warp >> 2, wn = warp & 3;
+  const int ntile = max(0, min(2, (nq - wm * 32 + 15) / 16));
+  uint32_t a_lane[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    a_lane[i] = smem_u32(qs) + (wm * 32 + i * 16 + (lane & 15)) * QSTR + (lane >> 4) * 16;
+  // B: lanes 0-7 / 8-15 / 16-23 / 24-31 address n-tile 0 bytes 0-15 /
+  // n-tile 0 bytes 16-31 / n-tile 1 bytes 0-15 / n-tile 1 bytes 16-31 of a
+  // 32-byte K step of a pair of n8 tiles
+  const uint32_t b_lane = ring_s +
+      (wn * 32 + (lane & 7) + (lane >> 4) * 8) * GSTR + ((lane >> 3) & 1) * 16;
+
+  // s8: the scales of this lane's queries (those of m16 tile i, rows lane/4
+  // and lane/4 + 8); 0 past the batch, whose scores no list takes
+  float q_sc[2][2];
+  if constexpr (Tile::S8) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = wm * 32 + i * 16 + h * 8 + (lane >> 2);
+        q_sc[i][h] = q < nq ? __ldg(qscale + q0 + q) : 0.f;
+      }
+  }
+
+  Acc acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+
+#pragma unroll
+  for (int s = 0; s < MST - 1; ++s) {
+    if (s < total) load_stage(s, s);
+    cp_async_commit();
+  }
+  int buf = 0, ld_buf = MST - 1;
+  for (int gs = 0; gs < total; ++gs) {
+    cp_async_wait<MST - 2>();                    // stage gs has landed
+    __syncthreads();                             // ... for every thread, and
+                                                 // stage gs-1 is consumed
+    if (gs + MST - 1 < total) load_stage(gs + MST - 1, ld_buf);
+    cp_async_commit();
+    if (++ld_buf == MST) ld_buf = 0;
+
+    const int ks = gs % KSTAGES;
+    if (ntile > 0) {
+      const uint32_t b_st = b_lane + buf * STAGE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < MKB / 32; ++kk) {
+        uint32_t b[4][2], r[4];
+        ldmatrix_x4(r, b_st + kk * 32);
+        b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
+        ldmatrix_x4(r, b_st + 16 * GSTR + kk * 32);
+        b[2][0] = r[0]; b[2][1] = r[1]; b[3][0] = r[2]; b[3][1] = r[3];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (i < ntile) {
+            uint32_t a[4];
+            ldmatrix_x4(a, a_lane[i] + ks * MKB + kk * 32);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_step(acc[i][j], a, b[j][0], b[j][1]);
+          }
+        }
+      }
+    }
+    if (++buf == MST) buf = 0;
+    if (ks < KSTAGES - 1) continue;
+
+    // the row tile is done: lane l holds queries l/4 and l/4+8, rows 2(l%4)
+    // and 2(l%4)+1 of each n8 tile; to the score tile, -1e30 past count
+    const int row0 = begin + (gs / KSTAGES) * MR;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i < ntile) {
+        const int q = wm * 32 + i * 16 + (lane >> 2);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn * 32 + j * 8 + (lane & 3) * 2;
+          const bool l0 = row0 + n < count, l1 = row0 + n + 1 < count;
+          float v[4];
+          if constexpr (Tile::S8) {
+            const float g0 = l0 ? __ldg(gscale + row0 + n) : 0.f;
+            const float g1 = l1 ? __ldg(gscale + row0 + n + 1) : 0.f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              v[e] = (static_cast<float>(acc[i][j][e]) * q_sc[i][e >> 1]) * (e & 1 ? g1 : g0);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[e] = acc[i][j][e];
+          }
+          *reinterpret_cast<float2*>(sc + q * SSTR + n) =
+              make_float2(l0 ? v[0] : NEG_INF, l1 ? v[1] : NEG_INF);
+          *reinterpret_cast<float2*>(sc + (q + 8) * SSTR + n) =
+              make_float2(l0 ? v[2] : NEG_INF, l1 ? v[3] : NEG_INF);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+        }
+      }
+    }
+    __syncthreads();
+    // each warp offers the tile's rows before `end` to its queries' lists,
+    // 32 at a time; rows come in ascending order
+    for (int j = warp; j < nq; j += WARPS) {
+#pragma unroll
+      for (int t = 0; t < MR / 32; ++t) {
+        const int n = t * 32 + lane;
+        warp_offer(list_v + j * KMAX, list_i + j * KMAX, k, sc[j * SSTR + n],
+                   row0 + n, row0 + n < end, lane);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  for (int j = warp; j < nq; j += WARPS) {
+    const size_t off = ((size_t)(q0 + j) * chunks + chunk) * k;
+    for (int s = lane; s < k; s += 32) {
+      part_v[off + s] = list_v[j * KMAX + s];
+      part_i[off + s] = list_i[j * KMAX + s];
+    }
+  }
+}
+
+// Pass 1 on tensor cores: grid (ceil(B / MQ), chunks). Returns the CUDA
+// error of setting the shared-memory size or of the launch, as an int.
+template <typename T>
+int launch_partial_mma(int chunks, cudaStream_t s, const void* gallery,
+                       const void* gscale, const void* queries,
+                       const void* qscale, int n_rows, int count, int B, int k,
+                       int rows_per_cta, void* part_v, void* part_i) {
+  constexpr uint32_t smem = MmaTile<T>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_partial_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((B + MQ - 1) / MQ, chunks);
+  topk_partial_mma_kernel<T><<<grid, THREADS, smem, s>>>(
+      static_cast<const char*>(gallery), static_cast<const float*>(gscale),
+      static_cast<const char*>(queries), static_cast<const float*>(qscale),
+      n_rows, count, B, k, rows_per_cta,
+      static_cast<float*>(part_v), static_cast<int*>(part_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

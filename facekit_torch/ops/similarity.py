@@ -7,13 +7,18 @@ and a wrapper:
     ``cosine_topk_xla`` (``similarity.py:42-56``); ``cosine_topk`` — its
     wrapper: for CUDA tensors it launches the hand-written Hopper kernel
     ``ops/csrc/cosine_topk.cu`` (the port of the TPU kernel
-    ``cosine_topk_pallas``; bf16 batches above 8 on tensor cores) or
-    raises; for CPU tensors it runs the plain version;
+    ``cosine_topk_pallas``) or raises; for CPU tensors it runs the plain
+    version;
   * ``cosine_topk_int8_reference`` — the plain version of
     ``cosine_topk_int8`` (``similarity.py:73-94``) over an int8 gallery
     with per-row scales (``quantize_rows_int8``); ``cosine_topk_int8`` —
     its wrapper, launching ``ops/csrc/cosine_topk_int8.cu`` (the port of
     ``cosine_topk_int8_pallas``) for CUDA tensors.
+
+Batches above 8 of the bf16 and of the int8 search run one tensor-core
+pass 1, ``topk_partial_mma_kernel`` in ``ops/csrc/topk_mma.cuh``, shared by
+both kernels (``mma.sync`` in bf16 or s8); f32, and batches up to 8, run
+each kernel's CUDA-core pass 1.
 
 Meaning shared by all: gallery rows at or past ``count`` score -1e30;
 each query's top k come in the order (score descending, row index
@@ -37,9 +42,9 @@ NEG_INF = -1e30
 DIM = 512           # embedding width the kernel is built for
 MAX_K = 64          # the server caps /search at k <= 64
 MAX_B = 256         # largest query batch (64 frames x 4 face slots)
-# bf16 batches from MMA_MIN_B on take the tensor-core pass 1
-# (cosine_topk.cu topk_partial_mma_kernel): MMA_QUERIES queries and row
-# tiles of MMA_ROWS per CTA
+# bf16 and int8 batches from MMA_MIN_B on take the tensor-core pass 1
+# (topk_mma.cuh topk_partial_mma_kernel): MMA_QUERIES queries and row tiles
+# of MMA_ROWS per CTA
 MMA_MIN_B = 9
 MMA_QUERIES = 64
 MMA_ROWS = 128
@@ -208,18 +213,19 @@ def _check_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
                          f"[0, N={n}]")
 
 
-def _search_plan(n_rows: int, b: int, is_bf16: bool, sms: int
+def _search_plan(n_rows: int, b: int, tensor_cores: bool, sms: int
                  ) -> Tuple[int, int]:
     """(rows per CTA, chunks) of pass 1 over ``n_rows`` rows for a batch of
     ``b`` on a card of ``sms`` SMs; rows per CTA times chunks covers
     ``n_rows``.
 
-    bf16 at ``b >= MMA_MIN_B`` runs the tensor-core kernel: CTAs of
-    MMA_QUERIES queries, each chunk a multiple of MMA_ROWS rows, and about
-    one CTA per SM over the (query tiles, chunks) grid. Everything else
-    (f32, bf16 at b <= 8, the int8 search) runs about four CTAs per SM,
-    each chunk a multiple of 256 rows (32 per warp)."""
-    if is_bf16 and b >= MMA_MIN_B:
+    ``tensor_cores``: pass 1 is the tensor-core kernel (bf16 or int8 at
+    ``b >= MMA_MIN_B``): CTAs of MMA_QUERIES queries, each chunk a multiple
+    of MMA_ROWS rows, and about one CTA per SM over the (query tiles,
+    chunks) grid. The CUDA-core kernels (f32, bf16 and int8 at b <= 8) run
+    about four CTAs per SM, each chunk a multiple of 256 rows (32 per
+    warp)."""
+    if tensor_cores:
         q_tiles = -(-b // MMA_QUERIES)
         per = -(-n_rows // max(1, sms // q_tiles))
         rows_per_cta = -(-per // MMA_ROWS) * MMA_ROWS
@@ -263,7 +269,8 @@ def _cosine_topk_cuda(gallery, queries, count, k):
     n_rows = min(n, count + k)
     dev = gallery.device
     rows_per_cta, chunks = _search_plan(
-        n_rows, b, gallery.dtype == torch.bfloat16, _sms(dev))
+        n_rows, b, gallery.dtype == torch.bfloat16 and b >= MMA_MIN_B,
+        _sms(dev))
     part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -288,7 +295,8 @@ def _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries, count, k):
     n, b = gallery_q.shape[0], queries.shape[0]
     n_rows = min(n, count + k)                # see _cosine_topk_cuda
     dev = gallery_q.device
-    rows_per_cta, chunks = _search_plan(n_rows, b, False, _sms(dev))
+    rows_per_cta, chunks = _search_plan(n_rows, b, b >= MMA_MIN_B,
+                                        _sms(dev))
     part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)

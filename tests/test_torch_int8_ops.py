@@ -135,13 +135,26 @@ def test_plain_conv_equals_kernel4_and_its_xla_reference():
 
 # -- the int8 search -------------------------------------------------------------
 
-def _search_data(seed, b=5, ties=False):
+def _search_data(seed, b=5, ties=False, grid_queries=False):
+    """(facekit's, the port's) arguments of an int8 search over N random
+    unit rows. ``grid_queries``: the queries are integers in [-127, 127]
+    times 2**-9, each row with one entry of magnitude 127, so that their
+    int8 scales are 2**-9 exactly. facekit's jitted quantizer can round the
+    scales of random rows one ulp away from the plain division (XLA on the
+    CPU did at b = 64 and for the 33 tie rows), which the plain version
+    does not copy."""
     rng = np.random.default_rng(seed)
     g = _unit(rng.normal(size=(N, 512)))
     q = _unit(rng.normal(size=(b, 512)))
+    if grid_queries:
+        q = rng.integers(-126, 127, size=(b, 512)).astype(np.float32)
+        q[np.arange(b), rng.integers(0, 512, b)] = rng.choice([-127, 127], b)
+        q = (q * 2.0 ** -9).astype(np.float32)
     if ties:
         # rows 600.. duplicate rows 0..; queries are those rows, so every
         # query has two equal top scores and the lower index must win
+        if grid_queries:
+            g[:b] = q
         g[600:600 + b] = g[:b]
         q = g[:b].copy()
     gq, gs = jax_quantize_rows(jnp.asarray(g))
@@ -172,11 +185,37 @@ def test_plain_int8_search_equals_facekit(k, count):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("b", [33, 64])
+@pytest.mark.parametrize("k", [1, 64])
+@pytest.mark.parametrize("count", [N, 777])
+def test_plain_int8_search_equals_facekit_large_batch(b, k, count):
+    """Batches above 8, which the kernel runs on tensor cores: one m16 tile
+    past a full query pair (33) and a full 64-query tile, as in
+    ``test_plain_int8_search_equals_facekit``."""
+    jargs, targs = _search_data(b + k + count, b=b, grid_queries=True)
+    ours = cosine_topk_int8_reference(*targs, count, k)
+    _same_search(ours, jargs, count, k)
+    assert ours[1].max() < count
+    for a, c in zip(cosine_topk_int8(*targs, count, k), ours):  # CPU wrapper
+        assert torch.equal(a, c)
+
+
 def test_plain_int8_search_ties_lowest_index_first():
     jargs, targs = _search_data(7, ties=True)
     ours = cosine_topk_int8_reference(*targs, N, 2)
     np.testing.assert_array_equal(ours[1].numpy(),
                                   np.stack([np.arange(5), 600 + np.arange(5)], 1))
+    assert torch.equal(ours[0][:, 0], ours[0][:, 1])
+    _same_search(ours, jargs, N, 2)
+
+
+def test_plain_int8_search_ties_lowest_index_first_large_batch():
+    """The tie case at 33 queries (grid rows, see ``_search_data``)."""
+    b = 33
+    jargs, targs = _search_data(8, b=b, ties=True, grid_queries=True)
+    ours = cosine_topk_int8_reference(*targs, N, 2)
+    np.testing.assert_array_equal(ours[1].numpy(),
+                                  np.stack([np.arange(b), 600 + np.arange(b)], 1))
     assert torch.equal(ours[0][:, 0], ours[0][:, 1])
     _same_search(ours, jargs, N, 2)
 

@@ -195,7 +195,9 @@ def test_kernel_ties_and_checks(cuda_device, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,k,count", [(1, 1, N), (2, 3, 777), (3, 5, N),
                                        (8, 3, 777), (64, 1, N),
-                                       (256, 64, N), (5, 8, 3)])
+                                       (256, 64, N), (5, 8, 3), (9, 1, N),
+                                       (16, 5, 777), (33, 8, 3),
+                                       (64, 64, 777), (200, 64, N)])
 def test_int8_kernel_matches_plain_bit_for_bit(cuda_device, b, k, count):
     g, q = _data(b + k + 1, b=b)
     gq, gs = (t.to(cuda_device) for t in _int8_gallery(g))
@@ -210,8 +212,11 @@ def test_int8_kernel_matches_plain_bit_for_bit(cuda_device, b, k, count):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 2, 5])
+@pytest.mark.parametrize("b", [1, 2, 5, 16, 33])
 def test_int8_kernel_ties_and_checks(cuda_device, b):
+    """Rows 600+j duplicate rows j; batches above 8 meet the tensor-core
+    kernel, where rows j and 600+j sit at different positions of their
+    128-row tiles and in different chunks."""
     g, q = _data(7, b=b, ties=True)
     gq, gs = (t.to(cuda_device) for t in _int8_gallery(g))
     vals, idx = cosine_topk_int8(gq, gs, torch.tensor(q, device=cuda_device),
