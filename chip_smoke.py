@@ -43,6 +43,12 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,               # tensor cores
             "float32": 67e12,                 # FP32, outside the tensor cores
             "int8": 1979e12}                  # tensor cores
+# An f32 search needs f32-grade products; the least time for them on this
+# card is three TF32 passes (3xTF32) at the dense TF32 tensor-core peak
+# (NVIDIA H100 SXM data sheet, 495 TFLOPS at 700 W), below the FP32 CUDA
+# cores' 67 TFLOPS. search_bound uses it for every f32 case.
+TF32_PEAK_OPS = 495e12
+F32_TF32_PASSES = 3
 SCORE_ATOL = 1e-4        # f32 sums over D=512 in another order
 # registers of the bf16 tensor-core search pass 1 before the s8 search
 # shared it (ptxas -v, sm_90a); the shared kernel must not take more
@@ -126,28 +132,33 @@ def cuda_ms(fn, args_list, iters: int) -> float:
 def search_bound(n_rows: int, b: int, k: int, dtype: str):
     """Least time (ms) for one search on an H100 SXM and what bounds it:
     the gallery rows the search needs and the queries read once, the
-    outputs written once; 2*B*rows*D operations at the dtype's peak."""
+    outputs written once; 2*B*rows*D operations at the dtype's peak (f32:
+    F32_TF32_PASSES of them at TF32_PEAK_OPS)."""
     item = 2 if dtype == "bfloat16" else 4
     nbytes = n_rows * DIM * item + b * DIM * item + b * k * 8
     ops = 2 * b * n_rows * DIM
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    t_ops = (F32_TF32_PASSES * ops / TF32_PEAK_OPS if dtype == "float32"
+             else ops / PEAK_OPS[dtype])
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def mma_ptxas(logs):
-    """The ``ptxas -v`` lines of both instantiations of the searches'
+    """The ``ptxas -v`` lines of the three instantiations of the searches'
     shared tensor-core pass 1 (``topk_partial_mma_kernel`` in
-    ``ops/csrc/topk_mma.cuh``: bf16 in the cosine_topk build, s8 in the
-    cosine_topk_int8 build), by operand type; "not rebuilt" for a library
-    that was already built. Fails on a stack frame or a spill in either, or
-    on more than MMA_BF16_REGISTERS registers in the bf16 one."""
+    ``ops/csrc/topk_mma.cuh``: bf16 and f32 in the cosine_topk build, s8 in
+    the cosine_topk_int8 build), by operand type; "not rebuilt" for a
+    library that was already built. Fails on a stack frame or a spill in
+    any, or on more than MMA_BF16_REGISTERS registers in the bf16 one."""
     out = {}
-    for name, typ in (("cosine_topk", "bf16"), ("cosine_topk_int8", "s8")):
+    # (library, operand type, its mangled template argument)
+    for name, typ, mangled in (("cosine_topk", "bf16", "t"),     # uint16_t
+                               ("cosine_topk", "f32", "f"),      # float
+                               ("cosine_topk_int8", "s8", "a")):  # int8_t
         if name not in logs:
             out[typ] = "not rebuilt"
             continue
-        mangled = "t" if typ == "bf16" else "a"    # uint16_t, int8_t
         lines, inside = [], False
         for line in logs[name].splitlines():
             entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -193,11 +204,18 @@ def check_search(name, kern, plain_k1, k):
     return err
 
 
+def f64_err(g, q, vals, idx):
+    """Largest distance of the scores ``vals`` from the f64 dot products of
+    ``q`` with the rows ``idx`` of ``g`` that they claim."""
+    exact = (q.double()[:, None, :] * g[idx.long()].double()).sum(-1)
+    return float((vals.double() - exact).abs().max())
+
+
 def phase_kernels(device, n=N_TOP, seed=0):
     """The search kernel against its plain version at N rows: timed at B in
-    {1, 8, 32, 256} (bf16 B > 8 runs the tensor-core pass 1), k in {1,
-    64}; ties, k > count and the query tiles the timed batches miss
-    checked."""
+    {1, 8, 32, 256} (B > 8 runs the tensor-core pass 1: 3xTF32 in f32),
+    k in {1, 64}; ties, k > count and the query tiles the timed batches
+    miss checked."""
     import torch
 
     from facekit_torch.ops.similarity import (cosine_topk,
@@ -217,14 +235,19 @@ def phase_kernels(device, n=N_TOP, seed=0):
             for k in (1, 64):
                 qs = [unit_rows(b, g.dtype) for _ in range(4)]
                 tag = f"{dname} B={b} k={k}"
-                err = check_search(tag, cosine_topk(g, qs[0], count, k),
+                kern = cosine_topk(g, qs[0], count, k)
+                err = check_search(tag, kern,
                                    cosine_topk_reference(g, qs[0], count,
                                                          k + 1), k)
+                lib = torch.topk(qs[0] @ g[:count].T, k)
                 max_err = max(max_err, err)
                 args = [(g, q, count, k) for q in qs]
                 bound, by = search_bound(min(n, count + k), b, k, dname)
                 rec = {"phase": "kernel_case", "dtype": dname, "N": n,
                        "count": count, "B": b, "k": k, "max_abs_err": err,
+                       # score error against f64 at the rows returned
+                       "err_vs_f64": f64_err(g, qs[0], *kern),
+                       "library_err_vs_f64": f64_err(g, qs[0], *lib),
                        "ms": cuda_ms(cosine_topk, args, 20),
                        "plain_ms": cuda_ms(cosine_topk_reference, args, 3),
                        "library_ms": cuda_ms(
@@ -236,9 +259,10 @@ def phase_kernels(device, n=N_TOP, seed=0):
                 timings.append(rec)
 
         # the query tiles the timed batches do not reach: 2 and 4 queries
-        # of the CUDA-core kernel; in bf16, one m16 tile (9, 16) and a full
-        # 64-query tile of the tensor-core kernel
-        for b in (2, 3, 9, 16, 64):
+        # of the CUDA-core kernel; of the tensor-core kernel one m16 tile
+        # (9, 16), a full 64-query tile, and in f32 (32 queries a CTA) a
+        # second tile with one query (33) and in part (40)
+        for b in (2, 3, 9, 16, 33, 40, 64):
             q = unit_rows(b, g.dtype)
             max_err = max(max_err, check_search(
                 f"{dname} B={b} k=5", cosine_topk(g, q, count, 5),
@@ -247,8 +271,8 @@ def phase_kernels(device, n=N_TOP, seed=0):
         # ties: row j duplicates row i < j and the query is that row, so
         # the two equal top scores must come back lower index first; the
         # two rows sit in different chunks and, +5, at different places of
-        # their 128-row tiles
-        for b in (8, 16):
+        # their 128-row tiles; at 33 the queries span two f32 query tiles
+        for b in (8, 16, 33):
             lo = torch.arange(b, device=device) * (n // (2 * b)) + 17
             hi = lo + n // 2 + 5
             gt = g.clone()
@@ -1107,7 +1131,13 @@ def main() -> int:
             {key: t[key] for key in ("B", "k", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}
             for t in timings if t["dtype"] == "bfloat16"
-            and (t["B"], t["k"]) in ((256, 1), (256, 64), (32, 1))]}, {
+            and (t["B"], t["k"]) in ((256, 1), (256, 64), (32, 1))],
+        "f32_tensor_core_cases": [
+            {key: t[key] for key in ("B", "k", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "err_vs_f64",
+                                     "library_err_vs_f64")}
+            for t in timings if t["dtype"] == "float32"
+            and t["B"] in (32, 256)]}, {
         "name": "cosine_topk_int8", "route": "cuda",
         "source": "facekit_torch/ops/csrc/cosine_topk_int8.cu",
         "replaces": "facekit/ops/similarity.py:183",

@@ -14,8 +14,10 @@
 // bytes: 1,048,576 x 512 bf16 is 1.07 GB, about 0.32 ms; f32 about 0.64 ms.
 // The products are 2*B*N*D operations; at B <= 8 they are far below the
 // card's rate, so the kernel is bound by bytes on the main path (B <= 8).
+// f32-grade products on tensor cores take three TF32 passes (495 TFLOPS
+// dense), so an f32 search at B = 256 is bound by them (1.67 ms).
 //
-// Design of topk_partial_kernel (f32, and bf16 at B <= 8), against that
+// Design of topk_partial_kernel (bf16 and f32 at B <= 8), against that
 // bound:
 //  * The Pallas grid runs in order on one core and carries the running
 //    top-k in VMEM from step to step. Nothing carries over between CTAs
@@ -53,14 +55,15 @@
 //    chunks*k candidates to k under the same order. That fold lives in
 //    topk_fold.cuh, shared with the int8 search (cosine_topk_int8.cu).
 //
-// bf16 at B > 8 runs the tensor-core pass 1 that the int8 search shares,
-// topk_partial_mma_kernel<uint16_t> in topk_mma.cuh (mma.sync m16n8k16, 64
-// queries per CTA in shared memory, 128-row tiles, one list per query per
-// CTA), which writes the same (B, chunks, k) partials.
+// At B > 8 both types run the tensor-core pass 1 that the int8 search
+// shares, in topk_mma.cuh (128-row tiles, one list per query per CTA),
+// which writes the same (B, chunks, k) partials: bf16 its uint16_t
+// instantiation (mma.sync m16n8k16, 64 queries per CTA in shared memory),
+// f32 its float one (3xTF32 on mma.sync m16n8k8, 32 queries per CTA: one
+// TF32 pass alone misses the plain version's 1e-4, three keep f32's
+// digits).
 //
-// What it leaves for later: wgmma/TMA, f32 at large B (tensor cores would
-// mean TF32, which misses the plain version's 1e-4; 3xTF32 or a query tile
-// in shared memory on CUDA cores), and k = 64 at B <= 8.
+// What it leaves for later: wgmma/TMA, and k = 64 at B <= 8.
 
 #include "topk_fold.cuh"
 #include "topk_mma.cuh"
@@ -205,7 +208,7 @@ void launch_partial_tiled(int chunks, cudaStream_t s, const void* gallery,
 // returns cudaGetLastError() as an int; it never synchronizes. The caller
 // has checked shapes and alignment: gallery (>= n_rows, 512) and queries
 // (B, 512) contiguous and 16-byte aligned, 1 <= k <= 64, 1 <= B <= 256,
-// rows_per_cta a multiple of 256 (of 128 for bf16 at B > 8, which runs
+// rows_per_cta a multiple of 256 (of 128 at B > 8, which runs
 // topk_partial_mma_kernel), partials (B, chunks, k).
 extern "C" int facekit_cosine_topk(const void* gallery, const void* queries,
                                    int is_bf16, int n_rows, int count, int B,
@@ -213,10 +216,14 @@ extern "C" int facekit_cosine_topk(const void* gallery, const void* queries,
                                    void* part_v, void* part_i,
                                    void* out_v, void* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && B > 8) {
-    const int err = launch_partial_mma<uint16_t>(chunks, s, gallery, nullptr, queries,
-                                                 nullptr, n_rows, count, B, k,
-                                                 rows_per_cta, part_v, part_i);
+  if (B > 8) {
+    const int err =
+        is_bf16 ? launch_partial_mma<uint16_t>(chunks, s, gallery, nullptr, queries,
+                                               nullptr, n_rows, count, B, k,
+                                               rows_per_cta, part_v, part_i)
+                : launch_partial_mma<float>(chunks, s, gallery, nullptr, queries,
+                                            nullptr, n_rows, count, B, k,
+                                            rows_per_cta, part_v, part_i);
     if (err != 0) return err;
   } else if (is_bf16) {
     launch_partial_tiled<true>(chunks, s, gallery, queries, n_rows, count, B, k,

@@ -1,9 +1,9 @@
 // Warp-level tensor-core helpers for sm_90a, as inline PTX: cp.async
 // copies from global to shared memory, ldmatrix, mma.sync m16n8k16 (bf16 in,
-// f32 accumulators) and m16n8k32 (s8 in, s32 accumulators). Shared by the
-// fused IR block (ir_block.cu) and the gallery searches' tensor-core pass 1
-// (topk_mma.cuh). Functions only, no constants, so that no name clashes
-// with a kernel's own.
+// f32 accumulators), m16n8k32 (s8 in, s32 accumulators) and m16n8k8 (tf32
+// in, f32 accumulators). Shared by the fused IR block (ir_block.cu) and the
+// gallery searches' tensor-core pass 1 (topk_mma.cuh). Functions only, no
+// constants, so that no name clashes with a kernel's own.
 
 #pragma once
 
@@ -55,6 +55,19 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulators. A lane
+// holds the same bytes of a and b as in mma_bf16 (one f32 of K per
+// register, in the same row and column groups), and d has its layout. The
+// tensor cores read each register as f32 bits and ignore the low 13.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -15,10 +15,12 @@ and a wrapper:
     its wrapper, launching ``ops/csrc/cosine_topk_int8.cu`` (the port of
     ``cosine_topk_int8_pallas``) for CUDA tensors.
 
-Batches above 8 of the bf16 and of the int8 search run one tensor-core
-pass 1, ``topk_partial_mma_kernel`` in ``ops/csrc/topk_mma.cuh``, shared by
-both kernels (``mma.sync`` in bf16 or s8); f32, and batches up to 8, run
-each kernel's CUDA-core pass 1.
+Batches above 8 of every search run one tensor-core pass 1,
+``topk_partial_mma_kernel`` in ``ops/csrc/topk_mma.cuh``, shared by both
+kernels: ``mma.sync`` in bf16 or s8, and in f32 three TF32 passes
+(3xTF32, which keeps f32's digits where one TF32 pass would not);
+batches up to 8 run each kernel's CUDA-core pass 1. ``_mma_queries`` is
+that rule.
 
 Meaning shared by all: gallery rows at or past ``count`` score -1e30;
 each query's top k come in the order (score descending, row index
@@ -42,11 +44,13 @@ NEG_INF = -1e30
 DIM = 512           # embedding width the kernel is built for
 MAX_K = 64          # the server caps /search at k <= 64
 MAX_B = 256         # largest query batch (64 frames x 4 face slots)
-# bf16 and int8 batches from MMA_MIN_B on take the tensor-core pass 1
-# (topk_mma.cuh topk_partial_mma_kernel): MMA_QUERIES queries and row tiles
-# of MMA_ROWS per CTA
+# batches from MMA_MIN_B on take the tensor-core pass 1 (topk_mma.cuh
+# topk_partial_mma_kernel): MMA_QUERIES queries (MMA_QUERIES_F32 in f32,
+# whose 64-query tile does not fit in shared memory) and row tiles of
+# MMA_ROWS per CTA
 MMA_MIN_B = 9
 MMA_QUERIES = 64
+MMA_QUERIES_F32 = 32
 MMA_ROWS = 128
 
 
@@ -213,20 +217,29 @@ def _check_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
                          f"[0, N={n}]")
 
 
-def _search_plan(n_rows: int, b: int, tensor_cores: bool, sms: int
+def _mma_queries(dtype: torch.dtype, b: int) -> int:
+    """Queries per CTA of the tensor-core pass 1 that a search over a
+    gallery of ``dtype`` (bfloat16, float32 or int8) runs at batch ``b``,
+    or 0 where it runs its CUDA-core pass 1: the C entry points' rule,
+    B > 8 on tensor cores."""
+    if b < MMA_MIN_B:
+        return 0
+    return MMA_QUERIES_F32 if dtype == torch.float32 else MMA_QUERIES
+
+
+def _search_plan(n_rows: int, b: int, mma_queries: int, sms: int
                  ) -> Tuple[int, int]:
     """(rows per CTA, chunks) of pass 1 over ``n_rows`` rows for a batch of
     ``b`` on a card of ``sms`` SMs; rows per CTA times chunks covers
     ``n_rows``.
 
-    ``tensor_cores``: pass 1 is the tensor-core kernel (bf16 or int8 at
-    ``b >= MMA_MIN_B``): CTAs of MMA_QUERIES queries, each chunk a multiple
-    of MMA_ROWS rows, and about one CTA per SM over the (query tiles,
-    chunks) grid. The CUDA-core kernels (f32, bf16 and int8 at b <= 8) run
-    about four CTAs per SM, each chunk a multiple of 256 rows (32 per
-    warp)."""
-    if tensor_cores:
-        q_tiles = -(-b // MMA_QUERIES)
+    ``mma_queries`` (``_mma_queries``) > 0: pass 1 is the tensor-core
+    kernel, with CTAs of that many queries, each chunk a multiple of
+    MMA_ROWS rows, and about one CTA per SM over the (query tiles, chunks)
+    grid. 0: the CUDA-core kernels (every type at b <= 8) run about four
+    CTAs per SM, each chunk a multiple of 256 rows (32 per warp)."""
+    if mma_queries:
+        q_tiles = -(-b // mma_queries)
         per = -(-n_rows // max(1, sms // q_tiles))
         rows_per_cta = -(-per // MMA_ROWS) * MMA_ROWS
     else:
@@ -269,8 +282,7 @@ def _cosine_topk_cuda(gallery, queries, count, k):
     n_rows = min(n, count + k)
     dev = gallery.device
     rows_per_cta, chunks = _search_plan(
-        n_rows, b, gallery.dtype == torch.bfloat16 and b >= MMA_MIN_B,
-        _sms(dev))
+        n_rows, b, _mma_queries(gallery.dtype, b), _sms(dev))
     part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -295,8 +307,8 @@ def _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries, count, k):
     n, b = gallery_q.shape[0], queries.shape[0]
     n_rows = min(n, count + k)                # see _cosine_topk_cuda
     dev = gallery_q.device
-    rows_per_cta, chunks = _search_plan(n_rows, b, b >= MMA_MIN_B,
-                                        _sms(dev))
+    rows_per_cta, chunks = _search_plan(
+        n_rows, b, _mma_queries(gallery_q.dtype, b), _sms(dev))
     part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)

@@ -155,8 +155,11 @@ def cuda_device():
 @pytest.mark.parametrize("b,k,count", [(1, 1, N), (2, 3, 777), (3, 5, N),
                                        (8, 3, 777), (256, 64, N), (5, 8, 3),
                                        (9, 1, N), (16, 5, 777), (32, 1, N),
-                                       (64, 64, 777), (200, 64, N), (33, 8, 3)])
+                                       (64, 64, 777), (200, 64, N), (33, 8, 3),
+                                       (40, 64, 777), (65, 8, N)])
 def test_kernel_matches_plain(cuda_device, dtype, b, k, count):
+    """Batches above 8 run the tensor-core pass 1 (f32: 32 queries a CTA,
+    so 33 and 40 fill a second tile in part and 65 a third; bf16: 64)."""
     g, q = _data(b + k, b=b)
     td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     gt = torch.tensor(g).to(cuda_device, td)
@@ -190,6 +193,27 @@ def test_kernel_ties_and_checks(cuda_device, b):
         cosine_topk(gt, qt, N, 65)
     with pytest.raises(TypeError):
         cosine_topk(gt, qt.to(torch.bfloat16), N, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [16, 33])
+def test_f32_tensor_core_ties_across_chunks(cuda_device, b):
+    """f32 at B > 8 (3xTF32): query j is row lo_j, duplicated at row
+    hi_j in another chunk, at another place of its 128-row tile and in
+    another warp's 32 rows; the two scores must be bit-equal and the lower
+    index must come first."""
+    n = 16384
+    g, _ = _data(11, n=n, b=1)
+    lo = np.arange(b) * 157 + 3
+    hi = lo + n // 2 + 45
+    g[hi] = g[lo]
+    gt = torch.tensor(g, device=cuda_device)
+    before = cosine_topk.launches
+    vals, idx = cosine_topk(gt, gt[lo].contiguous(), n, 2)
+    torch.cuda.synchronize()
+    assert cosine_topk.launches == before + 1
+    np.testing.assert_array_equal(idx.cpu().numpy(), np.stack([lo, hi], 1))
+    assert torch.equal(vals[:, 0], vals[:, 1])
 
 
 @pytest.mark.cuda

@@ -1,30 +1,40 @@
 """The launch plan of facekit_torch's gallery-search kernels.
 
-``_search_plan`` is a pure function of the shapes and the card's SM count,
-so it is checked here on the CPU; the kernels themselves are in
-tests/test_torch_kernels.py. Imports neither JAX nor facekit.
+``_search_plan`` and the route rule ``_mma_queries`` are pure functions of
+the shapes and the card's SM count, so they are checked here on the CPU;
+the kernels themselves are in tests/test_torch_kernels.py. Imports neither
+JAX nor facekit.
 """
 
 import pytest
+import torch
 
-from facekit_torch.ops.similarity import (MMA_MIN_B, MMA_QUERIES, MMA_ROWS,
-                                          _search_plan)
+from facekit_torch.ops.similarity import (MMA_MIN_B, MMA_QUERIES,
+                                          MMA_QUERIES_F32, MMA_ROWS,
+                                          _mma_queries, _search_plan)
 
 SMS = 132                      # an H100 SXM
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
 
 
 def _cuda_core_plan(n_rows, sms):
-    """The plan of the CUDA-core pass 1 (f32, bf16 and int8 at B <= 8):
-    about four CTAs per SM, each a multiple of 256 rows."""
+    """The plan of the CUDA-core pass 1 (every type at B <= 8): about four
+    CTAs per SM, each a multiple of 256 rows."""
     per = -(-n_rows // (4 * sms))
     rows_per_cta = max(256, -(-per // 256) * 256)
     return rows_per_cta, -(-n_rows // rows_per_cta)
 
 
 def _tensor_cores(kind, b):
-    """Whether the wrappers run pass 1 on tensor cores: bf16 and int8
-    batches from MMA_MIN_B on, as the C entry points' rule B > 8."""
-    return kind in ("bf16", "int8") and b >= MMA_MIN_B
+    """Whether the wrappers run pass 1 on tensor cores: every type's
+    (``kind``) batches from MMA_MIN_B on, as the C entry points' rule
+    B > 8."""
+    return b >= MMA_MIN_B
+
+
+def _queries(kind, b):
+    """Queries per CTA of the pass 1 a ``kind`` search runs at batch b."""
+    return _mma_queries(DTYPES[kind], b)
 
 
 @pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
@@ -32,15 +42,17 @@ def _tensor_cores(kind, b):
 @pytest.mark.parametrize("n_rows", [33, 1000, 1 << 20])
 def test_search_plan(n_rows, b, kind):
     tensor_cores = _tensor_cores(kind, b)
-    rows_per_cta, chunks = _search_plan(n_rows, b, tensor_cores, SMS)
+    rows_per_cta, chunks = _search_plan(n_rows, b, _queries(kind, b), SMS)
     assert rows_per_cta * chunks >= n_rows
     assert (chunks - 1) * rows_per_cta < n_rows       # no empty chunk
     if n_rows == 33:
         assert chunks == 1
     if tensor_cores:
         assert rows_per_cta % MMA_ROWS == 0
-        # about one CTA per SM over the (query tiles, chunks) grid
-        assert -(-b // MMA_QUERIES) * chunks <= SMS
+        # about one CTA per SM over the (query tiles, chunks) grid, with
+        # f32's own query-tile height
+        height = MMA_QUERIES_F32 if kind == "f32" else MMA_QUERIES
+        assert -(-b // height) * chunks <= SMS
     else:
         assert (rows_per_cta, chunks) == _cuda_core_plan(n_rows, SMS)
 
@@ -48,13 +60,33 @@ def test_search_plan(n_rows, b, kind):
 def test_search_plan_fills_the_card_at_full_gallery():
     """At the top gallery bucket the tensor-core path launches one wave:
     4 query tiles x 33 chunks at B = 256, 131 chunks at B = 32 (bf16) and
-    B = 64 (int8, the served /recognize bucket 64)."""
-    assert _search_plan(1 << 20, 256, _tensor_cores("bf16", 256),
+    B = 64 (int8, the served /recognize bucket 64); in f32, 8 query tiles
+    of 32 x 16 chunks at B = 256 and one tile x 131 chunks at B = 32."""
+    assert _search_plan(1 << 20, 256, _queries("bf16", 256),
                         SMS) == (31872, 33)
-    assert _search_plan(1 << 20, 32, _tensor_cores("bf16", 32),
+    assert _search_plan(1 << 20, 32, _queries("bf16", 32),
                         SMS) == (8064, 131)
-    assert _search_plan(1 << 20, 64, _tensor_cores("int8", 64),
+    assert _search_plan(1 << 20, 64, _queries("int8", 64),
                         SMS) == (8064, 131)
-    assert _search_plan(1 << 20, 256, _tensor_cores("int8", 256),
+    assert _search_plan(1 << 20, 256, _queries("int8", 256),
                         SMS) == (31872, 33)
+    assert _search_plan(1 << 20, 256, _queries("f32", 256),
+                        SMS) == (65536, 16)
+    assert _search_plan(1 << 20, 32, _queries("f32", 32),
+                        SMS) == (8064, 131)
     assert MMA_MIN_B == 9          # the C entry points' rule: B > 8
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("b", [1, 8, 9, 33, 256])
+def test_route_rule(kind, b):
+    """Which batches take the tensor-core pass 1, and with how many queries
+    a CTA: every type above 8 (the C entry points' B > 8), f32 with its own
+    tile height (a 64-query f32 tile does not fit in shared memory), bf16
+    and int8 with MMA_QUERIES; batches up to 8 take the CUDA-core pass 1
+    (0)."""
+    height = MMA_QUERIES_F32 if kind == "f32" else MMA_QUERIES
+    want = height if b > 8 else 0
+    assert _mma_queries(DTYPES[kind], b) == want
+    assert bool(want) == _tensor_cores(kind, b)
+    assert MMA_QUERIES_F32 < MMA_QUERIES
