@@ -2,9 +2,11 @@
 """Smoke test of facekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the port's four CUDA kernels from this checkout (and checks the
-``ptxas -v`` lines of the searches' shared tensor-core pass 1) and holds
+``ptxas -v`` lines of the searches' pass 1 and pass 2 kernels) and holds
 each against its plain PyTorch version: the bf16/f32 and the int8 gallery
-searches at the top gallery bucket (N = 1,048,576), the s8 convolution at
+searches at the top gallery bucket (N = 1,048,576; each timed case also
+split into pass 1 and pass 2 by a ``torch.profiler`` trace; 70 copies of
+a row checked at the k = 64 cutoff), the s8 convolution at
 every conv shape of the int8 IR-50 at batch 64 and at the TPU kernel's own
 shape, the fused IR block at IR-50's four identity-block shapes (batch 8
 and 64, bf16 and f32, and batch 32 in bf16). Then it drives three serving
@@ -18,7 +20,9 @@ kernel's launch count set to 0 just before it and read just after. Prints
 one JSON line per phase, the ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero; nothing falls back to the CPU
 or to a plain version. Without CUDA it exits non-zero and prints no
-result. Imports nothing of JAX.
+result. Imports nothing of JAX. ``python3 chip_smoke.py --searches``
+runs the build and the two search phases alone, for comparing search
+kernels.
 """
 
 from __future__ import annotations
@@ -50,6 +54,13 @@ PEAK_OPS = {"bfloat16": 989e12,               # tensor cores
 TF32_PEAK_OPS = 495e12
 F32_TF32_PASSES = 3
 SCORE_ATOL = 1e-4        # f32 sums over D=512 in another order
+SPLIT_REPS = 5           # searches traced per case for the pass split
+# the cutoff-tie check: copies of one row per query, each in its own
+# chunk; the top k must be the k lowest indices of the copies
+TIE_COPIES = 70
+# what the kernels line keeps of each B <= 8, k = 64 search case
+SMALL_BATCH_KEYS = ("dtype", "B", "k", "ms", "library_ms", "bound_ms",
+                    "bound_by", "pass1_us", "pass2_us", "other_us")
 # registers of the bf16 tensor-core search pass 1 before the s8 search
 # shared it (ptxas -v, sm_90a); the shared kernel must not take more
 MMA_BF16_REGISTERS = 72
@@ -129,6 +140,36 @@ def cuda_ms(fn, args_list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def pass_split(fn, args_list, reps: int = SPLIT_REPS):
+    """Device µs of a search's two kernels, from a torch.profiler (CUPTI)
+    trace of ``reps`` searches ``fn(*args)``, one at a time: the median
+    pass 1 (the partial kernel) and pass 2 (the merge kernel), and the
+    median of the rest (the int8 wrapper's query quantization). None where
+    the trace holds no kernel of that pass."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args_list[0])                            # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*args_list[i % len(args_list)])
+            torch.cuda.synchronize()
+    passes = {"pass1_us": [], "pass2_us": [], "other_us": []}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = ("pass2_us" if "merge" in e.name else
+               "pass1_us" if "partial" in e.name else "other_us")
+        passes[key].append(e.time_range.elapsed_us())
+    other = passes["other_us"]
+    return {"pass1_us": (statistics.median(passes["pass1_us"])
+                         if passes["pass1_us"] else None),
+            "pass2_us": (statistics.median(passes["pass2_us"])
+                         if passes["pass2_us"] else None),
+            "other_us": sum(other) / reps if other else None}
+
+
 def search_bound(n_rows: int, b: int, k: int, dtype: str):
     """Least time (ms) for one search on an H100 SXM and what bounds it:
     the gallery rows the search needs and the queries read once, the
@@ -182,6 +223,84 @@ def mma_ptxas(logs):
     return out
 
 
+# the B <= 8 pass 1 kernels by their template arguments' count: those with
+# the selection flag (the last argument) set are this file's batched
+# selection; the same kernel with the flag clear is k = 1's code
+SELECTION_KERNELS = {"topk_partial_kernel": 3,        # <BF16, QT, BATCHED>
+                     "topk_int8_partial_kernel": 2}   # <QT, BATCHED>
+
+
+def ptxas_entries(log):
+    """{kernel<template args>: registers, stack and spill bytes} of every
+    search kernel (``topk_*kernel``) in one ``nvcc -Xptxas -v`` log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            cur = None
+            # a mangled name is its length, then itself, then "I" and
+            # the template arguments ("Lb1E", "Li8E", or a type letter)
+            for m in re.finditer(r"(\d+)(topk_\w+)", entry[1]):
+                ident = m[2][:int(m[1])]
+                if not ident.endswith("kernel"):
+                    continue
+                rest = m[2][int(m[1]):]
+                t = re.match(r"I((?:L[a-z]\d+E|[a-z])+)E", rest)
+                args = [a or b for a, b in re.findall(
+                    r"L[a-z](\d+)E|([a-z])", t[1] if t else "")]
+                cur = ident + (f"<{','.join(args)}>" if args else "")
+                out[cur] = {}
+                break
+            continue
+        if cur is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", line)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if regs:
+            out[cur]["registers"] = int(regs[1])
+        if frame:
+            out[cur]["stack_bytes"] = int(frame[1])
+            out[cur]["spill_bytes"] = int(frame[2]) + int(frame[3])
+    return out
+
+
+def selection_ptxas(logs):
+    """Registers, stack and spill of the B <= 8 pass 1 kernels
+    (``topk_partial_kernel``, ``topk_int8_partial_kernel``) at QT in
+    {1, 8} and of pass 2 (``topk_merge*kernel``), by library. Fails where a
+    kernel with the batched selection has a stack frame and the same kernel
+    with k = 1's code (the code all k ran before it) has none, or where a
+    pass 2 kernel has one."""
+    out = {}
+    for name in ("cosine_topk", "cosine_topk_int8"):
+        if name not in logs:
+            out[name] = "not rebuilt"
+            continue
+        entries = ptxas_entries(logs[name])
+        keep = {}
+        for kern, rec in entries.items():
+            base, _, args = kern.partition("<")
+            args = args.rstrip(">").split(",") if args else []
+            if "merge" in base:
+                if rec.get("stack_bytes"):
+                    raise AssertionError(f"{name} {kern}: {rec}")
+                keep[kern] = rec
+            elif base in SELECTION_KERNELS and args[-2 if len(args) ==
+                                                    SELECTION_KERNELS[base]
+                                                    else -1] in ("1", "8"):
+                keep[kern] = rec
+                if len(args) == SELECTION_KERNELS[base] and args[-1] == "1":
+                    twin = f"{base}<{','.join(args[:-1] + ['0'])}>"
+                    if rec.get("stack_bytes", 0) and not \
+                            entries.get(twin, {}).get("stack_bytes", 0):
+                        raise AssertionError(f"{name} {kern} gained a "
+                                             f"stack frame: {rec}, {twin}: "
+                                             f"{entries.get(twin)}")
+        out[name] = keep
+    return out
+
+
 def check_search(name, kern, plain_k1, k):
     """Kernel (vals, idx) against the plain version run with k+1: scores
     within SCORE_ATOL; indices equal wherever the plain score at that
@@ -204,6 +323,26 @@ def check_search(name, kern, plain_k1, k):
     return err
 
 
+def tie_positions(n, b, device, copies=TIE_COPIES):
+    """(b, copies) row indices, ascending along each row: query j's row
+    and its copies, one every n // copies rows (so each in its own chunk
+    of the B <= 8 plans), offset per query so that no two queries share a
+    row."""
+    import torch
+    step = n // copies
+    return (torch.arange(copies, device=device)[None, :] * step
+            + torch.arange(b, device=device)[:, None] * 97 + 13)
+
+
+def check_cutoff_ties(name, vals, idx, pos, k):
+    """The top k of a query whose row has more than k copies: the k
+    lowest indices of the copies, with bit-equal scores."""
+    import torch
+    if not (torch.equal(idx.long(), pos[:, :k])
+            and torch.equal(vals, vals[:, :1].expand(-1, k))):
+        raise AssertionError(f"{name} cutoff ties: got {idx.tolist()}")
+
+
 def f64_err(g, q, vals, idx):
     """Largest distance of the scores ``vals`` from the f64 dot products of
     ``q`` with the rows ``idx`` of ``g`` that they claim."""
@@ -214,8 +353,9 @@ def f64_err(g, q, vals, idx):
 def phase_kernels(device, n=N_TOP, seed=0):
     """The search kernel against its plain version at N rows: timed at B in
     {1, 8, 32, 256} (B > 8 runs the tensor-core pass 1: 3xTF32 in f32),
-    k in {1, 64}; ties, k > count and the query tiles the timed batches
-    miss checked."""
+    k in {1, 64}, each split into pass 1 and pass 2 (``pass_split``);
+    ties, ties at the k = 64 cutoff, k > count and the query tiles the
+    timed batches miss checked."""
     import torch
 
     from facekit_torch.ops.similarity import (cosine_topk,
@@ -254,9 +394,22 @@ def phase_kernels(device, n=N_TOP, seed=0):
                            lambda g_, q_, c_, k_: torch.topk(q_ @ g_[:c_].T,
                                                              k_),
                            args, 10),
-                       "bound_ms": bound, "bound_by": by}
+                       "bound_ms": bound, "bound_by": by,
+                       **pass_split(cosine_topk, args)}
                 emit(rec)
                 timings.append(rec)
+
+        # cutoff ties: query j's row has TIE_COPIES copies, each in its
+        # own chunk; the top 64 must be the 64 lowest of them, bit-equal
+        for b in (1, 8):
+            pos = tie_positions(n, b, device)
+            gt = g.clone()
+            gt[pos.reshape(-1)] = gt[pos[:, :1].expand(-1, TIE_COPIES)
+                                     .reshape(-1)]
+            check_cutoff_ties(f"{dname} B={b}",
+                              *cosine_topk(gt, gt[pos[:, 0]].contiguous(),
+                                           n, 64), pos, 64)
+            del gt
 
         # the query tiles the timed batches do not reach: 2 and 4 queries
         # of the CUDA-core kernel; of the tensor-core kernel one m16 tile
@@ -462,8 +615,9 @@ def int8_library_call(gq, gs, count, k):
 def phase_int8_kernels(device, n=N_TOP, seed=2):
     """The int8 search kernel against its plain version at N rows: scores
     bit for bit, indices equal. Timed at B in {1, 8, 64, 256} (B > 8 runs
-    the tensor-core pass 1), k in {1, 64}; ties, k > count and the query
-    tiles the timed batches miss checked."""
+    the tensor-core pass 1), k in {1, 64}, each split into pass 1 and pass
+    2 (``pass_split``); ties, ties at the k = 64 cutoff, k > count and the
+    query tiles the timed batches miss checked."""
     import torch
 
     from facekit_torch.ops.similarity import (cosine_topk_int8,
@@ -502,9 +656,24 @@ def phase_int8_kernels(device, n=N_TOP, seed=2):
                    "library_ms": cuda_ms(
                        lambda g_, s_, q_, c_, k_: lib_fn(q_), args, 10),
                    "library_call": lib_what, "library_refused": lib_refused,
-                   "bound_ms": bound, "bound_by": by}
+                   "bound_ms": bound, "bound_by": by,
+                   **pass_split(cosine_topk_int8, args)}
             emit(rec)
             timings.append(rec)
+
+    # cutoff ties: query j's row has TIE_COPIES copies, each in its own
+    # chunk; the top 64 must be the 64 lowest of them, bit-equal
+    for b in (1, 8):
+        pos = tie_positions(n, b, device)
+        src = pos[:, :1].expand(-1, TIE_COPIES).reshape(-1)
+        gqt, gst = gq.clone(), gs.clone()
+        gqt[pos.reshape(-1)], gst[pos.reshape(-1)] = gqt[src], gst[src]
+        q = g32[pos[:, 0]].contiguous()
+        kern = cosine_topk_int8(gqt, gst, q, n, 64)
+        check(f"B={b} cutoff ties", kern,
+              cosine_topk_int8_reference(gqt, gst, q, n, 64))
+        check_cutoff_ties(f"int8 B={b}", *kern, pos, 64)
+        del gqt, gst
 
     # the query tiles the timed batches do not reach: 2 and 4 queries of
     # the CUDA-core kernel; in the tensor-core kernel one m16 tile (9), a
@@ -1070,7 +1239,10 @@ def phase_server_inference(device, repo_dir, seed=6, n_users=32):
             server.close()
 
 
-def main() -> int:
+def main(argv) -> int:
+    """No arguments: the whole smoke test. ``--searches``: the two search
+    phases alone (build, ptxas, ``kernel_case``, ``kernel_int8_case``),
+    for comparing search kernels; it prints no ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1087,16 +1259,27 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "nvidia_smi": power,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    searches_only = argv == ["--searches"]
+    if argv and not searches_only:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     t0 = time.perf_counter()
-    logs = _build.build(ptxas_verbose=True)
+    logs = _build.build(["cosine_topk", "cosine_topk_int8"] if searches_only
+                        else None, ptxas_verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs)})
     for name, text in logs.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
     emit({"phase": "ptxas", "kernel": "topk_partial_mma_kernel",
           "instantiations": mma_ptxas(logs)})
+    emit({"phase": "ptxas", "kernel": "B <= 8 pass 1 and pass 2",
+          "kernels": selection_ptxas(logs)})
 
     max_err, timings = phase_kernels("cuda")
+    if searches_only:
+        phase_int8_kernels("cuda")
+        print(power, flush=True)
+        return 0
     server = phase_server("cuda", repo_dir)
     int8_timings = phase_int8_kernels("cuda")
     convs = phase_conv("cuda")
@@ -1137,7 +1320,10 @@ def main() -> int:
                                      "bound_by", "library_ms", "err_vs_f64",
                                      "library_err_vs_f64")}
             for t in timings if t["dtype"] == "float32"
-            and t["B"] in (32, 256)]}, {
+            and t["B"] in (32, 256)],
+        "small_batch_k64_cases": [
+            {key: t[key] for key in SMALL_BATCH_KEYS}
+            for t in timings if t["B"] <= 8 and t["k"] == 64]}, {
         "name": "cosine_topk_int8", "route": "cuda",
         "source": "facekit_torch/ops/csrc/cosine_topk_int8.cu",
         "replaces": "facekit/ops/similarity.py:183",
@@ -1152,7 +1338,10 @@ def main() -> int:
         "tensor_core_cases": [
             {key: t[key] for key in ("B", "k", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}
-            for t in int8_timings if t["B"] in (64, 256)]}, {
+            for t in int8_timings if t["B"] in (64, 256)],
+        "small_batch_k64_cases": [
+            {key: t[key] for key in SMALL_BATCH_KEYS if key in t}
+            for t in int8_timings if t["B"] <= 8 and t["k"] == 64]}, {
         "name": "conv_s8", "route": "cuda",
         "source": "facekit_torch/ops/csrc/conv_s8.cu",
         "replaces": "docs/experiments/pallas_s8_stride2_conv.py:86",
@@ -1189,4 +1378,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

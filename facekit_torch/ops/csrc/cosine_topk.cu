@@ -47,13 +47,21 @@
 //  * Each warp keeps a sorted top-k per query in shared memory. The 32
 //    scores of a group are filtered against their query's k-th entry
 //    (kept in a register of the lanes that hold that query) with one
-//    ballot; only scores that beat it are inserted, one at a time, by the
-//    whole warp. On random data that is about k*ln(rows/k) insertions per
-//    query per warp.
+//    ballot. At k = 1 the scores that beat it are inserted one at a time
+//    by the whole warp. At k = 64 a list over a few hundred rows takes
+//    more than half of them, each a serialized insertion, and 8 queries a
+//    warp made pass 1 3x as slow as at k = 1. So at k > 1 the scores that
+//    also reach the CTA-wide threshold (the best k-th score any warp's
+//    list of the query has published) go to a buffer of 32 per (warp,
+//    query), which is sorted on shuffles and merged into the list in one
+//    step when full; and the plan (similarity._search_plan) gives k > 1
+//    chunks twice as long, so lists spend less of them filling.
 //  * The 8 warps of a CTA merge their lists per query, the CTA writes
-//    (B, chunks, k) partials, and pass 2 (one warp per query) reduces the
-//    chunks*k candidates to k under the same order. That fold lives in
-//    topk_fold.cuh, shared with the int8 search (cosine_topk_int8.cu).
+//    (B, chunks, k) partials, and pass 2 reduces the chunks*k candidates to
+//    k under the same order: at k > 1 one CTA per query keeps only the
+//    partials at or above a lower bound on the k-th score taken from the
+//    chunks' first entries. That fold lives in topk_fold.cuh, shared with
+//    the int8 search (cosine_topk_int8.cu).
 //
 // At B > 8 both types run the tensor-core pass 1 that the int8 search
 // shares, in topk_mma.cuh (128-row tiles, one list per query per CTA),
@@ -63,7 +71,10 @@
 // TF32 pass alone misses the plain version's 1e-4, three keep f32's
 // digits).
 //
-// What it leaves for later: wgmma/TMA, and k = 64 at B <= 8.
+// What it leaves for later: wgmma/TMA; at B = 8 the k = 64 pass 1 still
+// takes about 1.3-1.8x its k = 1 time (PERF.md).
+
+#include <type_traits>
 
 #include "topk_fold.cuh"
 #include "topk_mma.cuh"
@@ -86,7 +97,7 @@ __device__ __forceinline__ void to_float(const uint4& u, float* o) {
   }
 }
 
-template <bool BF16, int QT>
+template <bool BF16, int QT, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 1)
 topk_partial_kernel(const char* __restrict__ gallery,
                     const char* __restrict__ queries,
@@ -103,7 +114,10 @@ topk_partial_kernel(const char* __restrict__ gallery,
   constexpr size_t ROW_BYTES = (size_t)D * ESIZE;
   static_assert(R * QT == 32 && R % U == 0, "a group is 32 (row, query) dots");
 
-  __shared__ Lists<QT> lists;
+  // k = 1 keeps a list per warp and query (topk_fold.cuh Lists); k > 1
+  // the batched selection (Batches)
+  using Sel = std::conditional_t<BATCHED, Batches<QT>, Lists<QT>>;
+  Sel& lists = selection_storage<Sel, BATCHED>();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -126,7 +140,11 @@ topk_partial_kernel(const char* __restrict__ gallery,
       for (int e = 0; e < ELEMS; ++e) q[j][e] = 0.f;
     }
   }
-  lists_init(lists, warp, lane);
+  if constexpr (BATCHED) batches_init(lists, warp, lane);
+  else lists_init(lists, warp, lane);
+  int cnt[QT];                      // the batched selection's buffer fills
+#pragma unroll
+  for (int j = 0; j < QT; ++j) cnt[j] = 0;
 
   // Rows go through in groups of R: the R x QT dot partials of a group are
   // reduced over the warp by one butterfly that leaves lane l with the
@@ -170,36 +188,61 @@ topk_partial_kernel(const char* __restrict__ gallery,
     }
     butterfly<16>(v, lane);
     const float s = base + lane / QT < count ? v[0] : NEG_INF;
-    offer_group(lists, warp, lane, s, base, end, nq, k, thr_v, thr_i);
+    if constexpr (BATCHED)
+      offer_group_batched(lists, warp, lane, s, base, end, nq, k, thr_v, thr_i, cnt);
+    else
+      offer_group(lists, warp, lane, s, base, end, nq, k, thr_v, thr_i);
   }
-  merge_and_write(lists, warp, lane, nq, q0, chunk, chunks, k, part_v, part_i);
+  if constexpr (BATCHED)
+    merge_and_write_batched(lists, warp, lane, nq, q0, chunk, chunks, k, cnt,
+                            part_v, part_i);
+  else
+    merge_and_write(lists, warp, lane, nq, q0, chunk, chunks, k, part_v, part_i);
 }
 
-template <bool BF16, int QT>
-void launch_partial(int chunks, cudaStream_t s, const void* gallery,
-                    const void* queries, int n_rows, int count, int B, int k,
-                    int rows_per_cta, void* part_v, void* part_i) {
+// Returns the CUDA error of setting the shared-memory size or of the
+// launch, as an int.
+template <bool BF16, int QT, bool BATCHED>
+int launch_partial(int chunks, cudaStream_t s, const void* gallery,
+                   const void* queries, int n_rows, int count, int B, int k,
+                   int rows_per_cta, void* part_v, void* part_i) {
+  constexpr int smem = BATCHED ? sizeof(Batches<QT>) : 0;   // dynamic
+  auto kernel = topk_partial_kernel<BF16, QT, BATCHED>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid(chunks, (B + QT - 1) / QT);
-  topk_partial_kernel<BF16, QT><<<grid, THREADS, 0, s>>>(
+  kernel<<<grid, THREADS, smem, s>>>(
       static_cast<const char*>(gallery), static_cast<const char*>(queries),
       n_rows, count, B, k, rows_per_cta,
       static_cast<float*>(part_v), static_cast<int*>(part_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BF16, int QT>
+int launch_partial_k(int chunks, cudaStream_t s, const void* gallery,
+                     const void* queries, int n_rows, int count, int B, int k,
+                     int rows_per_cta, void* part_v, void* part_i) {
+  return k == 1 ? launch_partial<BF16, QT, false>(chunks, s, gallery, queries, n_rows,
+                                                  count, B, k, rows_per_cta, part_v, part_i)
+                : launch_partial<BF16, QT, true>(chunks, s, gallery, queries, n_rows,
+                                                 count, B, k, rows_per_cta, part_v, part_i);
 }
 
 // The query tile: the smallest of 1, 2, 4, 8 that covers B.
 template <bool BF16>
-void launch_partial_tiled(int chunks, cudaStream_t s, const void* gallery,
-                          const void* queries, int n_rows, int count, int B,
-                          int k, int rows_per_cta, void* part_v, void* part_i) {
-  if (B == 1) {
-    launch_partial<BF16, 1>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
-  } else if (B == 2) {
-    launch_partial<BF16, 2>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
-  } else if (B <= 4) {
-    launch_partial<BF16, 4>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
-  } else {
-    launch_partial<BF16, 8>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
-  }
+int launch_partial_tiled(int chunks, cudaStream_t s, const void* gallery,
+                         const void* queries, int n_rows, int count, int B,
+                         int k, int rows_per_cta, void* part_v, void* part_i) {
+  if (B == 1)
+    return launch_partial_k<BF16, 1>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+  if (B == 2)
+    return launch_partial_k<BF16, 2>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+  if (B <= 4)
+    return launch_partial_k<BF16, 4>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+  return launch_partial_k<BF16, 8>(chunks, s, gallery, queries, n_rows, count, B, k, rows_per_cta, part_v, part_i);
 }
 
 }  // namespace
@@ -216,23 +259,21 @@ extern "C" int facekit_cosine_topk(const void* gallery, const void* queries,
                                    void* part_v, void* part_i,
                                    void* out_v, void* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
   if (B > 8) {
-    const int err =
-        is_bf16 ? launch_partial_mma<uint16_t>(chunks, s, gallery, nullptr, queries,
-                                               nullptr, n_rows, count, B, k,
-                                               rows_per_cta, part_v, part_i)
-                : launch_partial_mma<float>(chunks, s, gallery, nullptr, queries,
-                                            nullptr, n_rows, count, B, k,
-                                            rows_per_cta, part_v, part_i);
-    if (err != 0) return err;
+    err = is_bf16 ? launch_partial_mma<uint16_t>(chunks, s, gallery, nullptr, queries,
+                                                 nullptr, n_rows, count, B, k,
+                                                 rows_per_cta, part_v, part_i)
+                  : launch_partial_mma<float>(chunks, s, gallery, nullptr, queries,
+                                              nullptr, n_rows, count, B, k,
+                                              rows_per_cta, part_v, part_i);
   } else if (is_bf16) {
-    launch_partial_tiled<true>(chunks, s, gallery, queries, n_rows, count, B, k,
-                               rows_per_cta, part_v, part_i);
+    err = launch_partial_tiled<true>(chunks, s, gallery, queries, n_rows, count, B, k,
+                                     rows_per_cta, part_v, part_i);
   } else {
-    launch_partial_tiled<false>(chunks, s, gallery, queries, n_rows, count, B, k,
-                                rows_per_cta, part_v, part_i);
+    err = launch_partial_tiled<false>(chunks, s, gallery, queries, n_rows, count, B, k,
+                                      rows_per_cta, part_v, part_i);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != 0) return err;
   return launch_merge(s, part_v, part_i, B, chunks, k, out_v, out_i);
 }

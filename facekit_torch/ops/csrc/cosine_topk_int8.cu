@@ -31,6 +31,10 @@
 //  * The lane that ends with (row, query) loads that row's f32 scale (the
 //    scales are read once per row, beside the row) and forms the score.
 //  * Rows past count + k are never read (see cosine_topk.cu).
+//  * The selection is cosine_topk.cu's: at k = 1 each winning score is
+//    inserted at once, at k > 1 the batched selection of topk_fold.cuh
+//    (a buffer of 32 per warp and query merged in one step, a CTA-wide
+//    threshold) over chunks twice as long, and pass 2 prunes below a bound.
 //
 // B > 8 runs the tensor-core pass 1 that the bf16 search shares,
 // topk_partial_mma_kernel<int8_t> in topk_mma.cuh: mma.sync m16n8k32 s8
@@ -39,14 +43,17 @@
 // score, (f32(acc) * q_scale) * g_scale, and one list per query per CTA
 // takes it. Both write (B, chunks, k) partials for the one pass 2.
 //
-// What it leaves for later: k = 64 at B <= 8, and wgmma/TMA.
+// What it leaves for later: wgmma/TMA; at B = 8 the k = 64 pass 1 still
+// takes about 2x its k = 1 time (PERF.md).
+
+#include <type_traits>
 
 #include "topk_fold.cuh"
 #include "topk_mma.cuh"
 
 namespace {
 
-template <int QT>
+template <int QT, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 1)
 topk_int8_partial_kernel(const char* __restrict__ gallery,
                          const float* __restrict__ gscale,
@@ -58,7 +65,10 @@ topk_int8_partial_kernel(const char* __restrict__ gallery,
   constexpr int U = R < 8 ? R : 8;         // rows per load step (4 KB per warp)
   static_assert(R * QT == 32 && R % U == 0, "a group is 32 (row, query) dots");
 
-  __shared__ Lists<QT> lists;
+  // k = 1 keeps a list per warp and query (topk_fold.cuh Lists); k > 1
+  // the batched selection (Batches)
+  using Sel = std::conditional_t<BATCHED, Batches<QT>, Lists<QT>>;
+  Sel& lists = selection_storage<Sel, BATCHED>();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -76,7 +86,11 @@ topk_int8_partial_kernel(const char* __restrict__ gallery,
     if (j < nq) u = reinterpret_cast<const uint4*>(queries + (size_t)(q0 + j) * D)[lane];
     q[j][0] = (int)u.x; q[j][1] = (int)u.y; q[j][2] = (int)u.z; q[j][3] = (int)u.w;
   }
-  lists_init(lists, warp, lane);
+  if constexpr (BATCHED) batches_init(lists, warp, lane);
+  else lists_init(lists, warp, lane);
+  int cnt[QT];                      // the batched selection's buffer fills
+#pragma unroll
+  for (int j = 0; j < QT; ++j) cnt[j] = 0;
 
   // the scale of the query this lane scores (see offer_group's layout)
   const int my_j = lane % QT;
@@ -117,22 +131,50 @@ topk_int8_partial_kernel(const char* __restrict__ gallery,
     const int row = base + lane / QT;
     float s = NEG_INF;
     if (row < live) s = (static_cast<float>(v[0]) * qs) * gscale[row];
-    offer_group(lists, warp, lane, s, base, end, nq, k, thr_v, thr_i);
+    if constexpr (BATCHED)
+      offer_group_batched(lists, warp, lane, s, base, end, nq, k, thr_v, thr_i, cnt);
+    else
+      offer_group(lists, warp, lane, s, base, end, nq, k, thr_v, thr_i);
   }
-  merge_and_write(lists, warp, lane, nq, q0, chunk, chunks, k, part_v, part_i);
+  if constexpr (BATCHED)
+    merge_and_write_batched(lists, warp, lane, nq, q0, chunk, chunks, k, cnt,
+                            part_v, part_i);
+  else
+    merge_and_write(lists, warp, lane, nq, q0, chunk, chunks, k, part_v, part_i);
 }
 
-template <int QT>
-void launch_partial(int chunks, cudaStream_t s, const void* gallery,
-                    const void* gscale, const void* queries, const void* qscale,
-                    int n_rows, int count, int B, int k, int rows_per_cta,
-                    void* part_v, void* part_i) {
+// Returns the CUDA error of setting the shared-memory size or of the
+// launch, as an int.
+template <int QT, bool BATCHED>
+int launch_partial(int chunks, cudaStream_t s, const void* gallery,
+                   const void* gscale, const void* queries, const void* qscale,
+                   int n_rows, int count, int B, int k, int rows_per_cta,
+                   void* part_v, void* part_i) {
+  constexpr int smem = BATCHED ? sizeof(Batches<QT>) : 0;   // dynamic
+  auto kernel = topk_int8_partial_kernel<QT, BATCHED>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid(chunks, (B + QT - 1) / QT);
-  topk_int8_partial_kernel<QT><<<grid, THREADS, 0, s>>>(
+  kernel<<<grid, THREADS, smem, s>>>(
       static_cast<const char*>(gallery), static_cast<const float*>(gscale),
       static_cast<const char*>(queries), static_cast<const float*>(qscale),
       n_rows, count, B, k, rows_per_cta,
       static_cast<float*>(part_v), static_cast<int*>(part_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int QT>
+int launch_partial_k(int chunks, cudaStream_t s, const void* gallery,
+                     const void* gscale, const void* queries, const void* qscale,
+                     int n_rows, int count, int B, int k, int rows_per_cta,
+                     void* part_v, void* part_i) {
+  return k == 1 ? launch_partial<QT, false>(chunks, s, gallery, gscale, queries, qscale,
+                                            n_rows, count, B, k, rows_per_cta, part_v, part_i)
+                : launch_partial<QT, true>(chunks, s, gallery, gscale, queries, qscale,
+                                           n_rows, count, B, k, rows_per_cta, part_v, part_i);
 }
 
 }  // namespace
@@ -153,21 +195,19 @@ extern "C" int facekit_cosine_topk_int8(const void* gallery, const void* gscale,
                                         void* part_v, void* part_i,
                                         void* out_v, void* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
   if (B > 8) {
-    const int err = launch_partial_mma<int8_t>(chunks, s, gallery, gscale, queries,
-                                               qscale, n_rows, count, B, k,
-                                               rows_per_cta, part_v, part_i);
-    if (err != 0) return err;
+    err = launch_partial_mma<int8_t>(chunks, s, gallery, gscale, queries, qscale,
+                                     n_rows, count, B, k, rows_per_cta, part_v, part_i);
   } else if (B == 1) {
-    launch_partial<1>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+    err = launch_partial_k<1>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
   } else if (B == 2) {
-    launch_partial<2>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+    err = launch_partial_k<2>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
   } else if (B <= 4) {
-    launch_partial<4>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+    err = launch_partial_k<4>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
   } else {
-    launch_partial<8>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
+    err = launch_partial_k<8>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != 0) return err;
   return launch_merge(s, part_v, part_i, B, chunks, k, out_v, out_i);
 }

@@ -20,7 +20,11 @@ Batches above 8 of every search run one tensor-core pass 1,
 kernels: ``mma.sync`` in bf16 or s8, and in f32 three TF32 passes
 (3xTF32, which keeps f32's digits where one TF32 pass would not);
 batches up to 8 run each kernel's CUDA-core pass 1. ``_mma_queries`` is
-that rule.
+that rule. At k > 1 the CUDA-core pass 1 buffers the scores that pass its
+thresholds and merges them into its lists 32 at a time, over chunks twice
+as long as at k = 1 (``_search_plan``), and the one pass 2 of every search
+keeps only the partials at or above a lower bound on each query's k-th
+score (``ops/csrc/topk_fold.cuh``).
 
 Meaning shared by all: gallery rows at or past ``count`` score -1e30;
 each query's top k come in the order (score descending, row index
@@ -227,23 +231,26 @@ def _mma_queries(dtype: torch.dtype, b: int) -> int:
     return MMA_QUERIES_F32 if dtype == torch.float32 else MMA_QUERIES
 
 
-def _search_plan(n_rows: int, b: int, mma_queries: int, sms: int
+def _search_plan(n_rows: int, b: int, mma_queries: int, sms: int, k: int
                  ) -> Tuple[int, int]:
     """(rows per CTA, chunks) of pass 1 over ``n_rows`` rows for a batch of
-    ``b`` on a card of ``sms`` SMs; rows per CTA times chunks covers
-    ``n_rows``.
+    ``b`` and top ``k`` on a card of ``sms`` SMs; rows per CTA times chunks
+    covers ``n_rows``.
 
     ``mma_queries`` (``_mma_queries``) > 0: pass 1 is the tensor-core
     kernel, with CTAs of that many queries, each chunk a multiple of
     MMA_ROWS rows, and about one CTA per SM over the (query tiles, chunks)
-    grid. 0: the CUDA-core kernels (every type at b <= 8) run about four
-    CTAs per SM, each chunk a multiple of 256 rows (32 per warp)."""
+    grid. 0: the CUDA-core kernels (every type at b <= 8), each chunk a
+    multiple of 256 rows (32 per warp): about four CTAs per SM at k = 1,
+    two at k > 1, where a chunk's lists fill with its first rows whatever
+    its length, so longer chunks spend less of their time filling and give
+    pass 2 half the partials."""
     if mma_queries:
         q_tiles = -(-b // mma_queries)
         per = -(-n_rows // max(1, sms // q_tiles))
         rows_per_cta = -(-per // MMA_ROWS) * MMA_ROWS
     else:
-        per = -(-n_rows // (4 * sms))
+        per = -(-n_rows // ((4 if k == 1 else 2) * sms))
         rows_per_cta = max(256, -(-per // 256) * 256)
     return rows_per_cta, -(-n_rows // rows_per_cta)
 
@@ -282,7 +289,7 @@ def _cosine_topk_cuda(gallery, queries, count, k):
     n_rows = min(n, count + k)
     dev = gallery.device
     rows_per_cta, chunks = _search_plan(
-        n_rows, b, _mma_queries(gallery.dtype, b), _sms(dev))
+        n_rows, b, _mma_queries(gallery.dtype, b), _sms(dev), k)
     part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -308,7 +315,7 @@ def _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries, count, k):
     n_rows = min(n, count + k)                # see _cosine_topk_cuda
     dev = gallery_q.device
     rows_per_cta, chunks = _search_plan(
-        n_rows, b, _mma_queries(gallery_q.dtype, b), _sms(dev))
+        n_rows, b, _mma_queries(gallery_q.dtype, b), _sms(dev), k)
     part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)

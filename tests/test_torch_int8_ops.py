@@ -227,3 +227,26 @@ def test_plain_int8_search_k_exceeds_count(count, k):
     np.testing.assert_array_equal(ours[1].numpy()[:, count:],
                                   np.tile(np.arange(count, k), (5, 1)))
     _same_search(ours, jargs, count, k)
+
+
+def test_plain_int8_search_cutoff_tie():
+    """k = 64 where the 64th and 65th scores tie between rows far apart:
+    row c, ranked past 65th, becomes a copy of the 64th row a (its int8
+    row and scale), so the two score bit-equal at the cutoff; the lower
+    index takes the 64th place, as in facekit's XLA and Pallas int8
+    searches. The card's search must keep this order where it prunes at
+    the cutoff."""
+    jargs, targs = _search_data(41, grid_queries=True)
+    order = cosine_topk_int8_reference(*targs, N, N)[1][0].numpy()
+    a = int(order[63])
+    c = next(int(r) for r in order[65:] if abs(int(r) - a) >= 300)
+    gq, gs = (np.asarray(t).copy() for t in jargs[:2])
+    gq[c], gs[c] = gq[a], gs[a]
+    jargs = (jnp.asarray(gq), jnp.asarray(gs), jargs[2])
+    targs = (torch.tensor(gq), torch.tensor(gs), targs[2])
+    for k in (64, 65):
+        ours = cosine_topk_int8_reference(*targs, N, k)
+        _same_search(ours, jargs, N, k)
+    np.testing.assert_array_equal(ours[1][0, 63:65].numpy(),
+                                  [min(a, c), max(a, c)])
+    assert ours[0][0, 63] == ours[0][0, 64]

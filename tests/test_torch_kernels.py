@@ -156,10 +156,13 @@ def cuda_device():
                                        (8, 3, 777), (256, 64, N), (5, 8, 3),
                                        (9, 1, N), (16, 5, 777), (32, 1, N),
                                        (64, 64, 777), (200, 64, N), (33, 8, 3),
-                                       (40, 64, 777), (65, 8, N)])
+                                       (40, 64, 777), (65, 8, N), (1, 64, N),
+                                       (8, 64, 777), (4, 64, N)])
 def test_kernel_matches_plain(cuda_device, dtype, b, k, count):
     """Batches above 8 run the tensor-core pass 1 (f32: 32 queries a CTA,
-    so 33 and 40 fill a second tile in part and 65 a third; bf16: 64)."""
+    so 33 and 40 fill a second tile in part and 65 a third; bf16: 64).
+    Batches up to 8 at k = 64 run the batched selection, and pass 2 takes
+    its bound from the first 16 entries of each of the 4 chunks."""
     g, q = _data(b + k, b=b)
     td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     gt = torch.tensor(g).to(cuda_device, td)
@@ -221,7 +224,8 @@ def test_f32_tensor_core_ties_across_chunks(cuda_device, b):
                                        (8, 3, 777), (64, 1, N),
                                        (256, 64, N), (5, 8, 3), (9, 1, N),
                                        (16, 5, 777), (33, 8, 3),
-                                       (64, 64, 777), (200, 64, N)])
+                                       (64, 64, 777), (200, 64, N),
+                                       (1, 64, N), (8, 64, 777), (4, 64, N)])
 def test_int8_kernel_matches_plain_bit_for_bit(cuda_device, b, k, count):
     g, q = _data(b + k + 1, b=b)
     gq, gs = (t.to(cuda_device) for t in _int8_gallery(g))
@@ -253,6 +257,85 @@ def test_int8_kernel_ties_and_checks(cuda_device, b):
     with pytest.raises(TypeError):
         cosine_topk_int8(gq, gs, torch.tensor(q, device=cuda_device)
                          .to(torch.bfloat16), N, 1)
+
+
+# a gallery the B <= 8 plan cuts into 256 chunks of 256 rows: at k = 64
+# each warp sees 32 rows, fewer than k, and pass 2 meets 16,384 partials
+N_CHUNKY = 65536
+
+
+def _search(kind, g, q, count, k, device):
+    """The kernel's and the plain version's (vals, idx) for a ``kind``
+    search (float32, bfloat16 or int8) of f32 rows ``g`` and queries ``q``;
+    checks that the kernel launched once."""
+    fn = cosine_topk_int8 if kind == "int8" else cosine_topk
+    if kind == "int8":
+        args = (*(t.to(device) for t in _int8_gallery(g)),
+                torch.tensor(q, device=device))
+        plain = cosine_topk_int8_reference
+    else:
+        td = getattr(torch, kind)
+        args = (torch.tensor(g, device=device).to(td),
+                torch.tensor(q, device=device).to(td))
+        plain = cosine_topk_reference
+    before = fn.launches
+    got = fn(*args, count, k)
+    ref = plain(*args, count, k)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [1, 8])
+def test_kernel_k64_many_chunks(cuda_device, kind, b):
+    """k = 64 over 256 chunks: the batched selection with lists that see
+    fewer rows than k, and pass 2's bound over 256 first entries. int8
+    scores bit for bit; float scores within 1e-5."""
+    g, q = _data(b + 64, n=N_CHUNKY, b=b)
+    (vals, idx), (ref_v, ref_i) = _search(kind, g, q, N_CHUNKY - 37, 64,
+                                          cuda_device)
+    np.testing.assert_array_equal(idx.cpu().numpy(), ref_i.cpu().numpy())
+    if kind == "int8":
+        np.testing.assert_array_equal(vals.cpu().numpy(), ref_v.cpu().numpy())
+    else:
+        np.testing.assert_allclose(vals.cpu().numpy(), ref_v.cpu().numpy(),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [1, 8])
+def test_kernel_cutoff_ties(cuda_device, kind, b):
+    """Query j's row has 70 copies, one every 936 rows, so each lies in
+    its own chunk; the top 64 must be the 64 lowest indices of the copies
+    with bit-equal scores: the 64th and the next 6 tie, and pass 1's and
+    pass 2's pruning drop only scores strictly below their bounds."""
+    g, _ = _data(19, n=N_CHUNKY, b=1)
+    pos = (np.arange(70)[None, :] * (N_CHUNKY // 70)
+           + np.arange(b)[:, None] * 97 + 13)
+    g[pos] = g[pos[:, :1]]
+    (vals, idx), (ref_v, ref_i) = _search(kind, g, g[pos[:, 0]], N_CHUNKY,
+                                          64, cuda_device)
+    np.testing.assert_array_equal(idx.cpu().numpy(), pos[:, :64])
+    assert torch.equal(vals, vals[:, :1].expand(-1, 64))
+    if kind == "int8":
+        assert torch.equal(vals, ref_v) and torch.equal(idx, ref_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_kernel_equal_rows_past_pass2_room(cuda_device, kind):
+    """Every row equal: all 16,384 partials of each query tie at the
+    bound, more than pass 2 holds in shared memory, so it scans them all;
+    the top 64 are rows 0..63 with bit-equal scores."""
+    g, q = _data(23, n=N_CHUNKY, b=2)
+    g[:] = g[0]
+    (vals, idx), _ = _search(kind, g, q, N_CHUNKY, 64, cuda_device)
+    np.testing.assert_array_equal(idx.cpu().numpy(),
+                                  np.tile(np.arange(64), (2, 1)))
+    assert torch.equal(vals, vals[:, :1].expand(-1, 64))
 
 
 # (N, H, W, C, O, kernel, stride, padding): every stride, padding, kernel

@@ -107,3 +107,29 @@ def test_plain_search_k_exceeds_count(dtype, count, k):
     _assert_same(ours, cosine_topk_xla(gj, qj, jnp.int32(count), k=k), dtype)
     _assert_same(ours, cosine_topk_pallas(gj, qj, jnp.int32(count), k=k,
                                           tile_n=256, interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_search_cutoff_tie(dtype):
+    """k = 64 where the 64th and 65th scores tie between rows far apart:
+    the lower index takes the 64th place, in the port's plain search as
+    in ``lax.top_k`` (XLA) and the Pallas kernel. The card's search must
+    keep this order where it prunes at the cutoff."""
+    g, q = _data(37)
+    _, plain = _both(g, q, dtype)
+    order = cosine_topk_reference(*plain, N, N)[1][0].numpy()
+    # row c, ranked past 65th and 300 rows or more from the 64th row a,
+    # becomes a copy of a: the places above 64th stay as they were
+    a = int(order[63])
+    c = next(int(r) for r in order[65:] if abs(int(r) - a) >= 300)
+    g[c] = g[a]
+    (gj, qj), (gt, qt) = _both(g, q, dtype)
+    for k in (64, 65):
+        ours = cosine_topk_reference(gt, qt, N, k)
+        _assert_same(ours, cosine_topk_xla(gj, qj, jnp.int32(N), k=k), dtype)
+        _assert_same(ours, cosine_topk_pallas(gj, qj, jnp.int32(N), k=k,
+                                              tile_n=256, interpret=True),
+                     dtype)
+    np.testing.assert_array_equal(ours[1][0, 63:65].numpy(),
+                                  [min(a, c), max(a, c)])
+    assert ours[0][0, 63] == ours[0][0, 64]

@@ -17,10 +17,11 @@ SMS = 132                      # an H100 SXM
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
 
 
-def _cuda_core_plan(n_rows, sms):
-    """The plan of the CUDA-core pass 1 (every type at B <= 8): about four
-    CTAs per SM, each a multiple of 256 rows."""
-    per = -(-n_rows // (4 * sms))
+def _cuda_core_plan(n_rows, sms, k):
+    """The plan of the CUDA-core pass 1 (every type at B <= 8), each chunk
+    a multiple of 256 rows: about four CTAs per SM at k = 1 (the plan
+    before the batched selection), two at k > 1."""
+    per = -(-n_rows // ((4 if k == 1 else 2) * sms))
     rows_per_cta = max(256, -(-per // 256) * 256)
     return rows_per_cta, -(-n_rows // rows_per_cta)
 
@@ -40,9 +41,10 @@ def _queries(kind, b):
 @pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
 @pytest.mark.parametrize("b", [1, 8, 9, 32, 64, 256])
 @pytest.mark.parametrize("n_rows", [33, 1000, 1 << 20])
-def test_search_plan(n_rows, b, kind):
+@pytest.mark.parametrize("k", [1, 64])
+def test_search_plan(n_rows, b, kind, k):
     tensor_cores = _tensor_cores(kind, b)
-    rows_per_cta, chunks = _search_plan(n_rows, b, _queries(kind, b), SMS)
+    rows_per_cta, chunks = _search_plan(n_rows, b, _queries(kind, b), SMS, k)
     assert rows_per_cta * chunks >= n_rows
     assert (chunks - 1) * rows_per_cta < n_rows       # no empty chunk
     if n_rows == 33:
@@ -54,7 +56,7 @@ def test_search_plan(n_rows, b, kind):
         height = MMA_QUERIES_F32 if kind == "f32" else MMA_QUERIES
         assert -(-b // height) * chunks <= SMS
     else:
-        assert (rows_per_cta, chunks) == _cuda_core_plan(n_rows, SMS)
+        assert (rows_per_cta, chunks) == _cuda_core_plan(n_rows, SMS, k)
 
 
 def test_search_plan_fills_the_card_at_full_gallery():
@@ -62,19 +64,34 @@ def test_search_plan_fills_the_card_at_full_gallery():
     4 query tiles x 33 chunks at B = 256, 131 chunks at B = 32 (bf16) and
     B = 64 (int8, the served /recognize bucket 64); in f32, 8 query tiles
     of 32 x 16 chunks at B = 256 and one tile x 131 chunks at B = 32."""
-    assert _search_plan(1 << 20, 256, _queries("bf16", 256),
-                        SMS) == (31872, 33)
-    assert _search_plan(1 << 20, 32, _queries("bf16", 32),
-                        SMS) == (8064, 131)
-    assert _search_plan(1 << 20, 64, _queries("int8", 64),
-                        SMS) == (8064, 131)
-    assert _search_plan(1 << 20, 256, _queries("int8", 256),
-                        SMS) == (31872, 33)
-    assert _search_plan(1 << 20, 256, _queries("f32", 256),
-                        SMS) == (65536, 16)
-    assert _search_plan(1 << 20, 32, _queries("f32", 32),
-                        SMS) == (8064, 131)
+    for k in (1, 64):          # the tensor-core plan does not take k
+        assert _search_plan(1 << 20, 256, _queries("bf16", 256),
+                            SMS, k) == (31872, 33)
+        assert _search_plan(1 << 20, 32, _queries("bf16", 32),
+                            SMS, k) == (8064, 131)
+        assert _search_plan(1 << 20, 64, _queries("int8", 64),
+                            SMS, k) == (8064, 131)
+        assert _search_plan(1 << 20, 256, _queries("int8", 256),
+                            SMS, k) == (31872, 33)
+        assert _search_plan(1 << 20, 256, _queries("f32", 256),
+                            SMS, k) == (65536, 16)
+        assert _search_plan(1 << 20, 32, _queries("f32", 32),
+                            SMS, k) == (8064, 131)
     assert MMA_MIN_B == 9          # the C entry points' rule: B > 8
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("b", [1, 8])
+def test_small_batch_plan_at_full_gallery(kind, b):
+    """At the top gallery bucket the CUDA-core pass 1 keeps its k = 1 plan
+    (512 chunks of 2,048 rows, about four CTAs per SM) and at k > 1 takes
+    256 chunks of 4,096 rows (about two per SM; at k = 64 pass 2 then
+    meets 16,384 partials a query, where it met 32,768)."""
+    q = _queries(kind, b)
+    assert q == 0
+    assert _search_plan(1 << 20, b, q, SMS, 1) == (2048, 512)
+    for k in (2, 5, 64):
+        assert _search_plan(1 << 20, b, q, SMS, k) == (4096, 256)
 
 
 @pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
