@@ -2,14 +2,16 @@
 """Smoke test of facekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the port's four CUDA kernels from this checkout (and checks the
-``ptxas -v`` lines of the searches' pass 1 and pass 2 kernels) and holds
+``ptxas -v`` lines of the searches' and the conv's kernels) and holds
 each against its plain PyTorch version: the bf16/f32 and the int8 gallery
 searches at the top gallery bucket (N = 1,048,576; each timed case also
 split into pass 1 and pass 2 by a ``torch.profiler`` trace; 70 copies of
-a row checked at the k = 64 cutoff), the s8 convolution at
-every conv shape of the int8 IR-50 at batch 64 and at the TPU kernel's own
-shape, the fused IR block at IR-50's four identity-block shapes (batch 8
-and 64, bf16 and f32, and batch 32 in bf16). Then it drives three serving
+a row checked at the k = 64 cutoff; both at 257 and 512 queries), the
+s8 convolution at every conv shape of the int8 IR-50 at batches 1, 8 and
+64 (with the kernels' device time from a profiler trace, and per-forward
+sums) and at the TPU kernel's own shape, the fused IR block at IR-50's
+four identity-block shapes (batch 8 and 64, bf16 and f32, and batch 32
+in bf16). Then it drives three serving
 paths on the card and checks what comes out: /recognize + enrollment of configs/default.json
 (IR-50, bf16), the same for configs/throughput.json (int8 IR-50, int8
 gallery, batches of 1, 8 and 64) with dynamic and with calibrated
@@ -22,7 +24,8 @@ limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed phase 
 or to a plain version. Without CUDA it exits non-zero and prints no
 result. Imports nothing of JAX. ``python3 chip_smoke.py --searches``
 runs the build and the two search phases alone, for comparing search
-kernels.
+kernels; ``--convs`` the conv's build, its ``ptxas`` line and the conv
+phase alone.
 """
 
 from __future__ import annotations
@@ -69,6 +72,11 @@ INT8_COS_DIST_MAX = 5e-3  # int8 embeddings vs f32 (facekit's own int8 bar,
 #                           tests/test_model_parity.py:158-175)
 SITES_PER_FORWARD = 52   # int8 IR-50: stem, 24 x (conv1, conv2), 3 shortcuts
 KERNEL4_SHAPE = (256, 112, 112, 64, 64, 3, 2, 1)   # N, H, W, C, O, k, s, p
+# batches of conv_s8_case: the throughput config's /recognize buckets
+CONV_BATCHES = (1, 8, 64)
+# search batches past 256 queries (a top bucket above 64 frames, or more
+# than 4 faces a frame, on WS /inference)
+BIG_BATCHES = (257, 512)
 IR_BLOCKS_PER_FORWARD = 20   # float IR-50's stride-1 identity blocks
 # (H = W, C, blocks per forward) of those blocks
 IR_BLOCK_SHAPES = [(56, 64, 2), (28, 128, 3), (14, 256, 13), (7, 512, 2)]
@@ -170,6 +178,24 @@ def pass_split(fn, args_list, reps: int = SPLIT_REPS):
             "other_us": sum(other) / reps if other else None}
 
 
+def device_us(fn, args_list, reps: int = SPLIT_REPS):
+    """Mean device µs of one call ``fn(*args)``: every kernel and memset it
+    runs on the card, from a torch.profiler (CUPTI) trace of ``reps``
+    calls, one at a time. Beside ``cuda_ms`` (CUDA events around calls
+    issued back to back) it tells the card's time from the host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args_list[0])                            # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*args_list[i % len(args_list)])
+            torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+
+
 def search_bound(n_rows: int, b: int, k: int, dtype: str):
     """Least time (ms) for one search on an H100 SXM and what bounds it:
     the gallery rows the search needs and the queries read once, the
@@ -230,21 +256,26 @@ SELECTION_KERNELS = {"topk_partial_kernel": 3,        # <BF16, QT, BATCHED>
                      "topk_int8_partial_kernel": 2}   # <QT, BATCHED>
 
 
-def ptxas_entries(log):
+def ptxas_entries(log, prefix="topk_"):
     """{kernel<template args>: registers, stack and spill bytes} of every
-    search kernel (``topk_*kernel``) in one ``nvcc -Xptxas -v`` log."""
+    kernel whose name starts with ``prefix`` (default the search kernels,
+    ``topk_*kernel``) in one ``nvcc -Xptxas -v`` log."""
     out, cur = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             cur = None
             # a mangled name is its length, then itself, then "I" and
-            # the template arguments ("Lb1E", "Li8E", or a type letter)
-            for m in re.finditer(r"(\d+)(topk_\w+)", entry[1]):
-                ident = m[2][:int(m[1])]
-                if not ident.endswith("kernel"):
+            # the template arguments ("Lb1E", "Li8E", or a type letter);
+            # the length's digits may follow others (a file hash's)
+            for m in re.finditer(rf"(\d+)({prefix}\w+)", entry[1]):
+                lengths = [int(m[1][i:]) for i in range(len(m[1]))]
+                size = next((n for n in lengths
+                             if m[2][:n].endswith("kernel")), None)
+                if size is None:
                     continue
-                rest = m[2][int(m[1]):]
+                ident = m[2][:size]
+                rest = m[2][size:]
                 t = re.match(r"I((?:L[a-z]\d+E|[a-z])+)E", rest)
                 args = [a or b for a, b in re.findall(
                     r"L[a-z](\d+)E|([a-z])", t[1] if t else "")]
@@ -299,6 +330,23 @@ def selection_ptxas(logs):
                                              f"{entries.get(twin)}")
         out[name] = keep
     return out
+
+
+def conv_ptxas(logs):
+    """Registers, stack and spill of every kernel of the s8 conv's build
+    (``conv_s8_*kernel``); "not rebuilt" where the library was already
+    built. Fails on a stack frame or a spill in a tensor-core kernel
+    (``conv_s8_mma_kernel``)."""
+    if "conv_s8" not in logs:
+        return "not rebuilt"
+    entries = ptxas_entries(logs["conv_s8"], prefix="conv_s8")
+    if not entries:
+        raise AssertionError("no ptxas -v lines of the conv_s8 kernels")
+    for kern, rec in entries.items():
+        if "mma" in kern and (rec.get("stack_bytes")
+                              or rec.get("spill_bytes")):
+            raise AssertionError(f"conv_s8 {kern}: {rec}")
+    return entries
 
 
 def check_search(name, kern, plain_k1, k):
@@ -717,6 +765,63 @@ def phase_int8_kernels(device, n=N_TOP, seed=2):
     return timings
 
 
+def phase_big_batches(device, n=N_TOP, seed=7):
+    """Both searches past 256 queries (B in BIG_BATCHES, k in {1, 64}) at
+    the top gallery bucket against their plain versions: bf16 and f32
+    scores within SCORE_ATOL and indices equal wherever the plain scores
+    are more than SCORE_ATOL apart (``check_search``), int8 scores and
+    indices bit for bit; each timed beside its bound."""
+    import torch
+
+    from facekit_torch.ops.similarity import (cosine_topk,
+                                              cosine_topk_int8,
+                                              cosine_topk_int8_reference,
+                                              cosine_topk_reference,
+                                              quantize_rows_int8)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def unit_rows(rows):
+        x = torch.randn((rows, DIM), generator=gen, device=device)
+        return x / x.norm(dim=1, keepdim=True)
+
+    g32 = unit_rows(n)
+    gq, gs = quantize_rows_int8(g32)
+    count = n - 37
+    out = []
+    for dname in ("bfloat16", "float32", "int8"):
+        for b in BIG_BATCHES:
+            for k in (1, 64):
+                q = unit_rows(b)
+                tag = f"{dname} B={b} k={k}"
+                if dname == "int8":
+                    args = (gq, gs, q, count, k)
+                    kern = cosine_topk_int8(*args)
+                    plain = cosine_topk_int8_reference(*args)
+                    if not (torch.equal(kern[0], plain[0])
+                            and torch.equal(kern[1], plain[1])):
+                        raise AssertionError(f"{tag}: kernel differs from "
+                                             "the plain version")
+                    err = 0.0
+                    fn, bound = cosine_topk_int8, int8_search_bound(
+                        min(n, count + k), b, k)
+                else:
+                    g = g32.to(getattr(torch, dname))
+                    args = (g, q.to(g.dtype), count, k)
+                    err = check_search(tag, cosine_topk(*args),
+                                       cosine_topk_reference(
+                                           *args[:3], k + 1), k)
+                    fn, bound = cosine_topk, search_bound(
+                        min(n, count + k), b, k, dname)
+                rec = {"phase": "big_batch_case", "dtype": dname, "N": n,
+                       "count": count, "B": b, "k": k, "max_abs_err": err,
+                       "ms": cuda_ms(fn, [args], 5),
+                       "bound_ms": bound[0], "bound_by": bound[1]}
+                emit(rec)
+                out.append(rec)
+    torch.cuda.synchronize()
+    return out
+
+
 def ir50_conv_shapes(batch: int):
     """{(N, H, W, C, O, k, stride, pad): [site names]} of the int8 IR-50's
     52 conv sites at ``batch``, in the order a forward meets them."""
@@ -751,22 +856,33 @@ def conv_bound(n, h, w, c, o, ks, stride, pad):
                                        else "operations")
 
 
-def phase_conv(device, batch=64, seed=3):
+def phase_conv(device, batches=CONV_BATCHES, seed=3):
     """The s8 conv kernel against its plain version (bit for bit) at every
-    conv shape of the int8 IR-50 at ``batch`` and at the TPU kernel's own
-    shape; cuDNN's bf16 conv of the same shape timed beside it as a guide
-    only (another function, which the port does not call)."""
+    conv shape of the int8 IR-50 at each of ``batches`` and at the TPU
+    kernel's own shape, each with the route the wrapper takes there
+    (``conv_route``: ``mma`` tensor cores or ``dp4a``) and its plan
+    (``_conv_plan``); cuDNN's bf16 conv of the same shape timed beside it
+    as a yardstick only (another function, which the port does not
+    call)."""
     import torch
     import torch.nn.functional as F
 
     from facekit_torch.ops.conv_s8 import conv_s8, conv_s8_reference
+    conv_mod = sys.modules["facekit_torch.ops.conv_s8"]
+    # a checkout whose conv_s8.py has no conv_route runs __dp4a at every
+    # site and has no plan (compared with in turns by --convs)
+    route_of = getattr(conv_mod, "conv_route", lambda c: "dp4a")
+    plan_of = getattr(conv_mod, "_conv_plan", None)
     gen = torch.Generator(device=device).manual_seed(seed)
-    cases = [(shape, len(sites), ",".join(sites[:3])
+    cases = [(shape, batch, len(sites), ",".join(sites[:3])
               + (",..." if len(sites) > 3 else ""))
+             for batch in batches
              for shape, sites in ir50_conv_shapes(batch).items()]
-    cases.append((KERNEL4_SHAPE, 0, "kernel #4 (conv_s8_s2_pallas)"))
+    cases.append((KERNEL4_SHAPE, KERNEL4_SHAPE[0], 0,
+                  "kernel #4 (conv_s8_s2_pallas)"))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     out = []
-    for (n, h, w, c, o, ks, stride, pad), per_forward, sites in cases:
+    for (n, h, w, c, o, ks, stride, pad), batch, per_forward, sites in cases:
         xs = [torch.randint(-127, 128, (n, h, w, c), generator=gen,
                             device=device, dtype=torch.int8)
               for _ in range(2)]
@@ -784,23 +900,68 @@ def phase_conv(device, batch=64, seed=3):
         xb = [x.permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
         wb = wt.permute(0, 3, 1, 2).to(torch.bfloat16)
         bound, by = conv_bound(n, h, w, c, o, ks, stride, pad)
-        rec = {"phase": "conv_s8_case",
+        oh = (h + 2 * pad - ks) // stride + 1
+        ow = (w + 2 * pad - ks) // stride + 1
+        route = route_of(c)
+        rec = {"phase": "conv_s8_case", "batch": batch,
                "shape": {"N": n, "H": h, "W": w, "C": c, "O": o, "k": ks,
                          "stride": stride, "pad": pad},
                "sites": sites, "launches_per_forward": per_forward,
+               "route": route,
+               "plan": (plan_of(n, oh, ow, o, ks * ks * c, sms)._asdict()
+                        if plan_of and route == "mma" else None),
                "max_abs_err": 0,
-               "ms": cuda_ms(conv_s8, args, 10),
+               "ms": cuda_ms(conv_s8, args, 20),
+               "device_us": device_us(conv_s8, args),
                "plain_ms": cuda_ms(conv_s8_reference, args, 2),
                "bf16_cudnn_ms": cuda_ms(
                    lambda x_, w_: F.conv2d(x_, w_, stride=stride,
                                            padding=pad),
-                   [(x, wb) for x in xb], 10),
+                   [(x, wb) for x in xb], 20),
+               "bf16_cudnn_device_us": device_us(
+                   lambda x_, w_: F.conv2d(x_, w_, stride=stride,
+                                           padding=pad),
+                   [(x, wb) for x in xb]),
                "library_ms": None,
                "bound_ms": bound, "bound_by": by}
         emit(rec)
         out.append(rec)
         del xs, xb
     torch.cuda.synchronize()
+    return out
+
+
+def conv_forwards(convs):
+    """One line per batch of ``convs``: the conv_s8_case lines of the int8
+    IR-50's sites summed by their launches_per_forward (ms, device ms,
+    bound, plain version, bf16 cuDNN yardstick), and the sites each route
+    serves."""
+    out = []
+    for batch in sorted({c["batch"] for c in convs
+                         if c["launches_per_forward"]}):
+        cs = [c for c in convs
+              if c["batch"] == batch and c["launches_per_forward"]]
+
+        def total(key, cs=cs):
+            return sum(c[key] * c["launches_per_forward"] for c in cs)
+        routes = {}
+        for c in cs:
+            routes[c["route"]] = (routes.get(c["route"], 0)
+                                  + c["launches_per_forward"])
+        rec = {"phase": "conv_s8_forward", "batch": batch,
+               "launches_per_forward": sum(c["launches_per_forward"]
+                                           for c in cs),
+               "ms": total("ms"), "device_ms": total("device_us") / 1e3,
+               "bound_ms": total("bound_ms"),
+               "plain_ms": total("plain_ms"),
+               "bf16_cudnn_ms": total("bf16_cudnn_ms"),
+               "bf16_cudnn_device_ms": total("bf16_cudnn_device_us") / 1e3,
+               "sites_by_route": routes}
+        if rec["launches_per_forward"] != SITES_PER_FORWARD:
+            raise AssertionError(f"conv_s8 batch {batch}: "
+                                 f"{rec['launches_per_forward']} sites")
+        emit(rec)
+        out.append(rec)
     return out
 
 
@@ -1242,7 +1403,9 @@ def phase_server_inference(device, repo_dir, seed=6, n_users=32):
 def main(argv) -> int:
     """No arguments: the whole smoke test. ``--searches``: the two search
     phases alone (build, ptxas, ``kernel_case``, ``kernel_int8_case``),
-    for comparing search kernels; it prints no ``ok`` line."""
+    for comparing search kernels; ``--convs``: the conv phase alone
+    (build, ptxas, ``conv_s8_case``, ``conv_s8_forward``). Neither prints
+    an ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1260,20 +1423,31 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     searches_only = argv == ["--searches"]
-    if argv and not searches_only:
+    convs_only = argv == ["--convs"]
+    if argv and not (searches_only or convs_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     logs = _build.build(["cosine_topk", "cosine_topk_int8"] if searches_only
-                        else None, ptxas_verbose=True)
+                        else ["conv_s8"] if convs_only else None,
+                        ptxas_verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs)})
     for name, text in logs.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
+    if convs_only:
+        emit({"phase": "ptxas", "kernel": "conv_s8",
+              "kernels": conv_ptxas(logs)})
+        conv_forwards(phase_conv("cuda"))
+        print(power, flush=True)
+        return 0
     emit({"phase": "ptxas", "kernel": "topk_partial_mma_kernel",
           "instantiations": mma_ptxas(logs)})
     emit({"phase": "ptxas", "kernel": "B <= 8 pass 1 and pass 2",
           "kernels": selection_ptxas(logs)})
+    if not searches_only:
+        emit({"phase": "ptxas", "kernel": "conv_s8",
+              "kernels": conv_ptxas(logs)})
 
     max_err, timings = phase_kernels("cuda")
     if searches_only:
@@ -1282,7 +1456,9 @@ def main(argv) -> int:
         return 0
     server = phase_server("cuda", repo_dir)
     int8_timings = phase_int8_kernels("cuda")
+    big = phase_big_batches("cuda")
     convs = phase_conv("cuda")
+    forwards = {f["batch"]: f for f in conv_forwards(convs)}
     tput = phase_server_throughput("cuda", repo_dir)
     blocks = phase_ir_block("cuda")
     inference = phase_server_inference("cuda", repo_dir)
@@ -1290,8 +1466,9 @@ def main(argv) -> int:
     main_case = next(t for t in timings if t["dtype"] == "bfloat16"
                      and t["B"] == 8 and t["k"] == 1)
     int8_case = next(t for t in int8_timings if t["B"] == 64 and t["k"] == 1)
-    conv_case = next(c for c in convs if c["launches_per_forward"] == 0)
-    k4 = conv_case["shape"]
+    k4_case = next(c for c in convs if c["launches_per_forward"] == 0)
+    k4 = k4_case["shape"]
+    conv64 = forwards[64]
     # kernel #3 at the main path's shapes: one bf16 IR-50 forward of 8
     # crops runs its 20 identity blocks at the four shapes
     b8 = [c for c in blocks if c["dtype"] == "bfloat16"
@@ -1323,7 +1500,11 @@ def main(argv) -> int:
             and t["B"] in (32, 256)],
         "small_batch_k64_cases": [
             {key: t[key] for key in SMALL_BATCH_KEYS}
-            for t in timings if t["B"] <= 8 and t["k"] == 64]}, {
+            for t in timings if t["B"] <= 8 and t["k"] == 64],
+        "big_batch_cases": [
+            {key: c[key] for key in ("dtype", "B", "k", "ms", "bound_ms",
+                                     "max_abs_err")}
+            for c in big if c["dtype"] != "int8"]}, {
         "name": "cosine_topk_int8", "route": "cuda",
         "source": "facekit_torch/ops/csrc/cosine_topk_int8.cu",
         "replaces": "facekit/ops/similarity.py:183",
@@ -1341,19 +1522,44 @@ def main(argv) -> int:
             for t in int8_timings if t["B"] in (64, 256)],
         "small_batch_k64_cases": [
             {key: t[key] for key in SMALL_BATCH_KEYS if key in t}
-            for t in int8_timings if t["B"] <= 8 and t["k"] == 64]}, {
+            for t in int8_timings if t["B"] <= 8 and t["k"] == 64],
+        "big_batch_cases": [
+            {key: c[key] for key in ("B", "k", "ms", "bound_ms")}
+            for c in big if c["dtype"] == "int8"]}, {
         "name": "conv_s8", "route": "cuda",
         "source": "facekit_torch/ops/csrc/conv_s8.cu",
         "replaces": "docs/experiments/pallas_s8_stride2_conv.py:86",
         "launches": tput[0]["launches"]["conv_s8"],
         "max_abs_err": 0,
-        "ms": conv_case["ms"], "plain_ms": conv_case["plain_ms"],
-        "bound_ms": conv_case["bound_ms"], "bound_by": conv_case["bound_by"],
+        "ms": conv64["ms"], "plain_ms": conv64["plain_ms"],
+        "bound_ms": conv64["bound_ms"],
+        "bound_by": ("operations" if all(
+            c["bound_by"] == "operations" for c in convs
+            if c["batch"] == 64 and c["launches_per_forward"])
+            else "bytes"),
         "library_ms": None,
-        "library_note": "PyTorch has no s8 convolution on CUDA",
-        "bf16_cudnn_ms": conv_case["bf16_cudnn_ms"],
-        "shape": f"s8 N={k4['N']} {k4['H']}x{k4['W']}x{k4['C']} -> "
-                 f"{k4['O']}, 3x3 stride 2 pad 1"}, {
+        "library_note": "PyTorch has no s8 convolution on CUDA; "
+                        "bf16_cudnn_ms is cuDNN's bf16 F.conv2d at the "
+                        "same shapes, as a yardstick",
+        "bf16_cudnn_ms": conv64["bf16_cudnn_ms"],
+        "shape": "s8: the 52 conv sites of one int8 IR-50 forward of 64 "
+                 "crops, times summed",
+        "launches_per_forward": SITES_PER_FORWARD,
+        "per_forward": [
+            {key: f[key] for key in ("batch", "ms", "device_ms", "bound_ms",
+                                     "plain_ms", "bf16_cudnn_ms",
+                                     "bf16_cudnn_device_ms",
+                                     "sites_by_route")}
+            for f in forwards.values()],
+        "routes": [{**c["shape"], "route": c["route"], "plan": c["plan"],
+                    "sites": c["launches_per_forward"]}
+                   for c in convs if c["launches_per_forward"]],
+        "kernel4_case": {
+            key: k4_case[key] for key in ("ms", "device_us", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "bf16_cudnn_ms", "route")}
+        | {"shape": f"s8 N={k4['N']} {k4['H']}x{k4['W']}x{k4['C']} -> "
+                    f"{k4['O']}, 3x3 stride 2 pad 1"}}, {
         "name": "ir_block", "route": "cuda",
         "source": "facekit_torch/ops/csrc/ir_block.cu",
         "replaces": "docs/experiments/fused_block_kernel.py:84",

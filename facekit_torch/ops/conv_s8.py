@@ -14,6 +14,11 @@ exact integer sum:
     pallas_s8_stride2_conv.py:86``, made general) or raises; for CPU
     tensors it runs the plain version.
 
+The kernel has two routes (``conv_route``): inputs of 16 channels or more
+(every IR-50 site but the stem) run an implicit GEMM on s8 ``mma.sync``
+tensor cores, in CTA tiles and K splits that ``_conv_plan`` chooses; the
+stem's 3 channels (padded to 4) run a ``__dp4a`` kernel on CUDA cores.
+
 PyTorch has no s8 convolution on CUDA, so no float path stands in for it.
 """
 
@@ -21,11 +26,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-_BLOCK_O = 64          # the kernel's tile of output channels
+_BLOCK_O = 64          # output channels must come in multiples of this
+MMA_MIN_C = 16         # input channels from which the tensor-core route runs
+CONV_BM = 128          # output pixels per CTA of the tensor-core route
+CONV_BK = 128          # bytes of K per pipeline stage of that route
+# the least stages of K a split takes: one 128 x 128 stage reads 32 KiB of
+# operands and adds a 64 KiB tile of int32 into the output
+MIN_SPLIT_STAGES = 2
+# |sum| <= 128**2 * K must stay below 2**31 (int8 spans -128..127)
+MAX_K = (2 ** 31 - 1) // 128 ** 2
 
 
 def conv_s8_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -53,13 +67,67 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 conv_s8.launches = 0
 
 
+def conv_route(c: int) -> str:
+    """The kernel a CUDA tensor of ``c`` input channels runs: ``"mma"``
+    (s8 ``mma.sync`` tensor cores) from MMA_MIN_C channels on, else
+    ``"dp4a"`` (CUDA cores; the stem's 3 channels, padded to 4)."""
+    return "mma" if c >= MMA_MIN_C else "dp4a"
+
+
+class ConvPlan(NamedTuple):
+    """The launch of the tensor-core route: a grid of (n_tiles * m_tiles,
+    splits) CTAs, each ``CONV_BM`` pixels x ``bn`` output channels over
+    ``per_split`` of the ``stages`` stages of K (the last split may take
+    fewer)."""
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    stages: int
+    splits: int
+    per_split: int
+
+
+_NO_PLAN = ConvPlan(0, 0, 0, 0, 1, 0)    # the dp4a route takes none
+
+
+@functools.lru_cache(maxsize=1024)     # a model has a few dozen shapes
+def _conv_plan(n: int, oh: int, ow: int, o: int, k: int, sms: int
+               ) -> ConvPlan:
+    """The tile and K split of the tensor-core route for an output of
+    ``n * oh * ow`` pixels x ``o`` channels over ``k`` bytes of K
+    (KS*KS*C) on a card of ``sms`` SMs.
+
+    Tiles are CONV_BM x 128 where ``o`` is a multiple of 128, else
+    CONV_BM x 64. Where the tiles fill fewer CTAs than the card has SMs
+    (small batches, the 7x7 and 14x14 stages), K splits across CTAs in
+    whole stages: as many splits as make a CTA per SM, of at least
+    MIN_SPLIT_STAGES stages each but the last (so a 1x1 site of one or two
+    stages never splits), the stages shared as evenly as whole stages allow.
+    int32 sums are exact in any order; the splits add into a zeroed
+    output."""
+    bn = 128 if o % 128 == 0 else 64
+    m_tiles = -(-(n * oh * ow) // CONV_BM)
+    n_tiles = o // bn
+    stages = -(-k // CONV_BK)
+    tiles = m_tiles * n_tiles
+    splits = 1 if tiles >= sms else -(-stages // max(
+        MIN_SPLIT_STAGES, stages * tiles // sms))
+    per = -(-stages // splits)
+    return ConvPlan(bn, m_tiles, n_tiles, stages, -(-stages // per), per)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _library():
     """The kernel's C entry point, built at first use."""
     from facekit_torch.ops import _build
     fn = _build.load("conv_s8").facekit_conv_s8
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -101,18 +169,24 @@ def _conv_s8_cuda(x, w, stride, padding):
     x, w = x.contiguous(), w.contiguous()
     n, h, wd, _ = x.shape
     o, ks = w.shape[0], w.shape[1]
+    if ks * ks * c > MAX_K:
+        raise ValueError(f"conv_s8: K = {ks * ks * c} could overflow the "
+                         f"int32 sums; the kernel takes K <= {MAX_K}")
     oh = (h + 2 * padding - ks) // stride + 1
     ow = (wd + 2 * padding - ks) // stride + 1
     if n * h * wd * c >= 2 ** 31 or n * oh * ow * o >= 2 ** 31:
         raise ValueError("conv_s8: tensors of 2**31 elements or more")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv_s8: x and w must be 16-byte aligned")
+    plan = (_conv_plan(n, oh, ow, o, ks * ks * c, _sms(x.device.index))
+            if conv_route(c) == "mma" else _NO_PLAN)
     out = torch.empty((n, oh, ow, o), dtype=torch.int32, device=x.device)
     fn = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd,
-                 c.bit_length() - 1, o, ks, stride, padding, oh, ow, stream)
+                 c.bit_length() - 1, o, ks, stride, padding, oh, ow,
+                 plan.bn, plan.splits, plan.per_split, stream)
     if err != 0:
         raise RuntimeError(f"conv_s8: kernel launch failed with CUDA error "
                            f"{err}")

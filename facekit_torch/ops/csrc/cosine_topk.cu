@@ -250,7 +250,7 @@ int launch_partial_tiled(int chunks, cudaStream_t s, const void* gallery,
 // C entry point (loaded with ctypes). Launches both passes on `stream` and
 // returns cudaGetLastError() as an int; it never synchronizes. The caller
 // has checked shapes and alignment: gallery (>= n_rows, 512) and queries
-// (B, 512) contiguous and 16-byte aligned, 1 <= k <= 64, 1 <= B <= 256,
+// (B, 512) contiguous and 16-byte aligned, 1 <= k <= 64, B >= 1,
 // rows_per_cta a multiple of 256 (of 128 at B > 8, which runs
 // topk_partial_mma_kernel), partials (B, chunks, k).
 extern "C" int facekit_cosine_topk(const void* gallery, const void* queries,

@@ -184,7 +184,7 @@ int launch_partial_k(int chunks, cudaStream_t s, const void* gallery,
 // checked shapes and alignment: gallery (>= n_rows, 512) int8 and its
 // (>= n_rows,) f32 scales, queries (B, 512) int8 (already quantized) and
 // their (B,) f32 scales, all contiguous, the int8 arrays 16-byte aligned;
-// 1 <= k <= 64, 1 <= B <= 256, partials (B, chunks, k). B > 8 runs
+// 1 <= k <= 64, B >= 1, partials (B, chunks, k). B > 8 runs
 // topk_partial_mma_kernel<int8_t> with rows_per_cta a multiple of 128;
 // B <= 8 the CUDA-core kernel with rows_per_cta a multiple of 256 and the
 // query tile the smallest of 1, 2, 4, 8 that covers B.

@@ -1,9 +1,10 @@
 // Warp-level tensor-core helpers for sm_90a, as inline PTX: cp.async
 // copies from global to shared memory, ldmatrix, mma.sync m16n8k16 (bf16 in,
 // f32 accumulators), m16n8k32 (s8 in, s32 accumulators) and m16n8k8 (tf32
-// in, f32 accumulators). Shared by the fused IR block (ir_block.cu) and the
-// gallery searches' tensor-core pass 1 (topk_mma.cuh). Functions only, no
-// constants, so that no name clashes with a kernel's own.
+// in, f32 accumulators). Shared by the fused IR block (ir_block.cu), the
+// gallery searches' tensor-core pass 1 (topk_mma.cuh) and the s8 conv
+// (conv_s8.cu). Functions only, no constants, so that no name clashes with
+// a kernel's own.
 
 #pragma once
 
@@ -18,6 +19,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+// 16 bytes when `valid`, else none read and 16 zero bytes written (the
+// src-size operand); src must still be a global address
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -47,7 +47,6 @@ import torch
 NEG_INF = -1e30
 DIM = 512           # embedding width the kernel is built for
 MAX_K = 64          # the server caps /search at k <= 64
-MAX_B = 256         # largest query batch (64 frames x 4 face slots)
 # batches from MMA_MIN_B on take the tensor-core pass 1 (topk_mma.cuh
 # topk_partial_mma_kernel): MMA_QUERIES queries (MMA_QUERIES_F32 in f32,
 # whose 64-query tile does not fit in shared memory) and row tiles of
@@ -174,8 +173,8 @@ def _check(gallery: torch.Tensor, queries: torch.Tensor, count: int, k: int):
         raise ValueError("cosine_topk: gallery and queries must be 16-byte "
                          "aligned")
     n, b = gallery.shape[0], queries.shape[0]
-    if not 1 <= b <= MAX_B:
-        raise ValueError(f"cosine_topk: batch {b} outside [1, {MAX_B}]")
+    if b < 1:
+        raise ValueError("cosine_topk: empty batch")
     if not 1 <= k <= min(MAX_K, n):
         raise ValueError(f"cosine_topk: k={k} outside [1, min({MAX_K}, N={n})]")
     if not 0 <= count <= n:
@@ -211,8 +210,8 @@ def _check_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
     if gallery_q.data_ptr() % 16:
         raise ValueError("cosine_topk_int8: gallery must be 16-byte aligned")
     n, b = gallery_q.shape[0], queries.shape[0]
-    if not 1 <= b <= MAX_B:
-        raise ValueError(f"cosine_topk_int8: batch {b} outside [1, {MAX_B}]")
+    if b < 1:
+        raise ValueError("cosine_topk_int8: empty batch")
     if not 1 <= k <= min(MAX_K, n):
         raise ValueError(f"cosine_topk_int8: k={k} outside [1, min({MAX_K}, "
                          f"N={n})]")
@@ -240,7 +239,8 @@ def _search_plan(n_rows: int, b: int, mma_queries: int, sms: int, k: int
     ``mma_queries`` (``_mma_queries``) > 0: pass 1 is the tensor-core
     kernel, with CTAs of that many queries, each chunk a multiple of
     MMA_ROWS rows, and about one CTA per SM over the (query tiles, chunks)
-    grid. 0: the CUDA-core kernels (every type at b <= 8), each chunk a
+    grid, down to one chunk of all the rows per tile once the query tiles
+    outnumber half the SMs. Any batch fits that grid. 0: the CUDA-core kernels (every type at b <= 8), each chunk a
     multiple of 256 rows (32 per warp): about four CTAs per SM at k = 1,
     two at k > 1, where a chunk's lists fill with its first rows whatever
     its length, so longer chunks spend less of their time filling and give

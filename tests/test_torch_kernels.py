@@ -376,6 +376,107 @@ def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
         conv_s8(x.float(), torch.zeros((64, 3, 3, 64), device=cuda_device))
 
 
+# (N, H, W, C, O, kernel, stride, padding) of the tensor-core route and
+# its edges: ragged pixel tiles, C in {16, 64, 512} (16: a 3x3 K of 144
+# bytes, one full stage and one mostly past K), O in {64, 128, 192, 512}
+# (192: three 64-channel tiles), the split-K route (batch 1 at 7x7x512:
+# 18 splits of two stages; 4x4 pixels: one tile, 5 splits, the last of
+# one stage), tiles without split (20,000 pixels: 157 tiles), and C = 4 on
+# the dp4a route with O = 128
+CONV_MMA_CASES = [(3, 9, 7, 16, 64, 3, 1, 1), (2, 11, 13, 64, 192, 3, 2, 1),
+                  (1, 7, 7, 512, 512, 3, 1, 1), (2, 14, 14, 256, 128, 1, 2, 0),
+                  (1, 4, 4, 128, 128, 3, 1, 1), (2, 100, 100, 64, 64, 3, 1, 1),
+                  (1, 9, 9, 16, 512, 1, 1, 1), (1, 5, 5, 4, 128, 3, 1, 1),
+                  (2, 15, 9, 64, 128, 3, 2, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,ks,stride,pad", CONV_MMA_CASES)
+def test_conv_tensor_core_route_bit_for_bit(cuda_device, n, h, w, c, o, ks,
+                                            stride, pad):
+    rng = np.random.default_rng(7 * n + h + w + c + o + ks + stride + pad)
+    x = _s8(rng, (n, h, w, c)).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, c)).to(cuda_device)
+    before = conv_s8.launches
+    got = conv_s8(x, wt, stride, pad)
+    ref = conv_s8_reference(x, wt, stride, pad)
+    torch.cuda.synchronize()
+    assert conv_s8.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("n", [1, 8])
+def test_conv_extreme_sums(cuda_device, sign, n):
+    """Every input 127 and every weight +-127 at C = 512, 3x3: each inner
+    output sums 4,608 products of 127**2 (74,322,432 in magnitude), edges
+    fewer; batch 1 splits K over 18 CTAs, batch 8 over 9."""
+    x = torch.full((n, 7, 7, 512), 127, dtype=torch.int8, device=cuda_device)
+    wt = torch.full((512, 3, 3, 512), sign * 127, dtype=torch.int8,
+                    device=cuda_device)
+    got = conv_s8(x, wt, 1, 1)
+    ref = conv_s8_reference(x, wt, 1, 1)
+    torch.cuda.synchronize()
+    assert int(got[0, 3, 3, 0]) == sign * 127 ** 2 * 4608
+    assert torch.equal(got, ref)
+
+
+def _ir50_conv_shapes(n):
+    """(N, H, W, C, O, kernel, stride, padding) of the int8 IR-50's 16 conv
+    shapes at batch n."""
+    from facekit_torch.models.arcface import block_specs
+    shapes, h = [(n, 112, 112, 3, 64, 3, 1, 1)], 112
+    for in_c, depth, stride in block_specs("ir_50"):
+        shapes += [(n, h, h, in_c, depth, 3, 1, 1),
+                   (n, h, h, depth, depth, 3, stride, 1)]
+        if in_c != depth:
+            shapes.append((n, h, h, in_c, depth, 1, stride, 0))
+        h = (h - 1) // stride + 1
+    return list(dict.fromkeys(shapes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _ir50_conv_shapes(2),
+                         ids=lambda s: "h{1}c{3}o{4}k{5}s{6}".format(*s))
+def test_conv_ir50_shapes_at_batch_2(cuda_device, shape):
+    n, h, w, c, o, ks, stride, pad = shape
+    rng = np.random.default_rng(h + c + o + ks + stride)
+    x = _s8(rng, (n, h, w, c)).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, c)).to(cuda_device)
+    got = conv_s8(x, wt, stride, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv_s8_reference(x, wt, stride, pad))
+
+
+@pytest.mark.cuda
+def test_conv_refuses_overflowing_k(cuda_device):
+    """K = 3 * 3 * 16,384 could overflow the int32 sums: refused."""
+    x = torch.zeros((1, 3, 3, 16384), dtype=torch.int8, device=cuda_device)
+    wt = torch.zeros((64, 3, 3, 16384), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="overflow"):
+        conv_s8(x, wt, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [257, 512])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_search_past_256_queries(cuda_device, kind, b, k):
+    """Both searches at more queries than 256 (5 and 8 query tiles of 64,
+    9 and 16 of 32 in f32), in one launch, equal to the plain versions.
+    Every value is a multiple of 1/16 in [-1, 1], exact in bf16 and in a
+    TF32 hi part, so every float score is an exact sum in any order: the
+    scores are bit-equal and the many equal ones must come back lowest
+    index first, as the plain version's stable sort gives them."""
+    rng = np.random.default_rng(b + k)
+    g = (rng.integers(-16, 17, (N, 512)) / 16).astype(np.float32)
+    q = (rng.integers(-16, 17, (b, 512)) / 16).astype(np.float32)
+    (vals, idx), (ref_v, ref_i) = _search(kind, g, q, N - 37, k, cuda_device)
+    np.testing.assert_array_equal(idx.cpu().numpy(), ref_i.cpu().numpy())
+    np.testing.assert_array_equal(vals.cpu().numpy(), ref_v.cpu().numpy())
+
+
 # (N, H, W, C): the four IR-50 identity-block shapes, ragged bands (H not
 # a multiple of the kernel's 4-row band, odd W), the forward of WS
 # /inference at bucket 8 (8 frames x 4 faces), and an 8-CTA cluster on an

@@ -107,3 +107,42 @@ def test_route_rule(kind, b):
     assert _mma_queries(DTYPES[kind], b) == want
     assert bool(want) == _tensor_cores(kind, b)
     assert MMA_QUERIES_F32 < MMA_QUERIES
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("b", [257, 512, 8448, 20000])
+@pytest.mark.parametrize("n_rows", [33, 1000, 1 << 20])
+@pytest.mark.parametrize("k", [1, 64])
+def test_search_plan_past_256_queries(n_rows, b, kind, k):
+    """Batches past 256 queries take the tensor-core pass 1 with the same
+    rule: the chunks cover the rows, none is empty, and the (query tiles,
+    chunks) grid stays about one CTA per SM until the query tiles alone
+    outnumber the SMs (then one chunk per tile)."""
+    q = _queries(kind, b)
+    height = MMA_QUERIES_F32 if kind == "f32" else MMA_QUERIES
+    assert q == height
+    rows_per_cta, chunks = _search_plan(n_rows, b, q, SMS, k)
+    q_tiles = -(-b // height)
+    assert rows_per_cta % MMA_ROWS == 0
+    assert rows_per_cta * chunks >= n_rows
+    assert (chunks - 1) * rows_per_cta < n_rows
+    assert q_tiles * chunks <= max(SMS, q_tiles)
+    if q_tiles > SMS // 2:
+        assert chunks == 1
+
+
+def test_search_plan_at_512_queries_full_gallery():
+    """B = 512 at the top gallery bucket: 8 query tiles x 16 chunks in bf16
+    and int8, 16 f32 tiles of 32 x 8 chunks; B = 257 adds a fifth (ninth
+    in f32) tile with one query, and the chunks shrink to fit."""
+    for k in (1, 64):
+        assert _search_plan(1 << 20, 512, _queries("bf16", 512),
+                            SMS, k) == (65536, 16)
+        assert _search_plan(1 << 20, 512, _queries("int8", 512),
+                            SMS, k) == (65536, 16)
+        assert _search_plan(1 << 20, 512, _queries("f32", 512),
+                            SMS, k) == (131072, 8)
+        assert _search_plan(1 << 20, 257, _queries("bf16", 257),
+                            SMS, k) == (40448, 26)
+        assert _search_plan(1 << 20, 257, _queries("f32", 257),
+                            SMS, k) == (75008, 14)
