@@ -8,24 +8,29 @@ searches at the top gallery bucket (N = 1,048,576; each timed case also
 split into pass 1 and pass 2 by a ``torch.profiler`` trace; 70 copies of
 a row checked at the k = 64 cutoff; both at 257 and 512 queries), the
 s8 convolution at every conv shape of the int8 IR-50 at batches 1, 8 and
-64 (with the kernels' device time from a profiler trace, and per-forward
-sums) and at the TPU kernel's own shape, the fused IR block at IR-50's
-four identity-block shapes (batch 8 and 64, bf16 and f32, and batch 32
-in bf16). Then it drives three serving
-paths on the card and checks what comes out: /recognize + enrollment of configs/default.json
-(IR-50, bf16), the same for configs/throughput.json (int8 IR-50, int8
-gallery, batches of 1, 8 and 64) with dynamic and with calibrated
-activation scales, and WS /inference of configs/default.json (480x640
-frames -> RetinaFace -> alignment -> IR-50 -> search, buckets 1 and 8),
-stage by stage against the port's CPU path. Each path runs with every
-kernel's launch count set to 0 just before it and read just after. Prints
-one JSON line per phase, the ``kernels`` line, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero; nothing falls back to the CPU
-or to a plain version. Without CUDA it exits non-zero and prints no
-result. Imports nothing of JAX. ``python3 chip_smoke.py --searches``
-runs the build and the two search phases alone, for comparing search
-kernels; ``--convs`` the conv's build, its ``ptxas`` line and the conv
-phase alone.
+64 (with the host's and the card's time per call, and per-forward sums)
+and at the TPU kernel's own shape, the fused IR block at IR-50's four
+identity-block shapes (batch 8 and 64, bf16 and f32, and batch 32 in
+bf16). It traces the throughput config's int8 IR-50 forward back to back
+at batches 1, 8 and 64 (host time, device operations, the card's idle
+share). Then it drives three serving paths on the card and checks what
+comes out: /recognize + enrollment of configs/default.json (IR-50,
+bf16), the same for configs/throughput.json (int8 IR-50, int8 gallery,
+batches of 1, 8 and 64) with dynamic and with calibrated activation
+scales, and WS /inference of configs/default.json (480x640 frames ->
+RetinaFace -> alignment -> IR-50 -> search, buckets 1 and 8), stage by
+stage against the port's CPU path. Each path runs with every kernel's
+launch count set to 0 just before it and read just after. Prints one
+JSON line per phase, the ``kernels`` line, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Any
+failed phase exits non-zero; nothing falls back to the CPU or to a plain
+version. Without CUDA it exits non-zero and prints no result. Imports
+nothing of JAX. ``python3 chip_smoke.py --searches`` runs the build and
+the two search phases alone, for comparing search kernels; ``--convs``
+the conv's build, its ``ptxas`` line and the conv phase alone;
+``--throughput`` the int8 forward and the throughput config's /recognize
+path alone (it runs on an older checkout too, to compare the two in one
+call).
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ CONV_BATCHES = (1, 8, 64)
 # search batches past 256 queries (a top bucket above 64 frames, or more
 # than 4 faces a frame, on WS /inference)
 BIG_BATCHES = (257, 512)
+FORWARD_REPS = 10        # int8 IR-50 forwards timed and traced per batch
 IR_BLOCKS_PER_FORWARD = 20   # float IR-50's stride-1 identity blocks
 # (H = W, C, blocks per forward) of those blocks
 IR_BLOCK_SHAPES = [(56, 64, 2), (28, 128, 3), (14, 256, 13), (7, 512, 2)]
@@ -148,28 +154,59 @@ def cuda_ms(fn, args_list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def pass_split(fn, args_list, reps: int = SPLIT_REPS):
-    """Device µs of a search's two kernels, from a torch.profiler (CUPTI)
-    trace of ``reps`` searches ``fn(*args)``, one at a time: the median
-    pass 1 (the partial kernel) and pass 2 (the merge kernel), and the
-    median of the rest (the int8 wrapper's query quantization). None where
-    the trace holds no kernel of that pass."""
+def host_us(fn, args_list, reps: int = 20) -> float:
+    """Median µs the host spends in one call ``fn(*args)``, each call
+    issued on an idle card (after a sync) and not waited for."""
+    import torch
+    ts = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args_list[i % len(args_list)])
+        ts.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(ts[2:])
+
+
+def device_events(run):
+    """(name, start µs, duration µs) of every kernel and memset that
+    ``run()`` puts on the card, from a torch.profiler (CUPTI) trace; the
+    trace ends with a device sync."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn(*args_list[0])                            # warm up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.start, e.time_range.elapsed_us())
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def traced_calls(fn, args_list, reps: int = SPLIT_REPS):
+    """``device_events`` of ``reps`` calls ``fn(*args)``, one at a time
+    (each call's work ends before the next is issued), after a warm-up."""
+    import torch
+    fn(*args_list[0])                            # warm up
+
+    def run():
         for i in range(reps):
             fn(*args_list[i % len(args_list)])
             torch.cuda.synchronize()
+    return device_events(run)
+
+
+def pass_split(fn, args_list, reps: int = SPLIT_REPS):
+    """Device µs of a search's two kernels, from ``traced_calls``: the
+    median pass 1 (the partial kernel) and pass 2 (the merge kernel), and
+    the mean of the rest per search (the int8 wrapper's query
+    quantization). None where the trace holds no kernel of that pass."""
     passes = {"pass1_us": [], "pass2_us": [], "other_us": []}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        key = ("pass2_us" if "merge" in e.name else
-               "pass1_us" if "partial" in e.name else "other_us")
-        passes[key].append(e.time_range.elapsed_us())
+    for name, _, us in traced_calls(fn, args_list, reps):
+        key = ("pass2_us" if "merge" in name else
+               "pass1_us" if "partial" in name else "other_us")
+        passes[key].append(us)
     other = passes["other_us"]
     return {"pass1_us": (statistics.median(passes["pass1_us"])
                          if passes["pass1_us"] else None),
@@ -180,20 +217,10 @@ def pass_split(fn, args_list, reps: int = SPLIT_REPS):
 
 def device_us(fn, args_list, reps: int = SPLIT_REPS):
     """Mean device µs of one call ``fn(*args)``: every kernel and memset it
-    runs on the card, from a torch.profiler (CUPTI) trace of ``reps``
-    calls, one at a time. Beside ``cuda_ms`` (CUDA events around calls
-    issued back to back) it tells the card's time from the host's."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn(*args_list[0])                            # warm up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(*args_list[i % len(args_list)])
-            torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+    runs on the card, from ``traced_calls``. Beside ``cuda_ms`` (CUDA
+    events around calls issued back to back) it tells the card's time from
+    the host's."""
+    return sum(us for _, _, us in traced_calls(fn, args_list, reps)) / reps
 
 
 def search_bound(n_rows: int, b: int, k: int, dtype: str):
@@ -867,12 +894,8 @@ def phase_conv(device, batches=CONV_BATCHES, seed=3):
     import torch
     import torch.nn.functional as F
 
-    from facekit_torch.ops.conv_s8 import conv_s8, conv_s8_reference
-    conv_mod = sys.modules["facekit_torch.ops.conv_s8"]
-    # a checkout whose conv_s8.py has no conv_route runs __dp4a at every
-    # site and has no plan (compared with in turns by --convs)
-    route_of = getattr(conv_mod, "conv_route", lambda c: "dp4a")
-    plan_of = getattr(conv_mod, "_conv_plan", None)
+    from facekit_torch.ops.conv_s8 import (_launch_plan, conv_route, conv_s8,
+                                           conv_s8_reference)
     gen = torch.Generator(device=device).manual_seed(seed)
     cases = [(shape, batch, len(sites), ",".join(sites[:3])
               + (",..." if len(sites) > 3 else ""))
@@ -902,16 +925,17 @@ def phase_conv(device, batches=CONV_BATCHES, seed=3):
         bound, by = conv_bound(n, h, w, c, o, ks, stride, pad)
         oh = (h + 2 * pad - ks) // stride + 1
         ow = (w + 2 * pad - ks) // stride + 1
-        route = route_of(c)
+        route = conv_route(c)
+        plan = _launch_plan(n, oh, ow, o, c, ks, sms)
         rec = {"phase": "conv_s8_case", "batch": batch,
                "shape": {"N": n, "H": h, "W": w, "C": c, "O": o, "k": ks,
                          "stride": stride, "pad": pad},
                "sites": sites, "launches_per_forward": per_forward,
                "route": route,
-               "plan": (plan_of(n, oh, ow, o, ks * ks * c, sms)._asdict()
-                        if plan_of and route == "mma" else None),
+               "plan": plan._asdict() if plan.bn else None,
                "max_abs_err": 0,
                "ms": cuda_ms(conv_s8, args, 20),
+               "host_us": host_us(conv_s8, args),
                "device_us": device_us(conv_s8, args),
                "plain_ms": cuda_ms(conv_s8_reference, args, 2),
                "bf16_cudnn_ms": cuda_ms(
@@ -933,9 +957,9 @@ def phase_conv(device, batches=CONV_BATCHES, seed=3):
 
 def conv_forwards(convs):
     """One line per batch of ``convs``: the conv_s8_case lines of the int8
-    IR-50's sites summed by their launches_per_forward (ms, device ms,
-    bound, plain version, bf16 cuDNN yardstick), and the sites each route
-    serves."""
+    IR-50's sites summed by their launches_per_forward (ms, host ms,
+    device ms, bound, plain version, bf16 cuDNN yardstick), and the sites
+    each route serves."""
     out = []
     for batch in sorted({c["batch"] for c in convs
                          if c["launches_per_forward"]}):
@@ -951,7 +975,8 @@ def conv_forwards(convs):
         rec = {"phase": "conv_s8_forward", "batch": batch,
                "launches_per_forward": sum(c["launches_per_forward"]
                                            for c in cs),
-               "ms": total("ms"), "device_ms": total("device_us") / 1e3,
+               "ms": total("ms"), "host_ms": total("host_us") / 1e3,
+               "device_ms": total("device_us") / 1e3,
                "bound_ms": total("bound_ms"),
                "plain_ms": total("plain_ms"),
                "bf16_cudnn_ms": total("bf16_cudnn_ms"),
@@ -960,6 +985,71 @@ def conv_forwards(convs):
         if rec["launches_per_forward"] != SITES_PER_FORWARD:
             raise AssertionError(f"conv_s8 batch {batch}: "
                                  f"{rec['launches_per_forward']} sites")
+        emit(rec)
+        out.append(rec)
+    return out
+
+
+def phase_int8_forward(device, repo_dir, batches=CONV_BATCHES, seed=4,
+                       reps=FORWARD_REPS):
+    """The embedder of configs/throughput.json (int8 IR-50, dynamic
+    activation scales, random weights), the forward /recognize runs, at
+    each of ``batches``: ms to issue one forward on the host and to its
+    end (median of ``reps``, each after a sync), ms per forward by CUDA
+    events around ``reps`` forwards issued back to back, and from a trace
+    of ``reps`` back-to-back forwards, per forward: the device operations
+    (conv_s8 kernels and memsets among them), the ms the card was busy
+    (conv_s8's share) and the idle share of the back-to-back time. The
+    trace's counts are reported, not checked: a trace may drop a few
+    events (one run lost 52 of 14,700); the launch counters are the
+    check."""
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.ops.preprocess import rec_normalize
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.weights import random_arcface_params
+
+    cfg = load_config(os.path.join(repo_dir, "configs", "throughput.json"))
+    pipe = FacePipeline(cfg, random_arcface_params(cfg.rec_network,
+                                                   seed=seed), device=device)
+    net = pipe.rec_net
+    if net.int8 != "dynamic":
+        raise AssertionError(f"int8_forward: the embedder is {net.int8}")
+    rh, rw = cfg.rec_hw
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in batches:
+        xs = [rec_normalize(torch.tensor(
+            rng.integers(0, 256, (b, rh, rw, 3), dtype=np.uint8),
+            device=device).float()) for _ in range(2)]
+        with torch.inference_mode():
+            issue, end = [], []
+            for i in range(reps + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net(xs[i % 2])
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                issue.append((t1 - t0) * 1e3)
+                end.append((time.perf_counter() - t0) * 1e3)
+            ms = cuda_ms(net, [(x,) for x in xs], reps)
+            events = device_events(
+                lambda: [net(xs[i % 2]) for i in range(reps)])
+        busy = sum(us for _, _, us in events) / reps / 1e3
+        conv = [us for name, _, us in events if "conv_s8" in name]
+        rec = {"phase": "int8_forward", "batch": b, "scales": "dynamic",
+               "reps": reps,
+               "host_issue_ms": statistics.median(issue[2:]),
+               "issue_to_end_ms": statistics.median(end[2:]),
+               "back_to_back_ms": ms,
+               "device_ops_per_forward": len(events) / reps,
+               "conv_s8_kernels_per_forward": len(conv) / reps,
+               "memsets_per_forward": sum("emset" in name
+                                          for name, _, _ in events) / reps,
+               "device_busy_ms": busy,
+               "conv_s8_device_ms": sum(conv) / reps / 1e3,
+               "idle_share": max(0.0, 1 - busy / ms)}
         emit(rec)
         out.append(rec)
     return out
@@ -1404,8 +1494,11 @@ def main(argv) -> int:
     """No arguments: the whole smoke test. ``--searches``: the two search
     phases alone (build, ptxas, ``kernel_case``, ``kernel_int8_case``),
     for comparing search kernels; ``--convs``: the conv phase alone
-    (build, ptxas, ``conv_s8_case``, ``conv_s8_forward``). Neither prints
-    an ``ok`` line."""
+    (build, ptxas, ``conv_s8_case``, ``conv_s8_forward``);
+    ``--throughput``: the int8 embedder's forward and the throughput
+    config's /recognize path alone (``int8_forward``,
+    ``server_throughput``), for comparing them with another checkout. None
+    of the three prints an ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1422,20 +1515,25 @@ def main(argv) -> int:
     emit({"phase": "device", "kind": kind, "nvidia_smi": power,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    searches_only = argv == ["--searches"]
-    convs_only = argv == ["--convs"]
-    if argv and not (searches_only or convs_only):
+    modes = {"--searches": ["cosine_topk", "cosine_topk_int8"],
+             "--convs": ["conv_s8"],
+             "--throughput": ["conv_s8", "cosine_topk_int8"]}
+    mode = argv[0] if len(argv) == 1 and argv[0] in modes else None
+    if argv and mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    logs = _build.build(["cosine_topk", "cosine_topk_int8"] if searches_only
-                        else ["conv_s8"] if convs_only else None,
-                        ptxas_verbose=True)
+    logs = _build.build(modes.get(mode), ptxas_verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs)})
     for name, text in logs.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
-    if convs_only:
+    if mode == "--throughput":
+        phase_int8_forward("cuda", repo_dir)
+        phase_server_throughput("cuda", repo_dir)
+        print(power, flush=True)
+        return 0
+    if mode == "--convs":
         emit({"phase": "ptxas", "kernel": "conv_s8",
               "kernels": conv_ptxas(logs)})
         conv_forwards(phase_conv("cuda"))
@@ -1445,12 +1543,12 @@ def main(argv) -> int:
           "instantiations": mma_ptxas(logs)})
     emit({"phase": "ptxas", "kernel": "B <= 8 pass 1 and pass 2",
           "kernels": selection_ptxas(logs)})
-    if not searches_only:
+    if mode is None:
         emit({"phase": "ptxas", "kernel": "conv_s8",
               "kernels": conv_ptxas(logs)})
 
     max_err, timings = phase_kernels("cuda")
-    if searches_only:
+    if mode == "--searches":
         phase_int8_kernels("cuda")
         print(power, flush=True)
         return 0
@@ -1459,6 +1557,7 @@ def main(argv) -> int:
     big = phase_big_batches("cuda")
     convs = phase_conv("cuda")
     forwards = {f["batch"]: f for f in conv_forwards(convs)}
+    int8_fwd = phase_int8_forward("cuda", repo_dir)
     tput = phase_server_throughput("cuda", repo_dir)
     blocks = phase_ir_block("cuda")
     inference = phase_server_inference("cuda", repo_dir)
@@ -1546,11 +1645,19 @@ def main(argv) -> int:
                  "crops, times summed",
         "launches_per_forward": SITES_PER_FORWARD,
         "per_forward": [
-            {key: f[key] for key in ("batch", "ms", "device_ms", "bound_ms",
-                                     "plain_ms", "bf16_cudnn_ms",
+            {key: f[key] for key in ("batch", "ms", "host_ms", "device_ms",
+                                     "bound_ms", "plain_ms", "bf16_cudnn_ms",
                                      "bf16_cudnn_device_ms",
                                      "sites_by_route")}
             for f in forwards.values()],
+        "in_forward": [
+            {key: f[key] for key in ("batch", "back_to_back_ms",
+                                     "conv_s8_kernels_per_forward",
+                                     "conv_s8_device_ms",
+                                     "memsets_per_forward",
+                                     "device_ops_per_forward",
+                                     "device_busy_ms", "idle_share")}
+            for f in int8_fwd],
         "routes": [{**c["shape"], "route": c["route"], "plan": c["plan"],
                     "sites": c["launches_per_forward"]}
                    for c in convs if c["launches_per_forward"]],

@@ -14,10 +14,12 @@ exact integer sum:
     pallas_s8_stride2_conv.py:86``, made general) or raises; for CPU
     tensors it runs the plain version.
 
-The kernel has two routes (``conv_route``): inputs of 16 channels or more
-(every IR-50 site but the stem) run an implicit GEMM on s8 ``mma.sync``
-tensor cores, in CTA tiles and K splits that ``_conv_plan`` chooses; the
-stem's 3 channels (padded to 4) run a ``__dp4a`` kernel on CUDA cores.
+The kernel has two routes, and the wrapper alone chooses (``conv_route``):
+inputs of 16 channels or more (every IR-50 site but the stem) run an
+implicit GEMM on s8 ``mma.sync`` tensor cores, in CTA tiles and K splits
+that ``_conv_plan`` chooses; the stem's 3 channels (padded to 4) run a
+``__dp4a`` kernel on CUDA cores. The plan passed to the C entry point names
+the route (``bn = 0``: dp4a).
 
 PyTorch has no s8 convolution on CUDA, so no float path stands in for it.
 """
@@ -36,8 +38,11 @@ MMA_MIN_C = 16         # input channels from which the tensor-core route runs
 CONV_BM = 128          # output pixels per CTA of the tensor-core route
 CONV_BK = 128          # bytes of K per pipeline stage of that route
 # the least stages of K a split takes: one 128 x 128 stage reads 32 KiB of
-# operands and adds a 64 KiB tile of int32 into the output
+# operands, and each split adds a 64 KiB tile of int32 to the reduction
 MIN_SPLIT_STAGES = 2
+# the most splits of K: the splits of a tile run as one thread-block
+# cluster, whose portable size is 8 CTAs
+MAX_SPLITS = 8
 # |sum| <= 128**2 * K must stay below 2**31 (int8 spans -128..127)
 MAX_K = (2 ** 31 - 1) // 128 ** 2
 
@@ -75,10 +80,11 @@ def conv_route(c: int) -> str:
 
 
 class ConvPlan(NamedTuple):
-    """The launch of the tensor-core route: a grid of (n_tiles * m_tiles,
-    splits) CTAs, each ``CONV_BM`` pixels x ``bn`` output channels over
+    """The launch the kernel takes. ``bn = 0`` (``_NO_PLAN``): the dp4a
+    route. Else the tensor-core route: a grid of (n_tiles * m_tiles, splits)
+    CTAs, each ``CONV_BM`` pixels x ``bn`` output channels over
     ``per_split`` of the ``stages`` stages of K (the last split may take
-    fewer)."""
+    fewer); the splits of a tile are one cluster."""
     bn: int
     m_tiles: int
     n_tiles: int
@@ -100,20 +106,31 @@ def _conv_plan(n: int, oh: int, ow: int, o: int, k: int, sms: int
     Tiles are CONV_BM x 128 where ``o`` is a multiple of 128, else
     CONV_BM x 64. Where the tiles fill fewer CTAs than the card has SMs
     (small batches, the 7x7 and 14x14 stages), K splits across CTAs in
-    whole stages: as many splits as make a CTA per SM, of at least
-    MIN_SPLIT_STAGES stages each but the last (so a 1x1 site of one or two
-    stages never splits), the stages shared as evenly as whole stages allow.
-    int32 sums are exact in any order; the splits add into a zeroed
-    output."""
+    whole stages: as many splits as make a CTA per SM, at most MAX_SPLITS,
+    of at least MIN_SPLIT_STAGES stages each but the last (so a 1x1 site of
+    one or two stages never splits), the stages shared as evenly as whole
+    stages allow. The splits of a tile form one cluster and sum their
+    partial tiles in distributed shared memory; int32 sums are exact in any
+    order."""
     bn = 128 if o % 128 == 0 else 64
     m_tiles = -(-(n * oh * ow) // CONV_BM)
     n_tiles = o // bn
     stages = -(-k // CONV_BK)
     tiles = m_tiles * n_tiles
-    splits = 1 if tiles >= sms else -(-stages // max(
-        MIN_SPLIT_STAGES, stages * tiles // sms))
+    splits = 1 if tiles >= sms else min(MAX_SPLITS, -(-stages // max(
+        MIN_SPLIT_STAGES, stages * tiles // sms)))
     per = -(-stages // splits)
     return ConvPlan(bn, m_tiles, n_tiles, stages, -(-stages // per), per)
+
+
+def _launch_plan(n: int, oh: int, ow: int, o: int, c: int, ks: int,
+                 sms: int) -> ConvPlan:
+    """The plan the C entry point takes for ``c`` input channels (a power
+    of two >= 4) and a ``ks`` x ``ks`` kernel: ``_NO_PLAN`` on the dp4a
+    route, else ``_conv_plan``."""
+    if conv_route(c) == "dp4a":
+        return _NO_PLAN
+    return _conv_plan(n, oh, ow, o, ks * ks * c, sms)
 
 
 @functools.cache
@@ -178,8 +195,7 @@ def _conv_s8_cuda(x, w, stride, padding):
         raise ValueError("conv_s8: tensors of 2**31 elements or more")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv_s8: x and w must be 16-byte aligned")
-    plan = (_conv_plan(n, oh, ow, o, ks * ks * c, _sms(x.device.index))
-            if conv_route(c) == "mma" else _NO_PLAN)
+    plan = _launch_plan(n, oh, ow, o, c, ks, _sms(x.device.index))
     out = torch.empty((n, oh, ow, o), dtype=torch.int32, device=x.device)
     fn = _library()
     with torch.cuda.device(x.device):

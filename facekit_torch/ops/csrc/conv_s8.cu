@@ -19,7 +19,8 @@
 // large as the s8 input. IR-50's 3x3 sites at 14x14 and 7x7 are bound by
 // operations. chip_smoke.py computes the bound of every shape it runs.
 //
-// Two routes, chosen by C (the wrapper's `conv_route`):
+// Two routes, chosen by C in the wrapper (`conv_route`), whose plan names
+// the route (bn = 0: the __dp4a kernel):
 //
 // C >= 16: an implicit GEMM on s8 tensor cores (conv_s8_mma_kernel).
 //  * M = N*OH*OW output pixels, N_gemm = O, K = KS*KS*C in the weight's
@@ -42,9 +43,12 @@
 //    from L2 together.
 //  * Split-K: where the tiles give fewer CTAs than the card has SMs (small
 //    batches, late stages), blockIdx.y takes a run of whole stages and the
-//    CTAs add their partial sums into an output zeroed beforehand
-//    (atomicAdd). int32 sums are exact, so the order of the adds does not
-//    matter and the result is bit-equal to a single pass.
+//    splits of one tile run as one thread-block cluster (at most 8 CTAs,
+//    the portable size). Each CTA leaves its partial tile in its shared
+//    memory; after a cluster barrier each sums a share of the tile's rows
+//    over every CTA's tile through distributed shared memory and writes
+//    them out. No atomics, no zeroed output, no second launch; int32 sums
+//    are exact, so the result is bit-equal to a single pass.
 //  * Epilogue: the accumulator tile goes through shared memory (the ring,
 //    reused), so that each thread writes 16 bytes of one pixel's channels
 //    and a warp whole runs of a pixel row.
@@ -55,12 +59,15 @@
 // stored transposed to shared memory. K is 36 bytes there, too thin for an
 // m16n8k32 and bound by the bytes of its output.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int THREADS = 256;
 
@@ -70,6 +77,7 @@ constexpr int THREADS = 256;
 constexpr int BM = 128;             // output pixels per CTA
 constexpr int BK = 128;             // bytes of K per stage
 constexpr int ROWB = BK + 16;       // shared row stride in bytes
+constexpr int MAX_SPLITS = 8;       // CTAs of a cluster (the portable most)
 
 template <int BN>
 struct MmaConv {
@@ -88,8 +96,7 @@ template <int KS, int BN>
 __global__ void __launch_bounds__(THREADS, 2)
 conv_s8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                    int32_t* __restrict__ out, int H, int W, int lc, int O,
-                   int OH, int OW, int stride, int pad, int M, int per_split,
-                   int split) {
+                   int OH, int OW, int stride, int pad, int M, int per_split) {
   using P = MmaConv<BN>;
   constexpr int MST = P::MST, MT = P::MT, CSTR = P::CSTR;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -220,16 +227,30 @@ conv_s8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   // each thread writes 16 bytes of one pixel; BN/4 threads cover a pixel
   constexpr int TPR = BN / 4, RPP = THREADS / TPR;
   const int er = tid / TPR, ec = (tid % TPR) * 4;
-  for (int r = er; r < BM && m0 + r < M; r += RPP) {
-    const int4 v = *reinterpret_cast<const int4*>(cs + r * CSTR + ec);
-    int32_t* dst = out + (size_t)(m0 + r) * O + n0 + ec;
-    if (split) {
-      atomicAdd(dst, v.x); atomicAdd(dst + 1, v.y);
-      atomicAdd(dst + 2, v.z); atomicAdd(dst + 3, v.w);
-    } else {
-      *reinterpret_cast<int4*>(dst) = v;
-    }
+  if (gridDim.y == 1) {
+    for (int r = er; r < BM && m0 + r < M; r += RPP)
+      *reinterpret_cast<int4*>(out + (size_t)(m0 + r) * O + n0 + ec) =
+          *reinterpret_cast<const int4*>(cs + r * CSTR + ec);
+    return;
   }
+  // split K: the gridDim.y CTAs of this tile are one cluster; CTA `rank`
+  // sums the row groups rank, rank + splits, ... over every CTA's tile
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster.sync();                      // every partial tile is in place
+  for (int g = rank; g * RPP < BM; g += splits) {
+    const int r = g * RPP + er;
+    if (m0 + r >= M) break;
+    int4 v = make_int4(0, 0, 0, 0);
+    for (int q = 0; q < splits; ++q) {
+      const int4 p = *reinterpret_cast<const int4*>(
+          cluster.map_shared_rank(cs + r * CSTR + ec, q));
+      v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+    }
+    *reinterpret_cast<int4*>(out + (size_t)(m0 + r) * O + n0 + ec) = v;
+  }
+  cluster.sync();                      // no CTA leaves while its tile is read
 }
 
 // Returns the CUDA error of setting the shared-memory size or of the
@@ -251,12 +272,23 @@ int launch_mma(cudaStream_t s, const void* x, const void* w, void* out, int H,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 64) smem_set[dev] = true;
   }
-  const dim3 grid((O / BN) * ((M + BM - 1) / BM), splits);
-  kernel<<<grid, THREADS, smem, s>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+  // the splits of a tile are one cluster of (1, splits, 1) CTAs
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = splits;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((O / BN) * ((M + BM - 1) / BM), splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<int32_t*>(out), H, W, lc, O, OH, OW, stride, pad, M,
-      per_split, splits > 1);
-  return static_cast<int>(cudaGetLastError());
+      per_split));
 }
 
 // ---------------------------------------------------------------------------
@@ -409,25 +441,23 @@ int launch_dp4a(cudaStream_t s, const void* x, const void* w, void* out, int H,
 // (N, H, W, 2**log2_c) and w (O, ks, ks, 2**log2_c) int8 and out (N, OH,
 // OW, O) int32, all contiguous and 16-byte aligned; log2_c >= 2; ks in
 // {1, 3}; O a multiple of 64; N*OH*OW*O and N*H*W*C below 2**31; K =
-// ks*ks*C small enough that no int32 sum overflows. log2_c >= 4 runs the
-// tensor-core kernel with the plan of the wrapper's `_conv_plan`: bn (128,
-// with O a multiple of 128, or 64), `splits` runs of `per_split` stages of
-// K covering them all; splits > 1 zeroes out first. log2_c < 4 runs the
-// __dp4a kernel and ignores the plan.
+// ks*ks*C small enough that no int32 sum overflows. The plan is the
+// wrapper's `_conv_plan` and carries the route: bn = 0 runs the __dp4a
+// kernel; bn = 128 (O a multiple of 128) or 64 runs the tensor-core kernel,
+// which takes log2_c >= 4, in `splits` (1..8) runs of `per_split` stages
+// of K covering them all.
 extern "C" int facekit_conv_s8(const void* x, const void* w, void* out,
                                int N, int H, int W, int log2_c, int O, int ks,
                                int stride, int pad, int OH, int OW, int bn,
                                int splits, int per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = N * OH * OW;
-  if (log2_c < 4) {
+  if (bn == 0) {
     return ks == 1 ? launch_dp4a<1>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M)
                    : launch_dp4a<3>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M);
   }
-  if (splits > 1) {
-    cudaError_t err = cudaMemsetAsync(out, 0, (size_t)M * O * sizeof(int32_t), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (log2_c < 4 || splits < 1 || splits > MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (ks == 1)
     return bn == 128 ? launch_mma<1, 128>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split)
                      : launch_mma<1, 64>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split);

@@ -1,18 +1,19 @@
 """The launch plan of facekit_torch's s8 conv kernel.
 
-``conv_route`` (which kernel a channel count runs) and ``_conv_plan`` (the
-tensor-core route's CTA tile and K split) are pure functions of the shapes
-and the card's SM count, so they are checked here on the CPU at every conv
-site of the int8 IR-50 at the served batches; the kernel itself is in
-tests/test_torch_kernels.py. Imports neither JAX nor facekit.
+``conv_route`` (which kernel a channel count runs), ``_conv_plan`` (the
+tensor-core route's CTA tile and K split) and ``_launch_plan`` (the plan
+the C entry point takes, which names the route) are pure functions of the
+shapes and the card's SM count, so they are checked here on the CPU at
+every conv site of the int8 IR-50 at the served batches; the kernel itself
+is in tests/test_torch_kernels.py. Imports neither JAX nor facekit.
 """
 
 import pytest
 
 from facekit_torch.models.arcface import block_specs
-from facekit_torch.ops.conv_s8 import (CONV_BK, CONV_BM, MAX_K, MMA_MIN_C,
-                                       MIN_SPLIT_STAGES, _conv_plan,
-                                       conv_route)
+from facekit_torch.ops.conv_s8 import (CONV_BK, CONV_BM, MAX_K, MAX_SPLITS,
+                                       MIN_SPLIT_STAGES, MMA_MIN_C, _NO_PLAN,
+                                       _conv_plan, _launch_plan, conv_route)
 
 SMS = 132                      # an H100 SXM
 BATCHES = (1, 8, 64)           # the throughput config's /recognize buckets
@@ -43,9 +44,10 @@ def test_ir50_has_sixteen_conv_shapes():
                          ids=lambda s: "h{}c{}o{}k{}s{}".format(*s[:5]))
 def test_conv_plan_covers_each_site(site, batch):
     """Tiles cover the pixels and channels, the splits cover K in whole
-    stages with no empty split and none but the last below
-    MIN_SPLIT_STAGES, and the grid has a CTA for every SM, or as many CTAs
-    as splits of that many stages make where that is fewer."""
+    stages with no empty split, none but the last below MIN_SPLIT_STAGES
+    and at most MAX_SPLITS of them (one cluster), and each split takes no
+    more stages than a CTA per SM, MAX_SPLITS or MIN_SPLIT_STAGES makes
+    it take."""
     h, c, o, ks, stride, pad = site
     oh = (h + 2 * pad - ks) // stride + 1
     m, k = batch * oh * oh, ks * ks * c
@@ -57,8 +59,11 @@ def test_conv_plan_covers_each_site(site, batch):
     assert (p.stages - 1) * CONV_BK < k <= p.stages * CONV_BK
     assert (p.splits - 1) * p.per_split < p.stages <= p.splits * p.per_split
     tiles = p.m_tiles * p.n_tiles
-    assert tiles * p.splits >= min(SMS,
-                                   tiles * (p.stages // MIN_SPLIT_STAGES))
+    assert 1 <= p.splits <= MAX_SPLITS
+    if tiles < SMS:
+        assert p.per_split <= max(MIN_SPLIT_STAGES, -(-p.stages // MAX_SPLITS),
+                                  -(-p.stages * tiles // SMS))
+    assert _launch_plan(batch, oh, oh, o, c, ks, SMS) == p
     if tiles >= SMS or p.stages <= MIN_SPLIT_STAGES:
         assert (p.splits, p.per_split) == (1, p.stages)
     if p.splits > 1:
@@ -70,12 +75,12 @@ def test_conv_plan_covers_each_site(site, batch):
 def test_conv_plan_at_served_shapes():
     """The 26 sites at 14x14x256 take one wave of 98 x 2 tiles at batch 64
     and split K at batches 1 and 8; 7x7x512 at batch 1 splits its 36
-    stages two by two (4 tiles x 18 = 72 CTAs); the 1x1 shortcut at
-    14x14x256 -> 7x7x512 (two stages) never splits."""
+    stages into a full cluster of 8 (4 tiles x 8 = 32 CTAs); the 1x1
+    shortcut at 14x14x256 -> 7x7x512 (two stages) never splits."""
     assert _conv_plan(64, 14, 14, 256, 2304, SMS) == (128, 98, 2, 18, 1, 18)
     assert _conv_plan(8, 14, 14, 256, 2304, SMS) == (128, 13, 2, 18, 6, 3)
-    assert _conv_plan(1, 14, 14, 256, 2304, SMS) == (128, 2, 2, 18, 9, 2)
-    assert _conv_plan(1, 7, 7, 512, 4608, SMS) == (128, 1, 4, 36, 18, 2)
+    assert _conv_plan(1, 14, 14, 256, 2304, SMS) == (128, 2, 2, 18, 6, 3)
+    assert _conv_plan(1, 7, 7, 512, 4608, SMS) == (128, 1, 4, 36, 8, 5)
     assert _conv_plan(64, 7, 7, 512, 4608, SMS) == (128, 25, 4, 36, 2, 18)
     for n in BATCHES:
         assert _conv_plan(n, 7, 7, 512, 256, SMS).splits == 1
@@ -88,6 +93,11 @@ def test_conv_plan_at_served_shapes():
 def test_conv_route(c, route):
     assert conv_route(c) == route
     assert (c >= MMA_MIN_C) == (route == "mma")
+    if c % 4 == 0:
+        # the plan the C entry point takes names the route: bn = 0 is dp4a
+        plan = _launch_plan(1, 7, 7, 64, c, 3, SMS)
+        assert (plan == _NO_PLAN) == (route == "dp4a")
+        assert (plan.bn == 0) == (route == "dp4a")
 
 
 def test_overflow_bound_covers_ir50():

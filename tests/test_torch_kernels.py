@@ -380,9 +380,9 @@ def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
 # its edges: ragged pixel tiles, C in {16, 64, 512} (16: a 3x3 K of 144
 # bytes, one full stage and one mostly past K), O in {64, 128, 192, 512}
 # (192: three 64-channel tiles), the split-K route (batch 1 at 7x7x512:
-# 18 splits of two stages; 4x4 pixels: one tile, 5 splits, the last of
-# one stage), tiles without split (20,000 pixels: 157 tiles), and C = 4 on
-# the dp4a route with O = 128
+# a cluster of 8 splits of five stages, the last of one; 4x4 pixels: one
+# tile, 5 splits, the last of one stage), tiles without split (20,000
+# pixels: 157 tiles), and C = 4 on the dp4a route with O = 128
 CONV_MMA_CASES = [(3, 9, 7, 16, 64, 3, 1, 1), (2, 11, 13, 64, 192, 3, 2, 1),
                   (1, 7, 7, 512, 512, 3, 1, 1), (2, 14, 14, 256, 128, 1, 2, 0),
                   (1, 4, 4, 128, 128, 3, 1, 1), (2, 100, 100, 64, 64, 3, 1, 1),
@@ -411,7 +411,7 @@ def test_conv_tensor_core_route_bit_for_bit(cuda_device, n, h, w, c, o, ks,
 def test_conv_extreme_sums(cuda_device, sign, n):
     """Every input 127 and every weight +-127 at C = 512, 3x3: each inner
     output sums 4,608 products of 127**2 (74,322,432 in magnitude), edges
-    fewer; batch 1 splits K over 18 CTAs, batch 8 over 9."""
+    fewer; at batches 1 and 8 K splits over a cluster of 8 CTAs."""
     x = torch.full((n, 7, 7, 512), 127, dtype=torch.int8, device=cuda_device)
     wt = torch.full((512, 3, 3, 512), sign * 127, dtype=torch.int8,
                     device=cuda_device)
@@ -419,6 +419,40 @@ def test_conv_extreme_sums(cuda_device, sign, n):
     ref = conv_s8_reference(x, wt, 1, 1)
     torch.cuda.synchronize()
     assert int(got[0, 3, 3, 0]) == sign * 127 ** 2 * 4608
+    assert torch.equal(got, ref)
+
+
+# (N, H, W, C, O, kernel, stride, padding, splits on 132 SMs): K split
+# into clusters of 2, 3, 4, 5, 6 and 8 CTAs (no power-of-two C makes the
+# 13 or 14 stages of a cluster of 7 at one tile), over ragged
+# pixel tiles (5x5 pixels of 6 images: two tiles, the second of 22
+# pixels) and 64- and 128-channel tiles
+CONV_CLUSTER_CASES = [(6, 5, 5, 32, 192, 3, 1, 1, 2),
+                      (6, 5, 5, 64, 128, 3, 1, 1, 3),
+                      (1, 5, 5, 1024, 64, 1, 1, 0, 4),
+                      (6, 5, 5, 128, 192, 3, 1, 1, 5),
+                      (1, 5, 5, 256, 128, 3, 1, 1, 6),
+                      (6, 5, 5, 512, 128, 3, 1, 1, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,ks,stride,pad,splits",
+                         CONV_CLUSTER_CASES)
+def test_conv_split_clusters_bit_for_bit(cuda_device, n, h, w, c, o, ks,
+                                         stride, pad, splits):
+    """Each split of a cluster sums a share of the tile's rows over the
+    cluster's partial tiles: bit for bit at every cluster size."""
+    from facekit_torch.ops.conv_s8 import _launch_plan, _sms
+    oh = (h + 2 * pad - ks) // stride + 1
+    plan = _launch_plan(n, oh, oh, o, c, ks, _sms(cuda_device.index or 0))
+    if _sms(cuda_device.index or 0) == 132:
+        assert plan.splits == splits
+    rng = np.random.default_rng(n + h + c + o + ks + splits)
+    x = _s8(rng, (n, h, w, c)).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, c)).to(cuda_device)
+    got = conv_s8(x, wt, stride, pad)
+    ref = conv_s8_reference(x, wt, stride, pad)
+    torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
 
