@@ -19,8 +19,13 @@ bf16), the same for configs/throughput.json (int8 IR-50, int8 gallery,
 batches of 1, 8 and 64) with dynamic and with calibrated activation
 scales, and WS /inference of configs/default.json (480x640 frames ->
 RetinaFace -> alignment -> IR-50 -> search, buckets 1 and 8), stage by
-stage against the port's CPU path. Each path runs with every kernel's
-launch count set to 0 just before it and read just after. Prints one
+stage against the port's CPU path. Last, ``weights_gen``: the default
+config's IR-50 and RetinaFace written as reference-layout checkpoints,
+converted by ``python -m facekit_torch.weights --verify`` on the card,
+a folder of crops enrolled by ``main()`` in gen mode (rows bit-equal to
+a server given the original tree), every crop recognized through the
+app, and ``/probe/device``. Each path runs with every kernel's launch
+count set to 0 just before it and read just after. Prints one
 JSON line per phase, the ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; nothing falls back to the CPU or to a plain
@@ -30,7 +35,8 @@ the two search phases alone, for comparing search kernels; ``--convs``
 the conv's build, its ``ptxas`` line and the conv phase alone;
 ``--throughput`` the int8 forward and the throughput config's /recognize
 path alone (it runs on an older checkout too, to compare the two in one
-call).
+call); ``--gen`` the build of the two kernels it runs and
+``weights_gen`` alone. ``weights_gen`` serves through aiohttp.
 """
 
 from __future__ import annotations
@@ -1490,6 +1496,233 @@ def phase_server_inference(device, repo_dir, seed=6, n_users=32):
             server.close()
 
 
+def _convert_cli(repo_dir, device, model, ckpt, out, extra=()):
+    """``python -m facekit_torch.weights MODEL CKPT OUT --verify`` on
+    ``device`` in its own process: (seconds, its ``verify`` line)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "facekit_torch.weights", model, ckpt, out,
+         "--verify", "--device", device, *extra], cwd=repo_dir,
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    verify = [ln for ln in res.stdout.splitlines() if ln.startswith("verify")]
+    if res.returncode != 0 or len(verify) != 1 or "True" not in verify[0]:
+        raise AssertionError(f"weights CLI {model} failed (rc "
+                             f"{res.returncode}): {res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+    return seconds, verify[0]
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(_flat_leaves(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def phase_weights_gen(device, repo_dir, power, seed=8, n_classes=16,
+                      per_class=4):
+    """A deployment's steps before it serves, on the card, at full width
+    (configs/default.json: IR-50 bf16, RetinaFace-MobileNet0.25 with
+    landmarks): (a) full-width trees drawn from seeds are written as
+    reference-layout state_dicts with torch.save (the detector's with
+    ``module.`` prefixes under ``state_dict``); (b) the port's converter
+    CLI turns each into a param file and ``--verify``s it on the card;
+    (c) ``main()`` with ``gen: true`` and those files enrolls a tree of
+    n_classes x per_class PNG crops; (d) one row per crop; (e) the rows
+    equal, bit for bit, the embeddings of a server given the original
+    tree; (f) /recognize through the app finds every crop as its own
+    class at similarity >= 0.999; (g) /probe/device reports "gpu", and a
+    second probe inside the cooldown gets 429."""
+    import asyncio
+
+    import cv2
+    import torch
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from facekit_torch.config import load_config
+    from facekit_torch.db import Database
+    from facekit_torch.server import FaceServer, make_app
+    from facekit_torch.server.app import main as server_main
+    from facekit_torch.weights import (load_params, random_arcface_params,
+                                       random_retinaface_params)
+    sys.path.insert(0, os.path.join(repo_dir, "tests"))
+    from torch_reference_layout import (arcface_state_dict,
+                                        retinaface_state_dict)
+
+    with open(os.path.join(repo_dir, "configs", "default.json")) as f:
+        raw = json.load(f)
+    cfg = load_config(raw)
+    rec_tree = random_arcface_params(cfg.rec_network, seed=seed)
+    det_tree = random_retinaface_params(seed=seed + 1, with_landmarks=True)
+    rng = np.random.default_rng(seed)
+    rh, rw = cfg.rec_hw
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # (a), (b)
+        torch.save(arcface_state_dict(rec_tree), path("rec.pth"))
+        torch.save({"state_dict": {f"module.{k}": v for k, v in
+                                   retinaface_state_dict(det_tree).items()}},
+                   path("det.pth"))
+        rec_s, rec_verify = _convert_cli(
+            repo_dir, device, "arcface", path("rec.pth"), path("rec.msgpack"),
+            ("--network", cfg.rec_network))
+        det_s, det_verify = _convert_cli(
+            repo_dir, device, "retinaface", path("det.pth"), path("det.msgpack"))
+        for file, tree in (("rec.msgpack", rec_tree),
+                           ("det.msgpack", det_tree)):
+            got, want = (_flat_leaves(load_params(path(file))),
+                         _flat_leaves(tree))
+            if sorted(got) != sorted(want) or any(
+                    got[k].dtype != want[k].dtype
+                    or got[k].tobytes() != want[k].tobytes() for k in want):
+                raise AssertionError(f"{file}: leaves differ from the tree")
+
+        # (c) gen mode through main()
+        src = path("people")
+        crops = {}
+        for c in range(n_classes):
+            cdir = os.path.join(src, f"person{c:02d}")
+            os.makedirs(cdir)
+            for i in range(per_class):
+                img = rng.integers(0, 256, (rh, rw, 3), dtype=np.uint8)
+                p = os.path.join(cdir, f"{i}.png")
+                cv2.imwrite(p, img)
+                crops[p] = (f"person{c:02d}", img)
+        gen_cfg = dict(raw, gen=True, gen_imgSource=src,
+                       gen_imgIsCropped=True, database_path=path("gen.db"),
+                       rec_weights=path("rec.msgpack"),
+                       det_weights=path("det.msgpack"))
+        with open(path("gen.json"), "w") as f:
+            json.dump(gen_cfg, f)
+        enroll = FaceServer.enroll_folder
+        enroll_s = []
+
+        def timed_enroll(self, *args):
+            t0 = time.perf_counter()
+            n = enroll(self, *args)
+            torch.cuda.synchronize()
+            enroll_s.append(time.perf_counter() - t0)
+            return n
+        FaceServer.enroll_folder = timed_enroll
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            server_main(["-c", path("gen.json"), "--device", device,
+                         "--no-warmup"])
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            gen_counts = launches()
+        finally:
+            FaceServer.enroll_folder = enroll
+        n_imgs = n_classes * per_class
+        forwards = -(-n_imgs // 8)                  # server_batchSize 8
+        if gen_counts != {"cosine_topk": 0, "cosine_topk_int8": 0,
+                          "conv_s8": 0,
+                          "ir_block": IR_BLOCKS_PER_FORWARD * forwards}:
+            raise AssertionError(f"launches on the gen path ({forwards} "
+                                 f"forwards): {gen_counts}")
+
+        # (d)
+        db = Database(path("gen.db"), cfg.rec_outputDim)
+        try:
+            n_rows = db.get_num_embeddings()
+            names, rows = db.get_embeddings()
+            users = db.get_user_dict()
+        finally:
+            db.close()
+        order = sorted(crops)
+        if n_rows != n_imgs or names != [crops[p][0] for p in order] or \
+                len(users) != n_classes:
+            raise AssertionError(f"gen mode enrolled {n_rows} rows of "
+                                 f"{len(users)} users, expected {n_imgs} "
+                                 f"of {n_classes}")
+
+        # (e) the original tree, carried over by from_jax
+        plain = FaceServer(dataclasses.replace(
+            cfg, database_path=path("plain.db")), rec_params=rec_tree,
+            det_params=det_tree, device=device, warmup=False)
+        try:
+            imgs = np.stack([crops[p][1] for p in order])
+            want = np.concatenate([
+                plain.pipeline.embed_cropped_batch(
+                    plain.pad_batch(list(imgs[i:i + 8])))[:len(imgs[i:i + 8])]
+                for i in range(0, n_imgs, 8)])
+        finally:
+            plain.close()
+        if not np.array_equal(rows, want):
+            raise AssertionError(
+                "gen rows differ from the original tree's embeddings by up "
+                f"to {float(np.abs(rows - want).max())}")
+
+        # (f), (g) a server over the enrolled database, through the app
+        server = FaceServer(dataclasses.replace(
+            cfg, database_path=path("gen.db"),
+            rec_weights=path("rec.msgpack"),
+            det_weights=path("det.msgpack")), device=device)
+
+        async def drive():
+            client = TestClient(TestServer(make_app(server)))
+            await client.start_server()
+            try:
+                async def ask(p):
+                    with open(p, "rb") as f:
+                        r = await client.post("/recognize", data=f.read())
+                    return r.status, await r.json()
+                reset_launches()
+                answers = await asyncio.gather(*(ask(p) for p in order))
+                torch.cuda.synchronize()
+                counts = launches()
+                probes = []
+                for _ in range(2):
+                    r = await client.get("/probe/device?mb=8")
+                    probes.append((r.status, await r.text()))
+                return answers, counts, probes
+            finally:
+                await client.close()
+        try:
+            answers, counts, probes = asyncio.run(drive())
+        finally:
+            server.close()
+        sims = []
+        for p, (status, ans) in zip(order, answers):
+            if status != 200 or not ans or ans["userId"] != crops[p][0] \
+                    or ans["similarity"] < 0.999:
+                raise AssertionError(f"/recognize {p}: {status} {ans}")
+            sims.append(ans["similarity"])
+        if counts["cosine_topk"] < 1 or counts["conv_s8"] or \
+                counts["cosine_topk_int8"] or counts["ir_block"] < \
+                IR_BLOCKS_PER_FORWARD * forwards or \
+                counts["ir_block"] % IR_BLOCKS_PER_FORWARD:
+            raise AssertionError(f"launches on /recognize: {counts}")
+        (s1, body1), (s2, _) = probes
+        probe = json.loads(body1) if s1 == 200 else {}
+        if s1 != 200 or probe.get("platform") != "gpu" or s2 != 429:
+            raise AssertionError(f"/probe/device: {probes}")
+    rec = {"phase": "weights_gen", "config": "configs/default.json",
+           "network": cfg.rec_network, "dtype": cfg.compute_dtype,
+           "convert_s": {"arcface": rec_s, "retinaface": det_s},
+           "verify": {"arcface": rec_verify, "retinaface": det_verify},
+           "images": n_imgs, "classes": n_classes,
+           "gen_main_s": main_s, "enroll_s": enroll_s[0],
+           "enroll_images_per_s": n_imgs / enroll_s[0],
+           "gen_launches": gen_counts, "recognize_launches": counts,
+           "min_self_similarity": min(sims),
+           "probe": {k: probe[k] for k in ("bytes", "upload_MBps",
+                                           "dispatch_ms", "platform")},
+           "probe_again_status": s2, "nvidia_smi": power}
+    emit(rec)
+    return rec
+
+
 def main(argv) -> int:
     """No arguments: the whole smoke test. ``--searches``: the two search
     phases alone (build, ptxas, ``kernel_case``, ``kernel_int8_case``),
@@ -1497,8 +1730,9 @@ def main(argv) -> int:
     (build, ptxas, ``conv_s8_case``, ``conv_s8_forward``);
     ``--throughput``: the int8 embedder's forward and the throughput
     config's /recognize path alone (``int8_forward``,
-    ``server_throughput``), for comparing them with another checkout. None
-    of the three prints an ``ok`` line."""
+    ``server_throughput``), for comparing them with another checkout;
+    ``--gen``: the checkpoint-to-gallery phase alone (``weights_gen``).
+    None of the four prints an ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1517,7 +1751,8 @@ def main(argv) -> int:
 
     modes = {"--searches": ["cosine_topk", "cosine_topk_int8"],
              "--convs": ["conv_s8"],
-             "--throughput": ["conv_s8", "cosine_topk_int8"]}
+             "--throughput": ["conv_s8", "cosine_topk_int8"],
+             "--gen": ["cosine_topk", "ir_block"]}
     mode = argv[0] if len(argv) == 1 and argv[0] in modes else None
     if argv and mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -1528,6 +1763,10 @@ def main(argv) -> int:
           "built": sorted(logs)})
     for name, text in logs.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
+    if mode == "--gen":
+        phase_weights_gen("cuda", repo_dir, power)
+        print(power, flush=True)
+        return 0
     if mode == "--throughput":
         phase_int8_forward("cuda", repo_dir)
         phase_server_throughput("cuda", repo_dir)
@@ -1561,6 +1800,7 @@ def main(argv) -> int:
     tput = phase_server_throughput("cuda", repo_dir)
     blocks = phase_ir_block("cuda")
     inference = phase_server_inference("cuda", repo_dir)
+    phase_weights_gen("cuda", repo_dir, power)
 
     main_case = next(t for t in timings if t["dtype"] == "bfloat16"
                      and t["B"] == 8 and t["k"] == 1)
@@ -1573,8 +1813,9 @@ def main(argv) -> int:
     b8 = [c for c in blocks if c["dtype"] == "bfloat16"
           and c["shape"]["N"] == 8]
 
-    def per_forward(key):
-        return sum(c[key] * c["blocks_per_forward"] for c in b8)
+    def per_forward(key, dtype="bfloat16", n=8):
+        return sum(c[key] * c["blocks_per_forward"] for c in blocks
+                   if c["dtype"] == dtype and c["shape"]["N"] == n)
     emit({"kernels": [{
         "name": "cosine_topk", "route": "cuda",
         "source": "facekit_torch/ops/csrc/cosine_topk.cu",
@@ -1683,7 +1924,14 @@ def main(argv) -> int:
         "eager_ms": per_forward("eager_ms"),
         "shape": "bf16 N=8: the 20 identity blocks of one IR-50 forward "
                  "(2 x 56x56x64, 3 x 28x28x128, 13 x 14x14x256, "
-                 "2 x 7x7x512), times summed"}]})
+                 "2 x 7x7x512), times summed",
+        # the f32 path (CUDA cores) per forward; no shipped config
+        # computes in f32, so the served paths launch it no time
+        "f32_per_forward": [
+            {"batch": n, **{key: per_forward(key, "float32", n)
+                            for key in ("ms", "plain_ms", "eager_ms",
+                                        "bound_ms")}}
+            for n in IR_BLOCK_BATCHES["float32"]]}]})
     print(power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -109,6 +109,11 @@ class Database:
             rows = self._conn.execute("SELECT * FROM USER").fetchall()
         return {r[0]: r[1] for r in rows}
 
+    def get_num_embeddings(self) -> int:
+        with self._lock:
+            (n,) = self._conn.execute("SELECT COUNT(*) FROM FACE").fetchone()
+        return n
+
     def get_embeddings(self) -> Tuple[List[str], np.ndarray]:
         """All gallery rows: (user_ids, (N, dim) float32 embeddings).
 

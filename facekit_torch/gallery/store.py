@@ -146,6 +146,13 @@ class GalleryStore:
             else:
                 self._device_arr[i] = row.to(self.dtype)
 
+    def reset(self) -> None:
+        """Clear (reference resetEmbeddings, src/arcface.cpp:233-236)."""
+        with self._lock:
+            self._names = []
+            self._host_buf = np.zeros((0, self.embed_dim), np.float32)
+            self._rebuild()
+
     # -- search ---------------------------------------------------------------
 
     def snapshot(self) -> GallerySnapshot:

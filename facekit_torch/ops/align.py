@@ -10,9 +10,11 @@ is transposed and the inverse map's rows swapped, so the pass-B
 coefficient is never near 0. The pass products take the compute dtype
 with f32 accumulation, as facekit's ``preferred_element_type``.
 
-Functions are batched over leading dims where facekit vmaps. facekit's
-windowed ``slice_win`` option (a measured negative that serving does not
-use) is not ported (ROADMAP.md Queue 1).
+Functions are batched over leading dims where facekit vmaps.
+``warp_align_gather`` is facekit's per-pixel gather formulation, kept as
+a public op; serving uses the shear passes. facekit's windowed
+``slice_win`` option (a measured negative that serving does not use) is
+not ported (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -72,6 +74,29 @@ def _invert_affine(m: torch.Tensor) -> torch.Tensor:
                        torch.stack([-m[..., 1, 0], m[..., 0, 0]], -1)],
                       -2) / det[..., None, None]
     return torch.cat([inv, -(inv @ m[..., 2:3])], -1)
+
+
+def _bilinear_sample(frame: torch.Tensor, xs: torch.Tensor,
+                     ys: torch.Tensor) -> torch.Tensor:
+    """Sample an (H, W, C) frame at float coordinates xs, ys (any equal
+    shapes) bilinearly; constant 0 outside (``facekit/ops/align.py:
+    89-122``: four single-axis gathers on the flattened frame)."""
+    h, w, c = frame.shape
+    flat = frame.reshape(h * w, c)
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    fx = (xs - x0)[..., None]
+    fy = (ys - y0)[..., None]
+
+    def tap(yi, xi):
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+        vals = flat[idx.reshape(-1)].reshape(*yi.shape, c)
+        return torch.where(inb[..., None], vals, 0.0)
+
+    top = tap(y0, x0) * (1 - fx) + tap(y0, x0 + 1) * fx
+    bot = tap(y0 + 1, x0) * (1 - fx) + tap(y0 + 1, x0 + 1) * fx
+    return top * (1 - fy) + bot * fy
 
 
 def _linear_axis_weights(pos: torch.Tensor, size: int) -> torch.Tensor:
@@ -189,4 +214,25 @@ def warp_align_shear(frame: torch.Tensor, landmarks: torch.Tensor,
                              dtype)[0]
 
 
+def warp_align_gather(frame: torch.Tensor, landmarks: torch.Tensor,
+                      out_hw: Tuple[int, int] = (112, 112)) -> torch.Tensor:
+    """Align faces by 5-point landmarks with a per-pixel inverse map and
+    bilinear gathers (``facekit/ops/align.py:358-380``): frame (H, W, C),
+    landmarks (F, 5, 2) in (x, y) frame pixels -> (F, oh, ow, C) f32."""
+    oh, ow = out_hw
+    frame = frame.float()
+    dev = frame.device
+    mi = _invert_affine(umeyama(landmarks.float(), _template(out_hw, dev)))
+    gy, gx = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+                            torch.arange(ow, dtype=torch.float32, device=dev),
+                            indexing="ij")                 # (oh, ow)
+
+    def coord(row):
+        m = mi[:, row, :, None, None]
+        return m[:, 0] * gx + m[:, 1] * gy + m[:, 2]
+
+    return _bilinear_sample(frame, coord(0), coord(1))
+
+
+# the default alignment: the gather-free shear formulation
 warp_align = warp_align_shear

@@ -134,6 +134,11 @@ def iou_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / (area_a[..., :, None] + area_b[..., None, :] - inter)
 
 
+def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU with the reference's +1 area convention."""
+    return iou_pairs(boxes, boxes)
+
+
 def _greedy_keep(valid: torch.Tensor, suppresses) -> torch.Tensor:
     """Greedy NMS's keep vector as the fixed point described in the module
     docstring. ``valid`` (..., K) bool in score order; ``suppresses(keep)``

@@ -2,8 +2,9 @@
 
 Port of ``facekit/server/app.py:207-1198``: ``/insert/user``,
 ``/insert/face``, ``/delete/user``, ``/delete/face``, ``/recognize``, WS
-``/inference``, ``/reload``, ``/search`` (k <= 64), ``/health`` and
-``/metrics``, with facekit's response strings verbatim:
+``/inference``, ``/reload``, ``/search`` (k <= 64), ``/health``,
+``/metrics`` and ``/probe/device``, with facekit's response strings
+verbatim:
 
   * ``POST /recognize`` embeds the whole posted image as a face, with no
     detection (src/app.cpp:255-267), micro-batched; "null" on failure;
@@ -15,7 +16,13 @@ Port of ``facekit/server/app.py:207-1198``: ``/insert/user``,
   * ``POST /insert/face`` persists to SQLite but does not update the live
     gallery — ``GET /reload`` does (src/app.cpp:189 note). With
     ``api_imgIsCropped: false`` each image goes through the detector and
-    must hold exactly one face.
+    must hold exactly one face;
+  * ``GET /probe/device?mb=8`` times an upload of fresh bytes and one
+    tiny op's round trip on the serving device, at most once per
+    ``server_probeCooldownS`` (429 otherwise).
+
+With ``gen: true``, ``main`` enrolls the ``gen_imgSource`` folder tree in
+batches (``FaceServer.enroll_folder``) and exits instead of serving.
 
 Host pixel work uses OpenCV. A config that needs a part not ported yet is
 refused at startup (``refuse_unported``). With ``rec_quantize`` the server
@@ -98,9 +105,6 @@ def refuse_unported(config) -> None:
     if config.det_quantize:
         reasons.append("det_quantize (the int8 detector) is not ported yet "
                        "(ROADMAP.md Queue 1, detect remainder)")
-    if config.gen:
-        reasons.append("gen: true (batch enrollment mode) is not ported yet "
-                       "(ROADMAP.md Queue 1, server remainder)")
     if config.extras.get("rec_int8Residual"):
         reasons.append("rec_int8Residual (s8-resident block outputs) is not "
                        "ported yet (ROADMAP.md Queue 1, int8 remainder)")
@@ -351,6 +355,67 @@ class FaceServer:
         self.user_dict = self.db.get_user_dict()
         log.info("gallery reloaded: %d embeddings", len(names))
         return len(names)
+
+    # -- gen mode (reference src/app.cpp:69-99) -------------------------------
+
+    def enroll_folder(self, source: str, is_cropped: bool = True) -> int:
+        """Enroll a ``<source>/<className>/<img>`` tree; returns the count
+        of faces inserted (``facekit/server/app.py:631-690``).
+
+        The class name (user id and name) is the subfolder's; files at the
+        top level are ignored. Images go through the batched serving path
+        in chunks of ``server_batchSize``, zero-padded, decoded on the
+        decode pool: crops through ``embed_cropped_batch``, whole images
+        through ``recognize_frames``, which must find exactly one face
+        (src/app.cpp:171-177) or the image is skipped.
+        """
+        px = self.pixels
+        items = []                                 # (class_name, path)
+        for class_name in sorted(os.listdir(source)):
+            cdir = os.path.join(source, class_name)
+            if not os.path.isdir(cdir):
+                continue
+            for fname in sorted(os.listdir(cdir)):
+                items.append((class_name, os.path.join(cdir, fname)))
+
+        cfg = self.config
+        rh, rw = cfg.rec_hw
+        bs = self.batch_size
+        count = 0
+        for i in range(0, len(items), bs):
+            chunk = items[i:i + bs]
+            imgs = list(self.decode_pool.map(px.imread,
+                                             [p for _, p in chunk]))
+            kept = [(cn, p, im) for (cn, p), im in zip(chunk, imgs)
+                    if im is not None]
+            if not kept:
+                continue
+            n = len(kept)
+            if is_cropped:
+                crops = np.zeros((bs, rh, rw, 3), np.uint8)
+                for j, (_, _, im) in enumerate(kept):
+                    crops[j] = (im if im.shape[:2] == (rh, rw)
+                                else px.resize(im, (rw, rh)))
+                embs = self.pipeline.embed_cropped_batch(crops)[:n]
+                ok = [True] * n
+            else:
+                frames = np.zeros((bs, cfg.input_frameHeight,
+                                   cfg.input_frameWidth, 3), np.uint8)
+                for j, (_, _, im) in enumerate(kept):
+                    frames[j] = px.resize(im, (cfg.input_frameWidth,
+                                               cfg.input_frameHeight))
+                res = self.pipeline.recognize_frames(frames)
+                valid = res.valid[:n].cpu().numpy()
+                embs = res.embeddings[:n, 0].cpu().numpy()
+                ok = (valid.sum(axis=1) == 1).tolist()
+            for j, (class_name, path, _) in enumerate(kept):
+                if not ok[j]:
+                    log.warning("no single face in %s; skipped", path)
+                    continue
+                self.db.insert_user(class_name, class_name)
+                self.db.insert_face(class_name, path, embs[j])
+                count += 1
+        return count
 
 
 def make_app(server: FaceServer):
@@ -640,6 +705,65 @@ def make_app(server: FaceServer):
             "users": len(server.user_dict),
         })
 
+    # /probe/device (``facekit/server/app.py:1104-1170``): this process's
+    # host -> device link, which facekit's loadtest records next to its
+    # percentiles. It rides the serving executor on purpose (it measures
+    # the queue real dispatches see), so a cooldown bounds how often a
+    # poller can stall serving: one probe per server_probeCooldownS.
+    probe_state = {"seed": 0, "warm": False, "last": float("-inf")}
+    probe_cooldown = float(cfg.extras.get("server_probeCooldownS", 10.0))
+
+    def _sync():
+        if server.device.type == "cuda":
+            torch.cuda.synchronize(server.device)
+
+    def _probe(n_bytes: int):
+        """(upload seconds, round-trip seconds of one tiny op), each
+        call on fresh bytes and a fresh operand."""
+        dev = server.device
+        probe_state["seed"] += 1
+        arr = np.random.default_rng(probe_state["seed"]).integers(
+            0, 255, n_bytes, dtype=np.uint8)
+        t0 = time.perf_counter()
+        torch.from_numpy(arr).to(dev, copy=True)
+        _sync()
+        up_s = time.perf_counter() - t0
+        if not probe_state["warm"]:        # first launch, off the clock
+            torch.tensor(0.5, device=dev).mul(2.0)
+            _sync()
+            probe_state["warm"] = True
+        t0 = time.perf_counter()
+        torch.tensor(float(probe_state["seed"]), device=dev).mul(2.0)
+        _sync()
+        return up_s, time.perf_counter() - t0
+
+    async def probe_device(request):
+        try:
+            mb = float(request.query.get("mb", "8"))
+        except ValueError:
+            return web.Response(status=400, text="invalid mb\n")
+        if not (0.125 <= mb <= 64):
+            return web.Response(status=400, text="mb out of range\n")
+        now = time.monotonic()
+        if now - probe_state["last"] < probe_cooldown:
+            retry = probe_cooldown - (now - probe_state["last"])
+            return web.Response(
+                status=429, headers={"Retry-After": f"{max(retry, 1):.0f}"},
+                text=f"probe cooldown ({probe_cooldown:.0f}s): the probe "
+                     "shares the serving device executor\n")
+        probe_state["last"] = now
+        n_bytes = int(mb * (1 << 20))
+        up_s, rtt_s = await run_blocking(_probe, n_bytes)
+        return web.json_response({
+            "bytes": n_bytes,
+            "upload_s": up_s,
+            "upload_MBps": mb / max(up_s, 1e-9),
+            "dispatch_ms": rtt_s * 1e3,
+            # jax's platform names: "gpu" for a CUDA device
+            "platform": "gpu" if server.device.type == "cuda"
+            else server.device.type,
+        })
+
     async def metrics(request):
         snap = server.metrics.snapshot()
         for name, b in (("recognize", recognize_batcher),
@@ -664,6 +788,7 @@ def make_app(server: FaceServer):
     app.router.add_get("/reload", reload)
     app.router.add_get("/health", health)
     app.router.add_post("/search", search_topk)
+    app.router.add_get("/probe/device", probe_device)
     return app
 
 
@@ -687,6 +812,13 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, database_path=args.db)
     device = resolve_device(args.device)
     server = FaceServer(cfg, warmup=not args.no_warmup, device=device)
+    if cfg.gen:  # batch-enrollment mode, then exit (src/app.cpp:69-99)
+        try:
+            n = server.enroll_folder(cfg.gen_imgSource, cfg.gen_imgIsCropped)
+        finally:
+            server.close()
+        log.info("Database generated (%d faces). Exiting...", n)
+        return
     app = make_app(server)
     from aiohttp import web
     web.run_app(app, port=args.port or cfg.server_port)

@@ -56,3 +56,16 @@ class LatencyTracker:
                     "mean_ms": sum(xs) / n * 1e3,
                 }
         return out
+
+
+class StageTimer:
+    """Lightweight named-stage wall timer for pipeline introspection."""
+
+    def __init__(self, tracker: LatencyTracker, prefix: str = ""):
+        self.tracker = tracker
+        self.prefix = prefix
+
+    @contextmanager
+    def stage(self, name: str):
+        with self.tracker.time(self.prefix + name):
+            yield

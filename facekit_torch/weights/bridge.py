@@ -2,7 +2,8 @@
 
 facekit keeps parameters as a pytree of nested dicts and lists (NHWC
 layers, HWIO conv weights, ``facekit/models/layers.py:7``), saved as msgpack
-by ``flax.serialization.to_bytes`` (``facekit/weights/io.py:15-17``). The
+by ``flax.serialization.to_bytes`` (``facekit/weights/io.py:15-17``; the
+port reads and writes those files in ``weights/io.py``). The
 port's modules name their parameters after the same tree paths, joined
 with dots (``blocks.3.conv1``, ``output.linear.w``), so the carry-over is a
 flatten plus one layout change:
@@ -21,54 +22,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, Mapping
 
-import msgpack
 import numpy as np
 import torch
 
 from facekit_torch.models.arcface import block_specs
-
-_EXT_NDARRAY = 1         # flax's msgpack ext codes
-_EXT_NPSCALAR = 3
-
-
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
-    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
-    shape = tuple(shape)
-    if dtype_name == b"bfloat16":
-        # numpy has no bfloat16: widen the bits to float32 (exact)
-        bits = np.frombuffer(buf, "<u2").astype("<u4") << 16
-        return bits.view("<f4").reshape(shape)
-    return np.frombuffer(buf, np.dtype(dtype_name.decode())).reshape(shape).copy()
-
-
-def _ext_hook(code: int, data: bytes):
-    if code == _EXT_NDARRAY:
-        return _ndarray_from_bytes(data)
-    if code == _EXT_NPSCALAR:
-        return _ndarray_from_bytes(data)[()]
-    raise ValueError(f"unsupported msgpack ext type {code}")
-
-
-def load_params(path: str) -> Dict[str, Any]:
-    """Read a param file that ``facekit.weights.save_params`` wrote.
-
-    Returns the nested dicts as stored: flax writes a list as a dict with
-    keys ``"0"``, ``"1"``, ...; ``from_jax`` accepts either form.
-    """
-    with open(path, "rb") as f:
-        tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False,
-                               strict_map_key=False)
-    if _has_chunked(tree):
-        raise ValueError(f"{path}: chunked (>1 GiB) array leaves are not "
-                         "supported")
-    return tree
-
-
-def _has_chunked(node) -> bool:
-    if isinstance(node, dict):
-        return ("__msgpack_chunked_array__" in node
-                or any(_has_chunked(v) for v in node.values()))
-    return False
 
 
 def _flatten(node, prefix: str, out: Dict[str, np.ndarray]) -> None:
