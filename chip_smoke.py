@@ -19,7 +19,13 @@ bf16), the same for configs/throughput.json (int8 IR-50, int8 gallery,
 batches of 1, 8 and 64) with dynamic and with calibrated activation
 scales, and WS /inference of configs/default.json (480x640 frames ->
 RetinaFace -> alignment -> IR-50 -> search, buckets 1 and 8), stage by
-stage against the port's CPU path. Last, ``weights_gen``: the default
+stage against the port's CPU path, and ``server_detectors``: the same WS
+path and an uncropped /insert/face with the slim detector (bf16) and
+the int8 RFB and RetinaFace detectors (``det_quantize``), each int8
+site's sum held to the plain conv on the card's own input, and one
+``conv_s8_det_case`` line per distinct detector site shape (the
+depthwise route and the 8- to 32-channel outputs among them). Last,
+``weights_gen``: the default
 config's IR-50 and RetinaFace written as reference-layout checkpoints,
 converted by ``python -m facekit_torch.weights --verify`` on the card,
 a folder of crops enrolled by ``main()`` in gen mode (rows bit-equal to
@@ -36,11 +42,14 @@ the conv's build, its ``ptxas`` line and the conv phase alone;
 ``--throughput`` the int8 forward and the throughput config's /recognize
 path alone (it runs on an older checkout too, to compare the two in one
 call); ``--gen`` the build of the two kernels it runs and
-``weights_gen`` alone. ``weights_gen`` serves through aiohttp.
+``weights_gen`` alone; ``--detectors`` the build of the three kernels
+it runs, the conv's ``ptxas`` line and ``server_detectors`` alone.
+``weights_gen`` and ``server_detectors`` serve through aiohttp.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -369,15 +378,18 @@ def conv_ptxas(logs):
     """Registers, stack and spill of every kernel of the s8 conv's build
     (``conv_s8_*kernel``); "not rebuilt" where the library was already
     built. Fails on a stack frame or a spill in a tensor-core kernel
-    (``conv_s8_mma_kernel``)."""
+    (``conv_s8_mma_kernel``) or a depthwise one (``conv_s8_dw_kernel``),
+    or where the depthwise kernel is missing."""
     if "conv_s8" not in logs:
         return "not rebuilt"
     entries = ptxas_entries(logs["conv_s8"], prefix="conv_s8")
     if not entries:
         raise AssertionError("no ptxas -v lines of the conv_s8 kernels")
+    if not any("dw" in kern for kern in entries):
+        raise AssertionError(f"no conv_s8_dw_kernel in {sorted(entries)}")
     for kern, rec in entries.items():
-        if "mma" in kern and (rec.get("stack_bytes")
-                              or rec.get("spill_bytes")):
+        if ("mma" in kern or "dw" in kern) and (rec.get("stack_bytes")
+                                                or rec.get("spill_bytes")):
             raise AssertionError(f"conv_s8 {kern}: {rec}")
     return entries
 
@@ -876,14 +888,15 @@ def ir50_conv_shapes(batch: int):
     return shapes
 
 
-def conv_bound(n, h, w, c, o, ks, stride, pad):
+def conv_bound(n, h, w, c, o, ks, stride, pad, groups=1):
     """Least time (ms) of one s8 conv on an H100 SXM and what bounds it:
     x and w read once, the int32 output written once; 2*M*O*K operations
-    at the int8 tensor-core rate."""
+    (K = ks*ks*C / groups) at the int8 tensor-core rate."""
     oh = (h + 2 * pad - ks) // stride + 1
     ow = (w + 2 * pad - ks) // stride + 1
-    nbytes = n * h * w * c + o * ks * ks * c + 4 * n * oh * ow * o
-    ops = 2 * n * oh * ow * o * ks * ks * c
+    k = ks * ks * c // groups
+    nbytes = n * h * w * c + o * k + 4 * n * oh * ow * o
+    ops = 2 * n * oh * ow * o * k
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["int8"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -1496,6 +1509,387 @@ def phase_server_inference(device, repo_dir, seed=6, n_users=32):
             server.close()
 
 
+# the detector paths of server_detectors: (name, config override) on
+# configs/default.json
+DET_PATHS = (("slim", {"det_network": "slim"}),
+             ("rfb_int8", {"det_network": "rfb", "det_quantize": True}),
+             ("mobilenet0.25_int8", {"det_quantize": True}))
+# int8 sites per forward of each detector family (47 in RetinaFace)
+DET_INT8_SITES = {"mobilenet0.25": 47, "slim": 25, "rfb": 23}
+DET_THRESHOLD = 0.5          # random detector weights score near 0.55
+# facekit's int8 detector bars (tests/test_model_parity.py:311-369): conf
+# within 1e-3 of float, loc and ldm within this share of their largest
+INT8_DET_CONF_ATOL = 1e-3
+INT8_DET_REL = 0.2
+
+
+@contextlib.contextmanager
+def recorded_convs():
+    """Every ``conv_s8`` call of the int8 layers, recorded with its
+    operands and result (``layers.conv2d_int8`` calls it by this name)."""
+    from facekit_torch.models import layers as L
+    real = L.conv_s8
+    calls = []
+
+    def record(x, w, stride=1, padding=0, groups=1):
+        out = real(x, w, stride, padding, groups)
+        calls.append((x, w, stride, padding, groups, out))
+        return out
+    L.conv_s8 = record
+    try:
+        yield calls
+    finally:
+        L.conv_s8 = real
+
+
+def det_conv_cases(device, shapes, gen):
+    """One ``conv_s8_det_case`` line per distinct int8 detector site shape
+    (N, H, W, C, O, k, stride, pad, groups; ``shapes`` maps each to its
+    sites per forward on each path): the kernel against its plain
+    version bit for bit on fresh random int8 operands, its CUDA-event ms
+    and traced device µs beside the bound, and cuDNN's bf16 conv of the
+    same shape (``groups`` = C for the depthwise sites) as a guide only."""
+    import torch
+    import torch.nn.functional as F
+
+    from facekit_torch.ops.conv_s8 import (conv_route, conv_s8,
+                                           conv_s8_reference)
+    out = []
+    for shape, per_forward in shapes.items():
+        n, h, w, c, o, ks, stride, pad, groups = shape
+        xs = [torch.randint(-127, 128, (n, h, w, c), generator=gen,
+                            device=device, dtype=torch.int8)
+              for _ in range(2)]
+        wt = torch.randint(-127, 128, (o, ks, ks, c // groups),
+                           generator=gen, device=device, dtype=torch.int8)
+        got = conv_s8(xs[0], wt, stride, pad, groups)
+        ref = conv_s8_reference(xs[0], wt, stride, pad, groups)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"conv_s8 {shape}: {int((got != ref).sum())}"
+                                 " outputs differ from the plain version")
+        args = [(x, wt, stride, pad, groups) for x in xs]
+        xb = [x.permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
+        wb = wt.permute(0, 3, 1, 2).to(torch.bfloat16)
+
+        def cudnn(x_, w_):
+            return F.conv2d(x_, w_, stride=stride, padding=pad,
+                            groups=groups)
+        bound, by = conv_bound(n, h, w, c, o, ks, stride, pad, groups)
+        # a trace may drop the events of a short run: trace once more
+        dev = device_us(conv_s8, args) or device_us(conv_s8, args)
+        rec = {"phase": "conv_s8_det_case",
+               "shape": {"N": n, "H": h, "W": w, "C": c, "O": o, "k": ks,
+                         "stride": stride, "pad": pad, "groups": groups},
+               "launches_per_forward": per_forward,
+               "route": conv_route(c, groups), "max_abs_err": 0,
+               "ms": cuda_ms(conv_s8, args, 20),
+               "device_us": dev,
+               "plain_ms": cuda_ms(conv_s8_reference, args, 2),
+               "bf16_cudnn_ms": cuda_ms(cudnn, [(x, wb) for x in xb], 20),
+               "bound_ms": bound, "bound_by": by}
+        emit(rec)
+        out.append(rec)
+    torch.cuda.synchronize()
+    return out
+
+
+def det_case_sums(cases):
+    """Per int8 detector path and batch, the ``conv_s8_det_case`` lines
+    summed, each times its sites per forward on that path: the conv's
+    time per detector forward, beside its bound, the plain version and
+    cuDNN's bf16 convs, and the sites each route serves."""
+    out = {}
+    for c in cases:
+        for path, per in c["launches_per_forward"].items():
+            acc = out.setdefault(f"{path} b{c['shape']['N']}", {
+                "sites": 0, "ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
+                "plain_ms": 0.0, "bf16_cudnn_ms": 0.0, "sites_by_route": {}})
+            acc["sites"] += per
+            routes = acc["sites_by_route"]
+            routes[c["route"]] = routes.get(c["route"], 0) + per
+            for k in ("ms", "bound_ms", "plain_ms", "bf16_cudnn_ms"):
+                acc[k] += c[k] * per
+            acc["device_ms"] += c["device_us"] * per / 1e3
+    return out
+
+
+def phase_server_detectors(device, repo_dir, seed=9, n_users=8):
+    """WS /inference and uncropped /insert/face of configs/default.json
+    with each detector other than the default one (``DET_PATHS``: slim in
+    bf16; RFB and RetinaFace-MobileNet0.25 int8, their 23 / 47 backbone,
+    FPN and SSH sites through ``conv_s8``), at full width: 480x640 frames,
+    the detector at 288x320, IR-50 and the search in bf16, random weights
+    from seeds (the detector the server draws without ``det_weights``).
+    Per path: 8 users enrolled from the faces of 8 frames, then the WS
+    batch function at buckets 1 and 8 and one ``/insert/face`` through the
+    app, with every launch count set to 0 just before and read just after.
+    Checks: the replies; slots equal to the plain path's on the card's own
+    detector outputs; every int8 site's s32 sum bit-equal to
+    ``conv_s8_reference`` on the card's own int8 input; the int8
+    detector's drift against the float one, both at f32 on the card,
+    within facekit's bars (a bf16 float detector against the f32 CPU one
+    within DET_ATOL). Then the detector's traced device ms per forward
+    with the share ``conv_s8`` takes, the WS batch latency at buckets 1
+    and 8, and one ``conv_s8_det_case`` line per distinct site shape of
+    the int8 paths at both buckets."""
+    import asyncio
+
+    import torch
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from facekit_torch.config import load_config
+    from facekit_torch.models import quantize_detector
+    from facekit_torch.ops.conv_s8 import conv_s8_reference
+    from facekit_torch.ops.preprocess import det_normalize
+    from facekit_torch.ops.resize import letterbox
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.pipeline.recognize import _detector
+    from facekit_torch.server import FaceServer, make_app
+    from facekit_torch.server.app import random_detector_params
+    from facekit_torch.weights import random_arcface_params
+
+    rng = np.random.default_rng(seed)
+    base = load_config(os.path.join(repo_dir, "configs", "default.json"))
+    rec_params = random_arcface_params(base.rec_network, seed=seed)
+    fh, fw = base.frame_hw
+    rh, rw = base.rec_hw
+    frames = rng.integers(0, 256, (n_users + 4, fh, fw, 3), dtype=np.uint8)
+    queries = np.concatenate([frames[[0, 3, 5, n_users - 1]],
+                              frames[n_users:]])
+    shapes = {}                      # site shape -> {path: per forward}
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        img_path = os.path.join(tmp, "whole.png")
+        import cv2
+        cv2.imwrite(img_path, frames[n_users])
+        for name, override in DET_PATHS:
+            cfg = dataclasses.replace(
+                base, det_threshold_bbox=DET_THRESHOLD, api_imgIsCropped=False,
+                database_path=os.path.join(tmp, f"{name}.db"), **override)
+            family = cfg.det_network
+            int8 = cfg.det_quantize
+            server = FaceServer(cfg, rec_params=rec_params, device=device)
+            pipe = server.pipeline
+            try:
+                reset_launches()
+                # -- the main path: 8 users from the faces of 8 frames; WS
+                #    /inference's batch function at buckets 1 and 8; one
+                #    uncropped /insert/face through the app
+                res = pipe.recognize_frames(frames[:n_users],
+                                            return_crops=True)
+                spread = res.crops.std(dim=(2, 3, 4)).masked_fill(
+                    ~res.valid, -1.0)
+                if (spread.amax(1) < 10).any():
+                    raise AssertionError(f"{name}: a frame without a valid "
+                                         "face that holds pixels")
+                slot = spread.argmax(1).cpu()
+                for j in range(n_users):
+                    uid = f"user{j:02d}"
+                    server.db.insert_user(uid, f"User {j}")
+                    if server.db.insert_face(
+                            uid, f"frame{j}.jpg",
+                            res.embeddings[j, slot[j]].cpu().numpy()) != 1:
+                        raise AssertionError(f"insert_face failed for {uid}")
+                server.reload_gallery()
+                answers = [server.inference_batch([queries[0]]),
+                           server.inference_batch(list(queries))]
+
+                async def insert_face():
+                    client = TestClient(TestServer(make_app(server)))
+                    await client.start_server()
+                    try:
+                        await client.post("/insert/user", data=json.dumps(
+                            {"userId": "whole", "userName": "Whole"}))
+                        r = await client.post("/insert/face", data=json.dumps(
+                            {"data": [{"userId": "whole",
+                                       "imgPath": img_path}]}))
+                        return await r.text()
+                    finally:
+                        await client.close()
+                inserted = asyncio.run(insert_face())
+                torch.cuda.synchronize()
+                counts = launches()
+                forwards = 4          # enrollment, two buckets, /insert/face
+                if counts["conv_s8"] != (DET_INT8_SITES[family] * forwards
+                                         if int8 else 0) or \
+                        counts["ir_block"] != IR_BLOCKS_PER_FORWARD * \
+                        forwards or counts["cosine_topk"] != 2 or \
+                        counts["cosine_topk_int8"]:
+                    raise AssertionError(f"launches on the {name} path "
+                                         f"({forwards} forwards): {counts}")
+
+                # -- checks: the replies
+                for j, u in enumerate((0, 3, 5, n_users - 1)):
+                    a = answers[1][j]
+                    if a is None or a["userId"] != f"user{u:02d}" or \
+                            a["similarity"] < 0.99:
+                        raise AssertionError(f"{name} frame of user {u}: "
+                                             f"reply {a}")
+                if answers[0][0] is None or \
+                        answers[0][0]["userId"] != "user00":
+                    raise AssertionError(f"{name} bucket 1: {answers[0]}")
+                for a in answers[0] + answers[1]:
+                    if a is None or a["crop"].shape != (rh, rw, 3):
+                        raise AssertionError(f"{name}: a reply without a "
+                                             "crop")
+                whole = pipe.recognize_frame(frames[n_users])
+                nvalid = int(whole.valid.sum())
+                expect = ("1 face found" if nvalid == 1 else
+                          "There are more than 1 faces" if nvalid else
+                          "Cant find any faces")
+                if not inserted.startswith(expect):
+                    raise AssertionError(f"{name} /insert/face: {inserted!r}"
+                                         f" with {nvalid} faces")
+
+                # -- checks, stage by stage, on the card's own outputs
+                q_dev = torch.as_tensor(queries).to(device)
+                with recorded_convs() as calls:
+                    outs = pipe._detector_outputs(q_dev)
+                    torch.cuda.synchronize()
+                cpu_cfg = dataclasses.replace(
+                    cfg, rec_network="ir_tiny", compute_dtype="float32",
+                    det_quantize=False)
+                det_params = random_detector_params(cfg, seed=0)
+                cpu = FacePipeline(cpu_cfg, random_arcface_params(
+                    "ir_tiny", seed=0), det_params, device="cpu")
+                det = pipe._select_faces(*outs)
+                c_det = cpu._select_faces(*(t.cpu() for t in outs))
+                box_err = max(
+                    float((det.boxes.cpu() - c_det.boxes).abs().max()),
+                    float((det.landmarks.cpu()
+                           - c_det.landmarks).abs().max()))
+                if not torch.equal(det.valid.cpu(), c_det.valid) or \
+                        box_err > 1e-3 or not det.valid.any():
+                    raise AssertionError(
+                        f"{name}: select_faces_batch on the card's outputs: "
+                        f"valid {det.valid.tolist()} vs "
+                        f"{c_det.valid.tolist()}, {box_err} px apart")
+                above = float((outs[1][..., 1] > DET_THRESHOLD).float()
+                              .mean())
+                rec = {"phase": "server_detectors", "path": name,
+                       "det_network": family, "det_quantize": int8,
+                       "config": "configs/default.json",
+                       "det_threshold_bbox": DET_THRESHOLD,
+                       "network": cfg.rec_network, "dtype": cfg.compute_dtype,
+                       "users": n_users, "frames": [1, len(queries)],
+                       "forwards": forwards, "launches": counts,
+                       "anchors": outs[1].shape[1],
+                       "anchor_share_above_threshold": above,
+                       "faces_per_frame": det.valid.sum(1).tolist(),
+                       "insert_face_reply": inserted.splitlines()[0],
+                       "box_max_err": box_err}
+                x_dev = det_normalize(letterbox(q_dev.float(), cfg.det_hw))
+
+                def det_forward(x):
+                    with torch.inference_mode():
+                        return pipe.det_net(x)
+                if int8:
+                    if len(calls) != DET_INT8_SITES[family]:
+                        raise AssertionError(f"{name}: {len(calls)} int8 "
+                                             "sites in one forward")
+                    for x, w, stride, pad, groups, got in calls:
+                        if not torch.equal(got, conv_s8_reference(
+                                x, w, stride, pad, groups)):
+                            raise AssertionError(
+                                f"{name}: int8 site {tuple(x.shape)} -> "
+                                f"{tuple(got.shape)} differs from the plain "
+                                "version on the card's own input")
+                    for b in (1, len(queries)):
+                        with recorded_convs() as site_calls:
+                            det_forward(x_dev[:b])
+                        per = collections.Counter(
+                            (*x.shape, w.shape[0], w.shape[1], stride, pad,
+                             groups)
+                            for x, w, stride, pad, groups, _ in site_calls)
+                        for key, count in per.items():
+                            shapes.setdefault(key, {})[name] = count
+                    # drift of the int8 detector at f32 against the float
+                    # one, both on the card
+                    f32, _ = _detector(cpu_cfg, det_params, device)
+                    f32 = f32.to(device).eval()
+                    q32 = quantize_detector(f32)
+                    with torch.inference_mode():
+                        ref = f32(x_dev)
+                        got = q32(x_dev)
+                    drift = {"conf": float((got[1] - ref[1]).abs().max())}
+                    for k, i in (("loc", 0), ("ldm", 2)):
+                        drift[k] = float((got[i] - ref[i]).abs().max()
+                                         / ref[i].abs().max())
+                    if drift["conf"] > INT8_DET_CONF_ATOL or \
+                            drift["loc"] > INT8_DET_REL or \
+                            drift["ldm"] > INT8_DET_REL:
+                        raise AssertionError(f"{name}: int8 vs float "
+                                             f"detector at f32: {drift}")
+                    rec["int8_sites_checked"] = len(calls)
+                    rec["int8_drift_vs_f32"] = drift
+                    del f32, q32
+                else:
+                    c_outs = cpu._detector_outputs(torch.as_tensor(queries))
+                    det_err = {k: float((a.float().cpu() - b).abs().max())
+                               for k, a, b in zip(("loc", "conf", "ldm"),
+                                                  outs, c_outs)}
+                    if any(det_err[k] > DET_ATOL[k] for k in DET_ATOL):
+                        raise AssertionError(f"{name}: bf16 detector on the "
+                                             f"card vs f32 CPU: {det_err}")
+                    rec["det_max_err"] = det_err
+
+                # -- the detector's device time per forward, and conv_s8's
+                #    share of it (beside it, an int8 path's float detector
+                #    in bf16, what the config serves without det_quantize);
+                #    WS batch latency at each bucket
+                if int8:
+                    bf16, _ = _detector(cpu_cfg, det_params, device)
+                    bf16 = bf16.set_compute_dtype(torch.bfloat16).to(
+                        device).eval()
+
+                    def bf16_forward(x):
+                        with torch.inference_mode():
+                            return bf16(x)
+                    for b in (1, len(queries)):
+                        events = traced_calls(bf16_forward, [(x_dev[:b],)])
+                        key = f"b{1 if b == 1 else 8}"
+                        rec[f"bf16_det_device_ms_{key}"] = sum(
+                            us for _, _, us in events) / SPLIT_REPS / 1e3
+                        rec[f"bf16_det_ms_{key}"] = cuda_ms(
+                            bf16_forward, [(x_dev[:b],)], 10)
+                    del bf16
+                for b in (1, len(queries)):
+                    events = traced_calls(det_forward, [(x_dev[:b],)])
+                    total = sum(us for _, _, us in events) / SPLIT_REPS
+                    conv = sum(us for n_, _, us in events
+                               if "conv_s8" in n_) / SPLIT_REPS
+                    key = f"b{1 if b == 1 else 8}"
+                    rec[f"det_device_ms_{key}"] = total / 1e3
+                    rec[f"det_ops_per_forward_{key}"] = \
+                        len(events) / SPLIT_REPS
+                    rec[f"conv_s8_share_{key}"] = conv / total
+                    rec[f"det_ms_{key}"] = cuda_ms(det_forward,
+                                                   [(x_dev[:b],)], 10)
+
+                def inference_ms(b, reps=8):
+                    ts = []
+                    for _ in range(reps):
+                        batch = list(rng.integers(0, 256, (b, fh, fw, 3),
+                                                  np.uint8))
+                        t0 = time.perf_counter()
+                        server.inference_batch(batch)
+                        ts.append((time.perf_counter() - t0) * 1e3)
+                    return ts[2:]
+                lat = {}
+                for _ in range(2):
+                    for b in (1, 8):
+                        lat.setdefault(f"inference_ms_b{b}", []).extend(
+                            inference_ms(b))
+                rec.update({k: statistics.median(v) for k, v in lat.items()})
+                emit(rec)
+                out.append(rec)
+            finally:
+                server.close()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cases = det_conv_cases(device, shapes, gen)
+    return out, cases
+
+
 def _convert_cli(repo_dir, device, model, ckpt, out, extra=()):
     """``python -m facekit_torch.weights MODEL CKPT OUT --verify`` on
     ``device`` in its own process: (seconds, its ``verify`` line)."""
@@ -1731,8 +2125,10 @@ def main(argv) -> int:
     ``--throughput``: the int8 embedder's forward and the throughput
     config's /recognize path alone (``int8_forward``,
     ``server_throughput``), for comparing them with another checkout;
-    ``--gen``: the checkpoint-to-gallery phase alone (``weights_gen``).
-    None of the four prints an ``ok`` line."""
+    ``--gen``: the checkpoint-to-gallery phase alone (``weights_gen``);
+    ``--detectors``: the conv's ``ptxas`` line and the detector paths
+    alone (``server_detectors``, ``conv_s8_det_case``). None of the five
+    prints an ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1752,7 +2148,8 @@ def main(argv) -> int:
     modes = {"--searches": ["cosine_topk", "cosine_topk_int8"],
              "--convs": ["conv_s8"],
              "--throughput": ["conv_s8", "cosine_topk_int8"],
-             "--gen": ["cosine_topk", "ir_block"]}
+             "--gen": ["cosine_topk", "ir_block"],
+             "--detectors": ["conv_s8", "cosine_topk", "ir_block"]}
     mode = argv[0] if len(argv) == 1 and argv[0] in modes else None
     if argv and mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -1765,6 +2162,12 @@ def main(argv) -> int:
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
     if mode == "--gen":
         phase_weights_gen("cuda", repo_dir, power)
+        print(power, flush=True)
+        return 0
+    if mode == "--detectors":
+        emit({"phase": "ptxas", "kernel": "conv_s8",
+              "kernels": conv_ptxas(logs)})
+        phase_server_detectors("cuda", repo_dir)
         print(power, flush=True)
         return 0
     if mode == "--throughput":
@@ -1782,9 +2185,9 @@ def main(argv) -> int:
           "instantiations": mma_ptxas(logs)})
     emit({"phase": "ptxas", "kernel": "B <= 8 pass 1 and pass 2",
           "kernels": selection_ptxas(logs)})
+    conv_regs = conv_ptxas(logs)
     if mode is None:
-        emit({"phase": "ptxas", "kernel": "conv_s8",
-              "kernels": conv_ptxas(logs)})
+        emit({"phase": "ptxas", "kernel": "conv_s8", "kernels": conv_regs})
 
     max_err, timings = phase_kernels("cuda")
     if mode == "--searches":
@@ -1800,6 +2203,7 @@ def main(argv) -> int:
     tput = phase_server_throughput("cuda", repo_dir)
     blocks = phase_ir_block("cuda")
     inference = phase_server_inference("cuda", repo_dir)
+    detectors, det_cases = phase_server_detectors("cuda", repo_dir)
     phase_weights_gen("cuda", repo_dir, power)
 
     main_case = next(t for t in timings if t["dtype"] == "bfloat16"
@@ -1907,7 +2311,19 @@ def main(argv) -> int:
                                           "bound_ms", "bound_by",
                                           "bf16_cudnn_ms", "route")}
         | {"shape": f"s8 N={k4['N']} {k4['H']}x{k4['W']}x{k4['C']} -> "
-                    f"{k4['O']}, 3x3 stride 2 pad 1"}}, {
+                    f"{k4['O']}, 3x3 stride 2 pad 1"},
+        # the detector paths: launches on each served path, the
+        # detector's device ms per forward and conv_s8's share, and the
+        # int8 sites of one detector forward summed per path and bucket
+        "detector_paths": [
+            {key: d[key] for key in d if key.startswith(
+                ("path", "launches", "det_device_ms", "bf16_det_device_ms",
+                 "conv_s8_share", "inference_ms"))}
+            for d in detectors],
+        "detector_sites": det_case_sums(det_cases),
+        # registers, stack and spill of each route's kernels, the
+        # depthwise one among them
+        "ptxas": conv_regs}, {
         "name": "ir_block", "route": "cuda",
         "source": "facekit_torch/ops/csrc/ir_block.cu",
         "replaces": "docs/experiments/fused_block_kernel.py:84",

@@ -62,20 +62,7 @@ def _weight(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape))
 
 
-class QConv(nn.Module):
-    """An int8 conv site: ``q`` int8 OIHW (stored channels-last, so that
-    its (O, KH, KW, I) view is contiguous for the kernel), ``scale`` (O,)
-    f32 per output channel and, when calibrated, ``ascale`` the f32 scalar
-    activation scale."""
-
-    def __init__(self, o: int, i: int, k: int, calibrated: bool):
-        super().__init__()
-        self.register_buffer("q", torch.zeros(
-            (o, i, k, k), dtype=torch.int8).contiguous(
-                memory_format=torch.channels_last))
-        self.register_buffer("scale", torch.ones(o))
-        self.register_buffer("ascale",
-                             torch.ones(()) if calibrated else None)
+QConv = L.QConv
 
 
 def _conv_site(o: int, i: int, k: int, int8: Optional[str]):
@@ -92,10 +79,7 @@ def _conv(x, w, stride: int, padding: int, stats=None, name: str = ""):
     the key ``quantize_arcface`` reads the activation scale from."""
     if stats is not None:
         stats[name] = x.float().abs().amax()
-    if isinstance(w, QConv):
-        return L.conv2d_int8(x, w.q, w.scale, stride=stride, padding=padding,
-                             ascale=w.ascale)
-    return L.conv2d(x, w, stride=stride, padding=padding)
+    return L.conv_any(x, w, stride=stride, padding=padding)
 
 
 BatchNorm = L.BatchNorm

@@ -21,6 +21,11 @@ The int8 conv (``conv2d_int8``, ``layers.py:103-146``) quantizes the
 activation in f32, runs the s8 x s8 -> s32 convolution ``ops.conv_s8``
 (the hand-written kernel on the card; never ``F.conv2d``) and dequantizes
 as ``acc * (ascale * wscale)`` in f32 before the cast to the compute dtype.
+``conv_any`` (``layers.py:149-170``) dispatches on the weight: a ``QConv``
+site runs ``conv2d_int8``, a float weight ``conv2d``; ``conv_bn`` and
+``conv_dw`` go through it, so quantizing a model's weights
+(``quantize_arcface``, ``quantize_detector``) switches its precision
+without touching its forward.
 """
 
 from __future__ import annotations
@@ -39,15 +44,16 @@ BN_EPS = 1e-5
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
            padding: int = 0, groups: int = 1,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+           bias: Optional[torch.Tensor] = None,
+           dilation: int = 1) -> torch.Tensor:
     """NHWC conv with OIHW weights and symmetric padding."""
     xc = x.permute(0, 3, 1, 2)
     if bias is None:
         out = F.conv2d(xc, w.to(x.dtype), stride=stride, padding=padding,
-                       groups=groups)
+                       groups=groups, dilation=dilation)
     else:
         out = F.conv2d(xc.float(), w.to(x.dtype).float(), stride=stride,
-                       padding=padding, groups=groups)
+                       padding=padding, groups=groups, dilation=dilation)
         out = (out + bias.float()[None, :, None, None]).to(x.dtype)
     return out.permute(0, 2, 3, 1)
 
@@ -65,10 +71,11 @@ def quantize_conv_weight(w: torch.Tensor):
 
 
 def conv2d_int8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
-                stride: int = 1, padding: int = 0,
+                stride: int = 1, padding: int = 0, groups: int = 1,
                 ascale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int8 conv of an NHWC tensor with an int8 OIHW weight and its (O,)
-    scales, dequantized with (activation scale * weight scale).
+    scales, dequantized with (activation scale * weight scale); ``groups``
+    1 or C (depthwise, weight (C, 1, KH, KW)).
 
     ``ascale`` None: the activation scale is dynamic, per sample:
     max(amax over (H, W, C), 1e-12) / 127, so a sample's result does not
@@ -84,9 +91,35 @@ def conv2d_int8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     xq = torch.clamp(torch.round(x.float() / ascale), -127, 127)
     # OIHW -> (O, KH, KW, I): a view when wq is stored channels-last
     acc = conv_s8(xq.to(torch.int8), wq.permute(0, 2, 3, 1), stride=stride,
-                  padding=padding)
+                  padding=padding, groups=groups)
     out = acc.float() * (ascale * wscale.float())
     return out.to(x.dtype)
+
+
+class QConv(nn.Module):
+    """An int8 conv site: ``q`` int8 OIHW (stored channels-last, so that
+    its (O, KH, KW, I) view is contiguous for the kernel), ``scale`` (O,)
+    f32 per output channel and, when calibrated, ``ascale`` the f32 scalar
+    activation scale."""
+
+    def __init__(self, o: int, i: int, k: int, calibrated: bool):
+        super().__init__()
+        self.register_buffer("q", torch.zeros(
+            (o, i, k, k), dtype=torch.int8).contiguous(
+                memory_format=torch.channels_last))
+        self.register_buffer("scale", torch.ones(o))
+        self.register_buffer("ascale",
+                             torch.ones(()) if calibrated else None)
+
+
+def conv_any(x: torch.Tensor, w, stride: int = 1, padding: int = 0,
+             groups: int = 1) -> torch.Tensor:
+    """Dispatch on the site: a ``QConv`` runs ``conv2d_int8``, a float
+    OIHW weight ``conv2d``."""
+    if isinstance(w, QConv):
+        return conv2d_int8(x, w.q, w.scale, stride=stride, padding=padding,
+                           groups=groups, ascale=w.ascale)
+    return conv2d(x, w, stride=stride, padding=padding, groups=groups)
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -148,12 +181,13 @@ class BatchNorm(nn.Module):
         return batch_norm(x, self.scale, self.bias, self.mean, self.var)
 
 
-def conv_bn(x: torch.Tensor, w: torch.Tensor, bn: BatchNorm, stride: int = 1,
+def conv_bn(x: torch.Tensor, w, bn: BatchNorm, stride: int = 1,
             padding: int = 1, act: str = "relu", leaky_slope: float = 0.0,
             groups: int = 1) -> torch.Tensor:
     """conv -> BN -> (relu | leaky | none), the reference's conv_bn family
-    (``conversion/retina/models/net.py:9-38``)."""
-    x = bn(conv2d(x, w, stride=stride, padding=padding, groups=groups))
+    (``conversion/retina/models/net.py:9-38``); ``w`` a float weight or a
+    ``QConv``."""
+    x = bn(conv_any(x, w, stride=stride, padding=padding, groups=groups))
     if act == "relu":
         x = relu(x)
     elif act == "leaky":
@@ -161,10 +195,11 @@ def conv_bn(x: torch.Tensor, w: torch.Tensor, bn: BatchNorm, stride: int = 1,
     return x
 
 
-def conv_dw(x: torch.Tensor, dw_w: torch.Tensor, dw_bn: BatchNorm,
-            pw_w: torch.Tensor, pw_bn: BatchNorm, stride: int) -> torch.Tensor:
+def conv_dw(x: torch.Tensor, dw_w, dw_bn: BatchNorm, pw_w, pw_bn: BatchNorm,
+            stride: int) -> torch.Tensor:
     """Depthwise-separable unit: dw3x3 (``groups`` = C) + BN + ReLU, then
-    pw1x1 + BN + ReLU (``conversion/retina/models/net.py:29-38``)."""
-    x = relu(dw_bn(conv2d(x, dw_w, stride=stride, padding=1,
-                          groups=x.shape[-1])))
-    return relu(pw_bn(conv2d(x, pw_w)))
+    pw1x1 + BN + ReLU (``conversion/retina/models/net.py:29-38``); each
+    weight float or a ``QConv``."""
+    x = relu(dw_bn(conv_any(x, dw_w, stride=stride, padding=1,
+                            groups=x.shape[-1])))
+    return relu(pw_bn(conv_any(x, pw_w)))

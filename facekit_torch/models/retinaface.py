@@ -13,10 +13,16 @@ Parameter names follow facekit's pytree paths (``stem.conv``,
 ``stage1.0.dw_bn.scale``, ``fpn.merge1.conv``, ``ssh2.conv5x5_1.bn.var``,
 ``class_head.0.w``), so ``weights.bridge.from_jax`` maps one onto the
 other.
+
+``quantize_detector`` (``:106-167``) makes the int8 detector of either
+family (this one or ``LightDet``): each backbone, FPN and SSH conv site
+becomes a ``layers.QConv``, which ``layers.conv_any`` runs through the s8
+conv with dynamic per-sample activation scales; the heads stay float.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import torch
@@ -162,3 +168,47 @@ class RetinaFace(nn.Module):
             ldm = torch.cat([h(f) for f, h in zip(feats, self.ldm_head)],
                             1).float()
         return loc.float(), conf, ldm
+
+
+#: the conv sites quantize_detector quantizes: "conv" of a conv_bn unit
+#: (stems, FPN, SSH), "pw_conv" / "dw_conv" of a depthwise-separable unit
+#: (``facekit/models/retinaface.py:106-116``)
+_QUANT_KEYS = ("conv", "pw_conv")
+_QUANT_KEYS_DW = ("dw_conv",)
+#: subtrees that stay float: the heads, whose logits feed the threshold
+#: and the box decode, and the light detectors' biased conv14 and RFB units
+_HEAD_KEYS = ("class_head", "bbox_head", "ldm_head",   # RetinaFace
+              "loc", "conf", "landm",                  # LightDet
+              "conv14_a", "conv14_b", "rfb8")
+
+
+def quantize_detector(net: nn.Module,
+                      include_depthwise: bool = True) -> nn.Module:
+    """Post-training int8 weight quantization of a float f32 detector
+    (``RetinaFace`` or ``LightDet``), the port of
+    ``quantize_detector_params``: every conv site of ``_QUANT_KEYS`` (and,
+    with ``include_depthwise``, the 3x3 depthwise sites) outside the
+    ``_HEAD_KEYS`` subtrees becomes a ``QConv`` holding
+    ``layers.quantize_conv_weight`` of its weight; activation scales are
+    dynamic, per sample. 47 sites in RetinaFace, 25 in slim, 23 in RFB.
+    Returns a new module; ``net`` is left as it is."""
+    if net.compute_dtype != torch.float32 or any(
+            isinstance(m, L.QConv) for m in net.modules()):
+        raise ValueError("quantize_detector takes a float f32 detector")
+    keys = _QUANT_KEYS + (_QUANT_KEYS_DW if include_depthwise else ())
+    out = copy.deepcopy(net)
+    for path, module in list(out.named_modules()):
+        if set(path.split(".")) & set(_HEAD_KEYS):
+            continue
+        for key in keys:
+            w = getattr(module, key, None)
+            if not isinstance(w, nn.Parameter) or w.dim() != 4:
+                continue
+            o, i, k, _ = w.shape
+            site = L.QConv(o, i, k, calibrated=False).to(w.device)
+            q, scale = L.quantize_conv_weight(w.detach())
+            site.q.copy_(q)
+            site.scale.copy_(scale)
+            delattr(module, key)             # the parameter gives way
+            setattr(module, key, site)
+    return out

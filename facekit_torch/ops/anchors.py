@@ -1,9 +1,12 @@
-"""Anchor (prior box) generation for RetinaFace (``facekit/ops/anchors.py``).
+"""Anchor (prior box) generation for the detectors (``facekit/ops/anchors.py``).
 
 The reference's ``create_anchor_retinaface`` (``src/retinaface.cpp:
 210-240``): three FPN levels with strides (8, 16, 32) and min sizes
 ((10, 20), (32, 64), (128, 256)), two anchors per cell, ordered by
 row-major cell then min size, which is the heads' output order. A = 3,780
+at 288x320. The slim and RFB detectors use four SSD-style levels at
+strides (8, 16, 32, 64) with (3, 2, 2, 3) sizes per cell
+(``SLIM_RFB_*``, the reference's ``cfg_slim`` / ``cfg_rfb``): A = 5,295
 at 288x320. Anchors depend only on the input geometry, so they are
 computed once with numpy and cached.
 """
@@ -20,6 +23,9 @@ import torch
 RETINAFACE_STEPS: Tuple[int, ...] = (8, 16, 32)
 RETINAFACE_MIN_SIZES: Tuple[Tuple[int, ...], ...] = ((10, 20), (32, 64),
                                                      (128, 256))
+SLIM_RFB_STEPS: Tuple[int, ...] = (8, 16, 32, 64)
+SLIM_RFB_MIN_SIZES: Tuple[Tuple[int, ...], ...] = (
+    (10, 16, 24), (32, 48), (64, 96), (128, 192, 256))
 
 
 @functools.lru_cache(maxsize=16)

@@ -1,8 +1,9 @@
-"""s8 x s8 -> s32 convolution: the int8 embedder's every conv site.
+"""s8 x s8 -> s32 convolution: every conv site of the int8 embedder and
+of the int8 detectors.
 
-Two functions with one meaning, on NHWC int8 input and (O, KH, KW, C) int8
-weights (K runs along C), symmetric zero padding, int32 NHWC output, the
-exact integer sum:
+Two functions with one meaning, on NHWC int8 input and (O, KH, KW, C /
+groups) int8 weights (K runs along C), symmetric zero padding, int32 NHWC
+output, the exact integer sum; ``groups`` is 1 or C (depthwise):
 
   * ``conv_s8_reference`` — the plain PyTorch version: a float64
     ``F.conv2d``, exact because every |sum| <= 127**2 * KH*KW*C < 2**53;
@@ -14,12 +15,16 @@ exact integer sum:
     pallas_s8_stride2_conv.py:86``, made general) or raises; for CPU
     tensors it runs the plain version.
 
-The kernel has two routes, and the wrapper alone chooses (``conv_route``):
-inputs of 16 channels or more (every IR-50 site but the stem) run an
-implicit GEMM on s8 ``mma.sync`` tensor cores, in CTA tiles and K splits
-that ``_conv_plan`` chooses; the stem's 3 channels (padded to 4) run a
-``__dp4a`` kernel on CUDA cores. The plan passed to the C entry point names
-the route (``bn = 0``: dp4a).
+The kernel has three routes, and the wrapper alone chooses
+(``conv_route``): a depthwise conv (``groups`` = C: the detectors' 3x3
+dw sites) runs a CUDA-core kernel that sums each output's 9 taps; a dense
+conv of 16 input channels or more (every IR-50 site but the stem, and
+most detector sites) runs an implicit GEMM on s8 ``mma.sync`` tensor
+cores, in CTA tiles and K splits that ``_conv_plan`` chooses; the stems'
+3 channels (padded to 4) and 8-channel inputs run a ``__dp4a`` kernel on
+CUDA cores. Both dense routes take any multiple of 8 output channels.
+The plan passed to the C entry point names the dense route (``bn = 0``:
+dp4a); ``groups`` names the depthwise one.
 
 PyTorch has no s8 convolution on CUDA, so no float path stands in for it.
 """
@@ -33,7 +38,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-_BLOCK_O = 64          # output channels must come in multiples of this
+O_MULTIPLE = 8         # output channels must come in multiples of this
 MMA_MIN_C = 16         # input channels from which the tensor-core route runs
 CONV_BM = 128          # output pixels per CTA of the tensor-core route
 CONV_BK = 128          # bytes of K per pipeline stage of that route
@@ -48,16 +53,17 @@ MAX_K = (2 ** 31 - 1) // 128 ** 2
 
 
 def conv_s8_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-                      padding: int = 0) -> torch.Tensor:
-    """x (N, H, W, C) int8, w (O, KH, KW, C) int8 -> (N, OH, OW, O) int32."""
+                      padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """x (N, H, W, C) int8, w (O, KH, KW, C / groups) int8 -> (N, OH, OW,
+    O) int32."""
     out = F.conv2d(x.permute(0, 3, 1, 2).double(),
                    w.permute(0, 3, 1, 2).double(), stride=stride,
-                   padding=padding)
+                   padding=padding, groups=groups)
     return out.round().to(torch.int32).permute(0, 2, 3, 1).contiguous()
 
 
 def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-            padding: int = 0) -> torch.Tensor:
+            padding: int = 0, groups: int = 1) -> torch.Tensor:
     """The s8 convolution; see the module docstring for its meaning.
 
     CPU tensors run ``conv_s8_reference``. CUDA tensors launch the kernel
@@ -65,23 +71,27 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     raises. ``conv_s8.launches`` counts the launches.
     """
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return conv_s8_reference(x, w, stride, padding)
-    return _conv_s8_cuda(x, w, int(stride), int(padding))
+        return conv_s8_reference(x, w, stride, padding, groups)
+    return _conv_s8_cuda(x, w, int(stride), int(padding), int(groups))
 
 
 conv_s8.launches = 0
 
 
-def conv_route(c: int) -> str:
-    """The kernel a CUDA tensor of ``c`` input channels runs: ``"mma"``
-    (s8 ``mma.sync`` tensor cores) from MMA_MIN_C channels on, else
-    ``"dp4a"`` (CUDA cores; the stem's 3 channels, padded to 4)."""
+def conv_route(c: int, groups: int = 1) -> str:
+    """The kernel a CUDA tensor of ``c`` input channels runs: ``"dw"``
+    (CUDA cores, 9 taps a channel) where ``groups`` > 1 (= C, depthwise),
+    else ``"mma"`` (s8 ``mma.sync`` tensor cores) from MMA_MIN_C channels
+    on, else ``"dp4a"`` (CUDA cores; the stems' 3 channels, padded to 4,
+    and 8-channel inputs)."""
+    if groups > 1:
+        return "dw"
     return "mma" if c >= MMA_MIN_C else "dp4a"
 
 
 class ConvPlan(NamedTuple):
     """The launch the kernel takes. ``bn = 0`` (``_NO_PLAN``): the dp4a
-    route. Else the tensor-core route: a grid of (n_tiles * m_tiles, splits)
+    or (``groups`` > 1) the depthwise route. Else the tensor-core route: a grid of (n_tiles * m_tiles, splits)
     CTAs, each ``CONV_BM`` pixels x ``bn`` output channels over
     ``per_split`` of the ``stages`` stages of K (the last split may take
     fewer); the splits of a tile are one cluster."""
@@ -93,7 +103,7 @@ class ConvPlan(NamedTuple):
     per_split: int
 
 
-_NO_PLAN = ConvPlan(0, 0, 0, 0, 1, 0)    # the dp4a route takes none
+_NO_PLAN = ConvPlan(0, 0, 0, 0, 1, 0)    # the CUDA-core routes take none
 
 
 @functools.lru_cache(maxsize=1024)     # a model has a few dozen shapes
@@ -104,7 +114,9 @@ def _conv_plan(n: int, oh: int, ow: int, o: int, k: int, sms: int
     (KS*KS*C) on a card of ``sms`` SMs.
 
     Tiles are CONV_BM x 128 where ``o`` is a multiple of 128, else
-    CONV_BM x 64. Where the tiles fill fewer CTAs than the card has SMs
+    CONV_BM x 64; the last 64-channel tile of an ``o`` that is no multiple
+    of 64 (the detectors' 8, 16 and 32) is partly past ``o``, its weight
+    rows zero-filled and its stores skipped. Where the tiles fill fewer CTAs than the card has SMs
     (small batches, the 7x7 and 14x14 stages), K splits across CTAs in
     whole stages: as many splits as make a CTA per SM, at most MAX_SPLITS,
     of at least MIN_SPLIT_STAGES stages each but the last (so a 1x1 site of
@@ -114,7 +126,7 @@ def _conv_plan(n: int, oh: int, ow: int, o: int, k: int, sms: int
     order."""
     bn = 128 if o % 128 == 0 else 64
     m_tiles = -(-(n * oh * ow) // CONV_BM)
-    n_tiles = o // bn
+    n_tiles = -(-o // bn)
     stages = -(-k // CONV_BK)
     tiles = m_tiles * n_tiles
     splits = 1 if tiles >= sms else min(MAX_SPLITS, -(-stages // max(
@@ -124,11 +136,11 @@ def _conv_plan(n: int, oh: int, ow: int, o: int, k: int, sms: int
 
 
 def _launch_plan(n: int, oh: int, ow: int, o: int, c: int, ks: int,
-                 sms: int) -> ConvPlan:
+                 sms: int, groups: int = 1) -> ConvPlan:
     """The plan the C entry point takes for ``c`` input channels (a power
-    of two >= 4) and a ``ks`` x ``ks`` kernel: ``_NO_PLAN`` on the dp4a
-    route, else ``_conv_plan``."""
-    if conv_route(c) == "dp4a":
+    of two >= 4 where ``groups`` is 1) and a ``ks`` x ``ks`` kernel:
+    ``_NO_PLAN`` on the dp4a and depthwise routes, else ``_conv_plan``."""
+    if conv_route(c, groups) != "mma":
         return _NO_PLAN
     return _conv_plan(n, oh, ow, o, ks * ks * c, sms)
 
@@ -144,12 +156,13 @@ def _library():
     from facekit_torch.ops import _build
     fn = _build.load("conv_s8").facekit_conv_s8
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
+def _check(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
+           groups: int):
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"conv_s8: x on {x.device} and w on {w.device}; "
                          "both must be on one CUDA device (or both on the "
@@ -157,37 +170,46 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"conv_s8: x {x.dtype}, w {w.dtype}; the kernel "
                         "takes int8")
-    if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[3]:
+    if x.dim() != 4 or w.dim() != 4 or groups < 1 or \
+            x.shape[3] != w.shape[3] * groups:
         raise ValueError(f"conv_s8: x {tuple(x.shape)} (N, H, W, C) and w "
-                         f"{tuple(w.shape)} (O, KH, KW, C) expected")
+                         f"{tuple(w.shape)} (O, KH, KW, C / groups) with "
+                         f"groups {groups} expected")
     o, kh, kw, _ = w.shape
+    c = x.shape[3]
     if kh != kw or kh not in (1, 3):
         raise ValueError(f"conv_s8: kernel {kh}x{kw}; the kernel takes 1x1 "
                          "or 3x3")
     if stride not in (1, 2) or padding not in (0, 1):
         raise ValueError(f"conv_s8: stride {stride}, padding {padding}; the "
                          "kernel takes stride 1 or 2 and padding 0 or 1")
-    if o % _BLOCK_O:
+    if groups > 1 and (groups != c or o != c or kh != 3 or c % 4):
+        raise ValueError(f"conv_s8: groups {groups} with C = {c}, O = {o}, "
+                         f"{kh}x{kw}; the kernel takes groups 1, or "
+                         "depthwise 3x3 (groups = C = O) with C a multiple "
+                         "of 4")
+    if o % O_MULTIPLE:
         raise ValueError(f"conv_s8: {o} output channels; the kernel takes a "
-                         f"multiple of {_BLOCK_O}")
+                         f"multiple of {O_MULTIPLE}")
 
 
-def _conv_s8_cuda(x, w, stride, padding):
-    _check(x, w, stride, padding)
+def _conv_s8_cuda(x, w, stride, padding, groups=1):
+    _check(x, w, stride, padding, groups)
     c = x.shape[3]
     if c % 4:
         # the stem's 3 channels: zero channels add nothing to the sum
         x = F.pad(x, (0, 4 - c % 4))
         w = F.pad(w, (0, 4 - c % 4))
         c = x.shape[3]
-    if c & (c - 1):
-        raise ValueError(f"conv_s8: {c} input channels; the kernel takes a "
-                         "power of two")
+    if groups == 1 and c & (c - 1):
+        raise ValueError(f"conv_s8: {c} input channels; the dense routes "
+                         "take a power of two")
     x, w = x.contiguous(), w.contiguous()
     n, h, wd, _ = x.shape
     o, ks = w.shape[0], w.shape[1]
-    if ks * ks * c > MAX_K:
-        raise ValueError(f"conv_s8: K = {ks * ks * c} could overflow the "
+    k = ks * ks * w.shape[3]
+    if k > MAX_K:
+        raise ValueError(f"conv_s8: K = {k} could overflow the "
                          f"int32 sums; the kernel takes K <= {MAX_K}")
     oh = (h + 2 * padding - ks) // stride + 1
     ow = (wd + 2 * padding - ks) // stride + 1
@@ -195,14 +217,14 @@ def _conv_s8_cuda(x, w, stride, padding):
         raise ValueError("conv_s8: tensors of 2**31 elements or more")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv_s8: x and w must be 16-byte aligned")
-    plan = _launch_plan(n, oh, ow, o, c, ks, _sms(x.device.index))
+    plan = _launch_plan(n, oh, ow, o, c, ks, _sms(x.device.index), groups)
     out = torch.empty((n, oh, ow, o), dtype=torch.int32, device=x.device)
     fn = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd,
-                 c.bit_length() - 1, o, ks, stride, padding, oh, ow,
-                 plan.bn, plan.splits, plan.per_split, stream)
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, o,
+                 ks, stride, padding, oh, ow, groups, plan.bn, plan.splits,
+                 plan.per_split, stream)
     if err != 0:
         raise RuntimeError(f"conv_s8: kernel launch failed with CUDA error "
                            f"{err}")

@@ -1,15 +1,17 @@
 // s8 x s8 -> s32 convolution for Hopper: x (N, H, W, C) int8 NHWC, w (O, KS,
-// KS, C) int8, symmetric zero padding, out (N, OH, OW, O) int32. Every conv
-// site of the int8 ArcFace runs through it (facekit_torch/models/layers.py
-// `conv2d_int8`, which quantizes before and dequantizes after).
+// KS, C / groups) int8, symmetric zero padding, out (N, OH, OW, O) int32.
+// Every conv site of the int8 ArcFace and of the int8 detectors runs
+// through it (facekit_torch/models/layers.py `conv2d_int8`, which quantizes
+// before and dequantizes after).
 //
 // Replaces: the TPU kernel `conv_s8_s2_pallas` -> `_kernel` in
 // docs/experiments/pallas_s8_stride2_conv.py:46-104, an s8 3x3 stride-2
 // pad-1 convolution at C = 64, 112x112 written as one im2col matmul per
 // image, made general here: KS in {1, 3}, stride in {1, 2}, pad in {0, 1},
 // C a power of two >= 4 (the wrapper pads the stem's 3 channels to 4 with
-// zeros, which is exact), O a multiple of 64. The result is the exact
-// integer sum, as the TPU kernel's s32 accumulation gives it.
+// zeros, which is exact), O a multiple of 8; or depthwise (groups = C = O,
+// 3x3, C a multiple of 4). The result is the exact integer sum, as the TPU
+// kernel's s32 accumulation gives it.
 //
 // Bound on an H100 SXM: x read once, w read once, out written once,
 // N*H*W*C + O*KS*KS*C + 4*N*OH*OW*O bytes at 3.35 TB/s, against
@@ -19,8 +21,9 @@
 // large as the s8 input. IR-50's 3x3 sites at 14x14 and 7x7 are bound by
 // operations. chip_smoke.py computes the bound of every shape it runs.
 //
-// Two routes, chosen by C in the wrapper (`conv_route`), whose plan names
-// the route (bn = 0: the __dp4a kernel):
+// Three routes, chosen in the wrapper (`conv_route`): groups > 1 runs the
+// depthwise kernel; else the plan names the route (bn = 0: the __dp4a
+// kernel).
 //
 // C >= 16: an implicit GEMM on s8 tensor cores (conv_s8_mma_kernel).
 //  * M = N*OH*OW output pixels, N_gemm = O, K = KS*KS*C in the weight's
@@ -28,7 +31,10 @@
 //    tap, contiguous in NHWC. No im2col buffer: each CTA gathers its patch
 //    rows straight from x.
 //  * A CTA computes 128 pixels x BN channels (BN = 128 where O allows it,
-//    else 64) with 8 warps; K goes in stages of 128 bytes. Each thread
+//    else 64) with 8 warps; K goes in stages of 128 bytes. An O that is no
+//    multiple of 64 (the detectors' 8, 16 and 32; any multiple of 8) ends
+//    in a tile partly past O: its weight rows past O zero-fill like the K
+//    tail, and the epilogue skips their 16-byte runs. Each thread
 //    copies 16-byte runs of A (patch rows) and B (weight rows, K-contiguous:
 //    the .col operand) with cp.async.cg into a ring of MST stages; rows are
 //    padded by 16 bytes so that ldmatrix's eight row addresses fall in
@@ -53,11 +59,20 @@
 //    reused), so that each thread writes 16 bytes of one pixel's channels
 //    and a warp whole runs of a pixel row.
 //
-// C < 16 (the stem): conv_s8_dp4a_kernel on CUDA cores. Each thread
-// accumulates a 4 x 4 micro-tile of a 64 x 64 CTA tile with __dp4a, from
-// 4-byte words of K (one tap each) loaded into registers a stage ahead and
-// stored transposed to shared memory. K is 36 bytes there, too thin for an
-// m16n8k32 and bound by the bytes of its output.
+// C < 16 (the stems, 8-channel inputs): conv_s8_dp4a_kernel on CUDA cores.
+// Each thread accumulates a 4 x 4 micro-tile of a 64 x 64 CTA tile with
+// __dp4a, from 4-byte words of K (one tap each) loaded into registers a
+// stage ahead and stored transposed to shared memory. K is 36 bytes at a
+// stem, too thin for an m16n8k32 and bound by the bytes of its output.
+// Weight rows past O read as 0 and their stores are skipped.
+//
+// groups = C (the detectors' depthwise 3x3 sites): conv_s8_dw_kernel on
+// CUDA cores. No sum runs across channels, so there is no matrix product
+// for the tensor cores: each thread sums the 9 taps of VEC channels (16,
+// or 4 where C is no multiple of 16) of one output pixel in int32, from
+// one VEC-byte load of x per tap (neighbouring threads on neighbouring
+// channels) and its 9*VEC weight bytes, contiguous in the (C, 3, 3, 1)
+// weight. Bound by bytes: N*H*W*C in, 9*C weights, 4*N*OH*OW*C out.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -102,7 +117,8 @@ conv_s8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int K = KS * KS << lc;
-  const int n_tiles = O / BN;          // the n tiles of an m tile run together
+  const int n_tiles = (O + BN - 1) / BN;   // the n tiles of an m tile run
+                                           // together
   const int n0 = (blockIdx.x % n_tiles) * BN;
   const int m0 = (blockIdx.x / n_tiles) * BM;
   const int kst = (K + BK - 1) / BK;
@@ -150,8 +166,10 @@ conv_s8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
 #pragma unroll
     for (int u = 0; u < BU; ++u) {
-      const int8_t* src = k_ok ? w + (size_t)(n0 + ld_row + 32 * u) * K + kb : w;
-      cp_async16_zfill(dst + P::A_BYTES + u * 32 * ROWB, src, k_ok);
+      const int n = n0 + ld_row + 32 * u;   // rows past O: zero-fill
+      const bool ok = k_ok && n < O;
+      const int8_t* src = ok ? w + (size_t)n * K + kb : w;
+      cp_async16_zfill(dst + P::A_BYTES + u * 32 * ROWB, src, ok);
     }
   };
 
@@ -227,7 +245,9 @@ conv_s8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   // each thread writes 16 bytes of one pixel; BN/4 threads cover a pixel
   constexpr int TPR = BN / 4, RPP = THREADS / TPR;
   const int er = tid / TPR, ec = (tid % TPR) * 4;
+  const bool col_ok = n0 + ec < O;     // O % 4 == 0: a run is in or out
   if (gridDim.y == 1) {
+    if (!col_ok) return;
     for (int r = er; r < BM && m0 + r < M; r += RPP)
       *reinterpret_cast<int4*>(out + (size_t)(m0 + r) * O + n0 + ec) =
           *reinterpret_cast<const int4*>(cs + r * CSTR + ec);
@@ -241,7 +261,7 @@ conv_s8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   cluster.sync();                      // every partial tile is in place
   for (int g = rank; g * RPP < BM; g += splits) {
     const int r = g * RPP + er;
-    if (m0 + r >= M) break;
+    if (m0 + r >= M || !col_ok) break;
     int4 v = make_int4(0, 0, 0, 0);
     for (int q = 0; q < splits; ++q) {
       const int4 p = *reinterpret_cast<const int4*>(
@@ -279,7 +299,7 @@ int launch_mma(cudaStream_t s, const void* x, const void* w, void* out, int H,
   cluster.val.clusterDim.y = splits;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((O / BN) * ((M + BM - 1) / BM), splits);
+  cfg.gridDim = dim3((O + BN - 1) / BN * ((M + BM - 1) / BM), splits);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -323,13 +343,14 @@ __device__ __forceinline__ void load_a(int (&ra)[4], const int8_t* __restrict__ 
   }
 }
 
-// This thread's 16 bytes of K (kb0 .. kb0+15) of its weight row wb.
+// This thread's 16 bytes of K (kb0 .. kb0+15) of its weight row wb; 0 for
+// a row past O (n_ok false).
 __device__ __forceinline__ void load_b(int (&rb)[4], const int8_t* __restrict__ wb,
-                                       int K, int kb0) {
+                                       bool n_ok, int K, int kb0) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kb = kb0 + 4 * i;
-    rb[i] = kb < K ? __ldg(reinterpret_cast<const int*>(wb + kb)) : 0;
+    rb[i] = n_ok && kb < K ? __ldg(reinterpret_cast<const int*>(wb + kb)) : 0;
   }
 }
 
@@ -362,7 +383,8 @@ conv_s8_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     iw0 = ow * stride - pad;
     xb = x + (((size_t)img * H * W) << lc);
   }
-  const int8_t* wb = w + (size_t)(n0 + ld_p) * K;
+  const bool n_ok = n0 + ld_p < O;
+  const int8_t* wb = w + (size_t)(n_ok ? n0 + ld_p : 0) * K;
 
   // computing role: pixels ty*4 .. ty*4+3, channels tx*4 .. tx*4+3
   const int tx = tid & 15;
@@ -377,7 +399,7 @@ conv_s8_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int nk = (K + 4 * BKW - 1) / (4 * BKW);
   int ra[4], rb[4];
   load_a<KS>(ra, xb, m_ok, ih0, iw0, H, W, lc, K, ld_w * 4);
-  load_b(rb, wb, K, ld_w * 4);
+  load_b(rb, wb, n_ok, K, ld_w * 4);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     As[0][ld_w + i][ld_p] = ra[i];
@@ -391,7 +413,7 @@ conv_s8_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     if (more) {
       const int kb0 = (kt + 1) * 4 * BKW + ld_w * 4;
       load_a<KS>(ra, xb, m_ok, ih0, iw0, H, W, lc, K, kb0);
-      load_b(rb, wb, K, kb0);
+      load_b(rb, wb, n_ok, K, kb0);
     }
 #pragma unroll
     for (int kw = 0; kw < BKW; ++kw) {
@@ -415,6 +437,7 @@ conv_s8_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();
   }
 
+  if (n0 + tx * 4 >= O) return;       // O % 4 == 0: a run is in or out
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int mo = m0 + ty * 4 + i;
@@ -427,10 +450,95 @@ conv_s8_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 template <int KS>
 int launch_dp4a(cudaStream_t s, const void* x, const void* w, void* out, int H,
                 int W, int lc, int O, int OH, int OW, int stride, int pad, int M) {
-  const dim3 grid((M + DBM - 1) / DBM, O / DBN);
+  const dim3 grid((M + DBM - 1) / DBM, (O + DBN - 1) / DBN);
   conv_s8_dp4a_kernel<KS><<<grid, THREADS, 0, s>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<int32_t*>(out), H, W, lc, O, OH, OW, stride, pad, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// the depthwise route (groups = C = O, 3x3)
+
+// signed byte b (a constant after unrolling) of the word v
+__device__ __forceinline__ int sbyte(uint32_t v, int b) {
+  return static_cast<int>(static_cast<int8_t>(v >> (8 * b)));
+}
+
+// VEC channels of one output pixel a thread: 16, or 4 where C % 16 != 0
+template <int VEC>
+__global__ void __launch_bounds__(THREADS)
+conv_s8_dw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                  int32_t* __restrict__ out, int H, int W, int C, int OH,
+                  int OW, int stride, int pad, int total) {
+  static_assert(VEC == 4 || VEC == 16, "VEC is 4 or 16");
+  const int t = blockIdx.x * THREADS + threadIdx.x;
+  if (t >= total) return;
+  const int runs = C / VEC;
+  const int pix = t / runs;            // output pixel, (image, oh, ow)
+  const int c0 = (t - pix * runs) * VEC;
+  const int img = pix / (OH * OW);
+  const int r = pix - img * (OH * OW);
+  const int oh = r / OW;
+  const int ih0 = oh * stride - pad, iw0 = (r - oh * OW) * stride - pad;
+
+  // the 9 * VEC weight bytes of channels c0 .. c0+VEC-1: channel j's tap
+  // q is byte 9j + q (the weight is (C, 3, 3, 1), 9 bytes a channel)
+  constexpr int NW = 9 * VEC / 4;
+  uint32_t wv[NW];
+  if constexpr (VEC == 16) {
+    const int4* src = reinterpret_cast<const int4*>(w + (size_t)c0 * 9);
+#pragma unroll
+    for (int i = 0; i < NW / 4; ++i) {
+      const int4 v = __ldg(src + i);
+      wv[4 * i] = v.x; wv[4 * i + 1] = v.y; wv[4 * i + 2] = v.z; wv[4 * i + 3] = v.w;
+    }
+  } else {
+    const int* src = reinterpret_cast<const int*>(w + (size_t)c0 * 9);
+#pragma unroll
+    for (int i = 0; i < NW; ++i) wv[i] = __ldg(src + i);
+  }
+
+  int acc[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = 0;
+  const int8_t* xb = x + (size_t)img * H * W * C + c0;
+#pragma unroll
+  for (int q = 0; q < 9; ++q) {
+    const int ih = ih0 + q / 3, iw = iw0 + q % 3;
+    if ((unsigned)ih >= (unsigned)H || (unsigned)iw >= (unsigned)W) continue;
+    const int8_t* src = xb + ((size_t)ih * W + iw) * C;
+    uint32_t xv[VEC / 4];
+    if constexpr (VEC == 16) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(src));
+      xv[0] = v.x; xv[1] = v.y; xv[2] = v.z; xv[3] = v.w;
+    } else {
+      xv[0] = __ldg(reinterpret_cast<const int*>(src));
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int b = 9 * j + q;
+      acc[j] += sbyte(xv[j / 4], j % 4) * sbyte(wv[b / 4], b % 4);
+    }
+  }
+  int4* dst = reinterpret_cast<int4*>(out + (size_t)pix * C + c0);
+#pragma unroll
+  for (int i = 0; i < VEC / 4; ++i)
+    dst[i] = make_int4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+}
+
+int launch_dw(cudaStream_t s, const void* x, const void* w, void* out, int N,
+              int H, int W, int C, int OH, int OW, int stride, int pad) {
+  const int vec = C % 16 == 0 ? 16 : 4;
+  const int total = N * OH * OW * (C / vec);
+  const dim3 grid((total + THREADS - 1) / THREADS);
+  const int8_t* xp = static_cast<const int8_t*>(x);
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  int32_t* op = static_cast<int32_t*>(out);
+  if (vec == 16)
+    conv_s8_dw_kernel<16><<<grid, THREADS, 0, s>>>(xp, wp, op, H, W, C, OH, OW, stride, pad, total);
+  else
+    conv_s8_dw_kernel<4><<<grid, THREADS, 0, s>>>(xp, wp, op, H, W, C, OH, OW, stride, pad, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -438,19 +546,27 @@ int launch_dp4a(cudaStream_t s, const void* x, const void* w, void* out, int H,
 
 // C entry point (loaded with ctypes). Launches on `stream` and returns the
 // CUDA error as an int; it never synchronizes. The caller has checked: x
-// (N, H, W, 2**log2_c) and w (O, ks, ks, 2**log2_c) int8 and out (N, OH,
-// OW, O) int32, all contiguous and 16-byte aligned; log2_c >= 2; ks in
-// {1, 3}; O a multiple of 64; N*OH*OW*O and N*H*W*C below 2**31; K =
-// ks*ks*C small enough that no int32 sum overflows. The plan is the
-// wrapper's `_conv_plan` and carries the route: bn = 0 runs the __dp4a
-// kernel; bn = 128 (O a multiple of 128) or 64 runs the tensor-core kernel,
-// which takes log2_c >= 4, in `splits` (1..8) runs of `per_split` stages
-// of K covering them all.
+// (N, H, W, C) and w (O, ks, ks, C / groups) int8 and out (N, OH, OW, O)
+// int32, all contiguous and 16-byte aligned; ks in {1, 3}; O a multiple of
+// 8; N*OH*OW*O and N*H*W*C below 2**31; K = ks*ks*C / groups small enough
+// that no int32 sum overflows. groups = C (= O, ks = 3, C a multiple of 4)
+// runs the depthwise kernel. Else C is a power of two >= 4 and the plan is
+// the wrapper's `_conv_plan`, which carries the route: bn = 0 runs the
+// __dp4a kernel; bn = 128 (O a multiple of 128) or 64 runs the tensor-core
+// kernel, which takes C >= 16, in `splits` (1..8) runs of `per_split`
+// stages of K covering them all.
 extern "C" int facekit_conv_s8(const void* x, const void* w, void* out,
-                               int N, int H, int W, int log2_c, int O, int ks,
-                               int stride, int pad, int OH, int OW, int bn,
-                               int splits, int per_split, void* stream) {
+                               int N, int H, int W, int C, int O, int ks,
+                               int stride, int pad, int OH, int OW, int groups,
+                               int bn, int splits, int per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (groups > 1) {
+    if (groups != C || O != C || ks != 3 || C % 4)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dw(s, x, w, out, N, H, W, C, OH, OW, stride, pad);
+  }
+  if (C < 4 || (C & (C - 1)) || O % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const int log2_c = __builtin_ctz(static_cast<unsigned>(C));
   const int M = N * OH * OW;
   if (bn == 0) {
     return ks == 1 ? launch_dp4a<1>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M)

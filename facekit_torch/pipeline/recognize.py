@@ -3,7 +3,7 @@
 Port of ``facekit/pipeline/recognize.py``. PyTorch runs eagerly, so each
 method is the body of one of facekit's jitted programs:
 
-    letterbox + det_normalize -> RetinaFace -> decode + NMS (max_faces
+    letterbox + det_normalize -> detector -> decode + NMS (max_faces
         slots per frame) -> 5-point alignment (or cubic crop-resize)
         -> rec_normalize -> ArcFace -> gallery search
 
@@ -15,9 +15,14 @@ method is the body of one of facekit's jitted programs:
   * ``embed_and_match`` / ``embed_cropped(_batch)`` (``:304-354``), the
     ``/recognize`` and enrollment path on pre-cropped faces.
 
-The detector runs when ``det_params`` are given; landmarks are used when
-they carry the landmark head, and alignment when landmarks are used and
-the config sets ``rec_useAlignment`` (``:383-388``). With ``rec_quantize``
+The detector runs when ``det_params`` are given: RetinaFace, or with
+``det_network`` slim / rfb the light detector ``LightDet`` and its
+anchors (``:60-77``); with ``det_quantize`` it is the int8 detector
+(``models.quantize_detector``, before it moves to the device,
+``:369-371``). Landmarks are used when the params carry a landmark head
+(``ldm_head`` or the light detectors' ``landm``), and alignment when
+landmarks are used and the config sets ``rec_useAlignment``
+(``:383-388``). With ``rec_quantize``
 the embedder is the int8 ArcFace, dynamic until ``calibrate_embedder``
 fixes its activation scales; the float weights stay on the host for that
 (``:373-416``). An int8 gallery is searched with the f32 embeddings
@@ -35,9 +40,11 @@ import torch
 from facekit_torch.config import FaceKitConfig
 from facekit_torch.models.arcface import (ArcFace, calibrate_arcface_int8,
                                           quantize_arcface)
-from facekit_torch.models.retinaface import RetinaFace
+from facekit_torch.models.lightdet import LightDet
+from facekit_torch.models.retinaface import RetinaFace, quantize_detector
 from facekit_torch.ops.align import warp_align_frames
-from facekit_torch.ops.anchors import generate_anchors
+from facekit_torch.ops.anchors import (SLIM_RFB_MIN_SIZES, SLIM_RFB_STEPS,
+                                       generate_anchors)
 from facekit_torch.ops.boxes import Detections, select_faces_batch
 from facekit_torch.ops.preprocess import det_normalize, rec_normalize
 from facekit_torch.ops.resize import crop_resize, letterbox, resize_image
@@ -61,6 +68,20 @@ def _own_frames(arr, device: torch.device) -> torch.Tensor:
     if isinstance(arr, np.ndarray):
         return torch.tensor(arr, device=device)
     return torch.as_tensor(arr, device=device)
+
+
+def _detector(config: FaceKitConfig, det_params, device):
+    """The float f32 detector of ``config.det_network`` with ``det_params``
+    carried over, and its anchors on ``device``."""
+    if config.det_network in ("slim", "rfb"):
+        det = LightDet(config.det_network)
+        anchors = generate_anchors(config.det_hw, SLIM_RFB_STEPS,
+                                   SLIM_RFB_MIN_SIZES, device=device)
+    else:
+        det = RetinaFace(with_landmarks="ldm_head" in det_params)
+        anchors = generate_anchors(config.det_hw, device=device)
+    det.load_state_dict(from_jax(det_params, det))
+    return det, anchors
 
 
 class FrameResult(NamedTuple):
@@ -102,18 +123,16 @@ class FacePipeline:
             net = quantize_arcface(net)
         self._serve(net)
 
-        self.det_net: Optional[RetinaFace] = None
+        self.det_net = None
         self.use_landmarks = False
         if det_params is not None:
-            if config.det_network != "mobilenet0.25":
-                raise ValueError(f"det_network {config.det_network!r}: only "
-                                 "mobilenet0.25 is ported")
-            det = RetinaFace(with_landmarks="ldm_head" in det_params)
-            det.load_state_dict(from_jax(det_params, det))
+            det, self.anchors = _detector(config, det_params, self.device)
+            if config.det_quantize:
+                det = quantize_detector(det)
             self.det_net = det.set_compute_dtype(self.dtype).to(
                 self.device).eval()
-            self.use_landmarks = det.ldm_head is not None
-            self.anchors = generate_anchors(config.det_hw, device=self.device)
+            self.use_landmarks = ("ldm_head" in det_params
+                                  or "landm" in det_params)
         self.align = self.use_landmarks and bool(
             config.extras.get("rec_useAlignment", False))
 
@@ -144,7 +163,7 @@ class FacePipeline:
 
     @torch.inference_mode()
     def _detector_outputs(self, frames: torch.Tensor):
-        """(N, fh, fw, 3) BGR frames on the device -> RetinaFace's (loc,
+        """(N, fh, fw, 3) BGR frames on the device -> the detector's (loc,
         conf, ldm) on the letterboxed, normalized frames."""
         if self.det_net is None:
             raise ValueError("this pipeline has no detector (det_params)")

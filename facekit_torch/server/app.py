@@ -52,6 +52,7 @@ from facekit_torch.pipeline import FacePipeline
 from facekit_torch.pipeline.recognize import CALIBRATION_HEADROOM
 from facekit_torch.utils import LatencyTracker, resolve_device
 from facekit_torch.weights import (load_params, random_arcface_params,
+                                   random_lightdet_params,
                                    random_retinaface_params)
 
 log = logging.getLogger("facekit_torch.server")
@@ -98,13 +99,6 @@ class _Cv2Pixels:
 def refuse_unported(config) -> None:
     """Raise for a config that needs a part the port does not have yet."""
     reasons = []
-    if config.det_network != "mobilenet0.25":
-        reasons.append(f"det_network {config.det_network!r} (the slim/rfb "
-                       "detectors) is not ported yet (ROADMAP.md Queue 1, "
-                       "detect remainder)")
-    if config.det_quantize:
-        reasons.append("det_quantize (the int8 detector) is not ported yet "
-                       "(ROADMAP.md Queue 1, detect remainder)")
     if config.extras.get("rec_int8Residual"):
         reasons.append("rec_int8Residual (s8-resident block outputs) is not "
                        "ported yet (ROADMAP.md Queue 1, int8 remainder)")
@@ -126,17 +120,34 @@ def refuse_unported(config) -> None:
 
 
 def load_detector_params(config):
-    """``config.det_weights`` as facekit restores it: into a template with
-    the landmark head only when ``det_withLandmarks``
-    (``facekit/models/__init__.py:29-32``), so a head the template lacks
-    is dropped and one it needs but the file lacks refuses to start."""
+    """``config.det_weights`` as facekit restores it, into the template of
+    ``config.det_network`` (``facekit/models/__init__.py:24-32``): a light
+    detector's always holds its landmark heads (``landm``); RetinaFace's
+    holds ``ldm_head`` only when ``det_withLandmarks``, so a head the
+    template lacks is dropped and one it needs but the file lacks refuses
+    to start."""
     params = load_params(config.det_weights)
+    if config.det_network in ("slim", "rfb"):
+        if "landm" not in params:
+            raise ValueError(f"{config.det_weights}: det_network "
+                             f"{config.det_network} but the detector file "
+                             "has no landm heads")
+        return params
     if not config.det_withLandmarks:
         return {k: v for k, v in params.items() if k != "ldm_head"}
     if "ldm_head" not in params:
         raise ValueError(f"{config.det_weights}: det_withLandmarks is true "
                          "but the detector file has no ldm_head")
     return params
+
+
+def random_detector_params(config, seed: int = 0):
+    """Random params of ``config.det_network``'s detector, drawn with numpy
+    (facekit's ``init_model_params`` draws its family's init)."""
+    if config.det_network in ("slim", "rfb"):
+        return random_lightdet_params(config.det_network, seed=seed)
+    return random_retinaface_params(seed=seed,
+                                    with_landmarks=config.det_withLandmarks)
 
 
 def _load_calibration_crops(folder: str, rec_hw, pixels, batch: int = 16,
@@ -197,8 +208,8 @@ class FaceServer:
         """``rec_params`` / ``det_params``: embedder and detector params in
         facekit's layout; None loads ``config.rec_weights`` /
         ``config.det_weights`` or, without weights, draws random ones with
-        numpy (embedder from seed 1, detector from seed 0, with the landmark
-        head when ``det_withLandmarks``). ``device`` defaults to
+        numpy (embedder from seed 1, detector of ``det_network`` from seed
+        0, RetinaFace with the landmark head when ``det_withLandmarks``). ``device`` defaults to
         ``"cuda"``."""
         refuse_unported(config)
         self.config = config
@@ -212,8 +223,7 @@ class FaceServer:
                               embed_dim=config.rec_outputDim))
         if det_params is None:
             det_params = (load_detector_params(config) if config.det_weights
-                          else random_retinaface_params(
-                              seed=0, with_landmarks=config.det_withLandmarks))
+                          else random_detector_params(config, seed=0))
         self.pipeline = FacePipeline(config, rec_params, det_params,
                                      device=self.device)
         # optional int8 calibration from a folder of face crops: static

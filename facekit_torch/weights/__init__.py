@@ -1,11 +1,13 @@
 from facekit_torch.weights.bridge import (  # noqa: F401
     from_jax,
     random_arcface_params,
+    random_lightdet_params,
     random_retinaface_params,
 )
 from facekit_torch.weights.convert import (  # noqa: F401
     ConversionError,
     convert_arcface_state_dict,
+    convert_lightdet_state_dict,
     convert_retinaface_state_dict,
     load_torch_checkpoint,
 )

@@ -4,6 +4,7 @@ The port's copy of ``facekit/weights/__main__.py``; it needs no JAX:
 
     python -m facekit_torch.weights arcface backbone_ir50_asia.pth arcface.msgpack
     python -m facekit_torch.weights retinaface mobilenet0.25_Final.pth retina.msgpack
+    python -m facekit_torch.weights slim slim_Final.pth slim.msgpack
 
 The file it writes is the one ``facekit.weights`` writes, and both
 packages load it (``rec_weights`` / ``det_weights``). ``--verify`` builds
@@ -18,18 +19,17 @@ import argparse
 import numpy as np
 import torch
 
-from facekit_torch.models import ArcFace, RetinaFace
+from facekit_torch.models import ArcFace, LightDet, RetinaFace
 from facekit_torch.utils.device import resolve_device
 from facekit_torch.weights.bridge import from_jax
 from facekit_torch.weights.convert import (convert_arcface_state_dict,
+                                           convert_lightdet_state_dict,
                                            convert_retinaface_state_dict,
                                            load_torch_checkpoint)
 from facekit_torch.weights.io import load_params, save_params
 
-#: facekit's other converter modes, and the ROADMAP.md item that ports each
-_NOT_PORTED = {"slim": "Queue 1, detect remainder (models/lightdet.py)",
-               "rfb": "Queue 1, detect remainder (models/lightdet.py)",
-               "train-checkpoint": "Queue 1, train/"}
+#: facekit's other converter mode, and the ROADMAP.md item that ports it
+_NOT_PORTED = {"train-checkpoint": "Queue 1, train/"}
 
 
 def _verify(model: str, path: str, network: str, device) -> None:
@@ -41,9 +41,12 @@ def _verify(model: str, path: str, network: str, device) -> None:
         net = ArcFace(network,
                       embed_dim=params["output"]["linear"]["w"].shape[0])
         x = rng.normal(0, 1, (1, 112, 112, 3))
-    else:
+    elif model == "retinaface":
         net = RetinaFace(with_landmarks="ldm_head" in params)
         x = rng.normal(0, 1, (1, 288, 320, 3))
+    else:
+        net = LightDet(model)
+        x = rng.normal(0, 1, (1, 320, 320, 3))
     net.load_state_dict(from_jax(params, net))
     net = net.to(device).eval()
     with torch.inference_mode():
@@ -60,8 +63,8 @@ def _verify(model: str, path: str, network: str, device) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser("facekit_torch weight converter")
-    ap.add_argument("model", choices=["arcface", "retinaface",
-                                      *_NOT_PORTED])
+    ap.add_argument("model", choices=["arcface", "retinaface", "slim",
+                                      "rfb", *_NOT_PORTED])
     ap.add_argument("checkpoint", help="reference torch .pth/.tar")
     ap.add_argument("output")
     ap.add_argument("--network", default="ir_50",
@@ -87,8 +90,10 @@ def main(argv=None) -> None:
     sd = load_torch_checkpoint(args.checkpoint)
     if args.model == "arcface":
         params = convert_arcface_state_dict(sd, args.network, strict=strict)
-    else:
+    elif args.model == "retinaface":
         params = convert_retinaface_state_dict(sd, strict=strict)
+    else:
+        params = convert_lightdet_state_dict(sd, args.model, strict=strict)
     save_params(params, args.output)
     print(f"wrote {args.output}")
 

@@ -13,9 +13,12 @@ flatten plus one layout change:
     (``facekit/models/layers.py:198-201``);
   * batch-norm keeps ``scale/bias/mean/var`` (eps 1e-5);
   * a quantized tree (``quantize_arcface_params`` /
-    ``calibrate_arcface_int8``) has ``{"q", "scale"[, "ascale"]}`` leaves
-    at its conv sites: ``q`` goes to int8 OIHW without passing through a
-    float, ``scale`` and ``ascale`` stay f32, bit for bit.
+    ``calibrate_arcface_int8``, ``quantize_detector_params``) has ``{"q",
+    "scale"[, "ascale"]}`` leaves at its conv sites: ``q`` goes to int8
+    OIHW without passing through a float, ``scale`` and ``ascale`` stay
+    f32, bit for bit;
+  * a ``None`` leaf (RFB's ``dw[6]``, where its block sits) has no
+    parameters and is skipped.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from facekit_torch.models.arcface import block_specs
 
 
 def _flatten(node, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    if node is None:
+        return
     if isinstance(node, Mapping):
         items = node.items()
     elif isinstance(node, (list, tuple)):
@@ -71,7 +76,6 @@ def from_jax(params, network: torch.nn.Module) -> Dict[str, torch.Tensor]:
                              f"{ref.dtype}")
         out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out
-
 
 
 # -- random parameters, drawn with numpy -------------------------------------
@@ -191,4 +195,66 @@ def random_retinaface_params(seed: int = 0, with_landmarks: bool = True
     }
     if with_landmarks:
         params["ldm_head"] = [head(10) for _ in range(3)]
+    return params
+
+
+def random_lightdet_params(variant: str = "slim", seed: int = 0
+                           ) -> Dict[str, Any]:
+    """Random slim or RFB detector params in facekit's layout (the tree
+    ``facekit.models.lightdet.lightdet_init`` returns, ``None`` at RFB's
+    ``dw[6]``), drawn from ``seed`` with numpy so both packages can be fed
+    the same values."""
+    from facekit_torch.models.lightdet import (DW_CHAIN, LEVEL_ANCHORS,
+                                               LEVEL_CH, RFB_INDEX, VARIANTS)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: 'slim' or 'rfb'")
+    rng = np.random.default_rng(seed)
+
+    def bias(c):
+        return rng.uniform(-0.1, 0.1, c).astype(np.float32)
+
+    def depth_conv(cin, cout):
+        return {"dw_w": _kaiming_hwio(rng, cin, 1, 3, 3), "dw_b": bias(cin),
+                "pw_w": _kaiming_hwio(rng, cout, cin, 1, 1),
+                "pw_b": bias(cout)}
+
+    def basic(cin, cout, k):
+        return {"w": _kaiming_hwio(rng, cout, cin, k, k), "bn": _bn(rng, cout)}
+
+    def head(level, dim):
+        cin, cout = LEVEL_CH[level], LEVEL_ANCHORS[level] * dim
+        if level < 3:
+            return depth_conv(cin, cout)
+        return {"w": _kaiming_hwio(rng, cout, cin, 3, 3), "b": bias(cout)}
+
+    params: Dict[str, Any] = {
+        "conv1": {"conv": _kaiming_hwio(rng, 16, 3, 3, 3), "bn": _bn(rng, 16)},
+        "dw": [],
+        "conv14_a": {"w": _kaiming_hwio(rng, 64, 256, 1, 1), "b": bias(64)},
+        "conv14_b": depth_conv(64, 256),
+    }
+    for i, (ci, co, _) in enumerate(DW_CHAIN):
+        if variant == "rfb" and i == RFB_INDEX:
+            params["dw"].append(None)
+            inter = 64 // 8
+            params["rfb8"] = {
+                "b0": [basic(64, inter, 1), basic(inter, 2 * inter, 3),
+                       basic(2 * inter, 2 * inter, 3)],
+                "b1": [basic(64, inter, 1), basic(inter, 2 * inter, 3),
+                       basic(2 * inter, 2 * inter, 3)],
+                "b2": [basic(64, inter, 1),
+                       basic(inter, (inter // 2) * 3, 3),
+                       basic((inter // 2) * 3, 2 * inter, 3),
+                       basic(2 * inter, 2 * inter, 3)],
+                "linear": basic(6 * inter, 64, 1),
+                "shortcut": basic(64, 64, 1),
+            }
+        else:
+            params["dw"].append({
+                "dw_conv": _kaiming_hwio(rng, ci, 1, 3, 3),
+                "dw_bn": _bn(rng, ci),
+                "pw_conv": _kaiming_hwio(rng, co, ci, 1, 1),
+                "pw_bn": _bn(rng, co)})
+    for name, dim in (("loc", 4), ("conf", 2), ("landm", 10)):
+        params[name] = [head(lvl, dim) for lvl in range(4)]
     return params

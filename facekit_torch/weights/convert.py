@@ -3,7 +3,8 @@
 The port's own, numpy-only copy of ``facekit/weights/convert.py``: the
 key maps of the reference model definitions (ArcFace IR / IR-SE,
 ``conversion/arcface/model_irse.py``; RetinaFace-MobileNet0.25,
-``conversion/retina/models/retinaface.py`` and ``net.py``) into the nested
+``conversion/retina/models/retinaface.py`` and ``net.py``; the slim and
+RFB light detectors, ``net_slim.py`` and ``net_rfb.py``) into the nested
 trees ``facekit.models`` consumes: HWIO convs and facekit's keys, numpy
 leaves. ``from_jax`` takes such a tree unchanged, and ``save_params``
 writes it as a file that either package loads. float64 tensors become
@@ -13,9 +14,7 @@ A conversion refuses silent partial loads (the reference's
 ``check_keys``, ``conversion/retina/torch2trt.py:28-64``): a missing key is
 named with its neighbours, and keys the mapping never consumed refuse the
 checkpoint unless ``strict=False``. ``module.`` (DataParallel) prefixes
-are stripped and ``num_batches_tracked`` is ignored. The slim / RFB light
-detectors' converter waits for their model (ROADMAP.md Queue 1, detect
-remainder).
+are stripped and ``num_batches_tracked`` is ignored.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ import numpy as np
 import torch
 
 from facekit_torch.models.arcface import block_specs
+from facekit_torch.models.lightdet import DW_CHAIN, RFB_INDEX
 from facekit_torch.models.retinaface import _STAGE1, _STAGE2, _STAGE3
 
 
@@ -231,4 +231,66 @@ def convert_retinaface_state_dict(sd: Mapping[str, Any],
                               for i in range(3)]
     if strict:
         sd.check_consumed("retinaface")
+    return params
+
+
+# -- Slim / RFB light detectors (net_slim.py, net_rfb.py) ----------------------
+
+def _biased_conv(sd, prefix) -> Dict[str, Any]:
+    return {"w": _conv(sd, prefix + ".weight"),
+            "b": _np(sd[prefix + ".bias"])}
+
+
+def _depth_conv2d_unit(sd, prefix) -> Dict[str, Any]:
+    """depth_conv2d Sequential: .0 biased dw conv, .1 ReLU, .2 biased 1x1."""
+    return {
+        "dw_w": _conv(sd, prefix + ".0.weight"),
+        "dw_b": _np(sd[prefix + ".0.bias"]),
+        "pw_w": _conv(sd, prefix + ".2.weight"),
+        "pw_b": _np(sd[prefix + ".2.bias"]),
+    }
+
+
+def _basic_conv_unit(sd, prefix) -> Dict[str, Any]:
+    p = {"w": _conv(sd, prefix + ".conv.weight")}
+    if prefix + ".bn.weight" in sd:
+        p["bn"] = _bn(sd, prefix + ".bn")
+    else:
+        p["b"] = _np(sd[prefix + ".conv.bias"])
+    return p
+
+
+def convert_lightdet_state_dict(sd: Mapping[str, Any],
+                                variant: str = "slim",
+                                strict: bool = True) -> Dict[str, Any]:
+    """A slim or RFB state_dict -> facekit's light-detector tree, with
+    ``None`` at RFB's ``dw[6]`` and its ``BasicRFB`` block as ``rfb8``."""
+    sd = _tracked(sd)
+    params: Dict[str, Any] = {
+        "conv1": _conv_bn_unit(sd, "conv1"),
+        "dw": [],
+        "conv14_a": _biased_conv(sd, "conv14.0"),
+        "conv14_b": _depth_conv2d_unit(sd, "conv14.2"),
+    }
+    for i in range(len(DW_CHAIN)):            # conv2..conv13
+        if variant == "rfb" and i == RFB_INDEX:
+            params["dw"].append(None)
+            params["rfb8"] = {
+                "b0": [_basic_conv_unit(sd, f"conv8.branch0.{j}")
+                       for j in range(3)],
+                "b1": [_basic_conv_unit(sd, f"conv8.branch1.{j}")
+                       for j in range(3)],
+                "b2": [_basic_conv_unit(sd, f"conv8.branch2.{j}")
+                       for j in range(4)],
+                "linear": _basic_conv_unit(sd, "conv8.ConvLinear"),
+                "shortcut": _basic_conv_unit(sd, "conv8.shortcut"),
+            }
+        else:
+            params["dw"].append(_conv_dw_unit(sd, f"conv{i + 2}"))
+    for name in ("loc", "conf", "landm"):
+        params[name] = [_depth_conv2d_unit(sd, f"{name}.{lvl}") if lvl < 3
+                        else _biased_conv(sd, f"{name}.{lvl}")
+                        for lvl in range(4)]
+    if strict:
+        sd.check_consumed(f"lightdet {variant}")
     return params

@@ -1,19 +1,29 @@
 """The launch plan of facekit_torch's s8 conv kernel.
 
-``conv_route`` (which kernel a channel count runs), ``_conv_plan`` (the
-tensor-core route's CTA tile and K split) and ``_launch_plan`` (the plan
-the C entry point takes, which names the route) are pure functions of the
-shapes and the card's SM count, so they are checked here on the CPU at
-every conv site of the int8 IR-50 at the served batches; the kernel itself
-is in tests/test_torch_kernels.py. Imports neither JAX nor facekit.
+``conv_route`` (which kernel a channel count and ``groups`` run),
+``_conv_plan`` (the tensor-core route's CTA tile and K split) and
+``_launch_plan`` (the plan the C entry point takes, which names the dense
+route) are pure functions of the shapes and the card's SM count, so they
+are checked here on the CPU at every conv site of the int8 IR-50 at the
+served batches and at every site of the int8 detectors (whose list the
+kernel tests take is held here to the sites a forward runs); the kernel
+itself is in tests/test_torch_kernels.py. Imports neither JAX nor
+facekit.
 """
 
-import pytest
+from collections import Counter
 
+import numpy as np
+import pytest
+import torch
+
+from facekit_torch.models import LightDet, RetinaFace, quantize_detector
+from facekit_torch.models import layers as TL
 from facekit_torch.models.arcface import block_specs
 from facekit_torch.ops.conv_s8 import (CONV_BK, CONV_BM, MAX_K, MAX_SPLITS,
                                        MIN_SPLIT_STAGES, MMA_MIN_C, _NO_PLAN,
                                        _conv_plan, _launch_plan, conv_route)
+from test_torch_kernels import DET_HW, _detector_conv_shapes
 
 SMS = 132                      # an H100 SXM
 BATCHES = (1, 8, 64)           # the throughput config's /recognize buckets
@@ -105,3 +115,71 @@ def test_overflow_bound_covers_ir50():
     which 128**2 * K could reach 2**31."""
     assert max(ks * ks * c for _, c, _, ks, _, _ in SITES) == 4608 < MAX_K
     assert 128 ** 2 * MAX_K < 2 ** 31 <= 128 ** 2 * (MAX_K + 1)
+
+
+@pytest.mark.parametrize("family", ["mobilenet0.25", "slim", "rfb"])
+def test_detector_site_list_is_what_a_forward_runs(family, monkeypatch):
+    """The int8 sites the kernel tests take for a detector at 288x320
+    are those its int8 forward runs (shapes, strides,
+    padding, groups, each as often), and each site's route is the one its
+    channels and groups choose."""
+    net = RetinaFace() if family == "mobilenet0.25" else LightDet(family)
+    q = quantize_detector(net.eval())
+    seen = []
+
+    def record(x, wq, wscale, stride=1, padding=0, groups=1, ascale=None):
+        n, h, w, c = x.shape
+        seen.append((n, h, w, c, wq.shape[0], wq.shape[2], stride, padding,
+                     groups))
+        oh = (h + 2 * padding - wq.shape[2]) // stride + 1
+        ow = (w + 2 * padding - wq.shape[3]) // stride + 1
+        return torch.zeros((n, oh, ow, wq.shape[0]), dtype=x.dtype)
+    monkeypatch.setattr(TL, "conv2d_int8", record)
+    with torch.inference_mode():
+        q(torch.zeros((1, *DET_HW, 3)))
+    expected = _detector_conv_shapes(1, family)
+    assert Counter(seen) == Counter(expected)
+    routes = Counter(conv_route(c, g) for _, _, _, c, _, _, _, _, g
+                     in expected)
+    dw = {"mobilenet0.25": 13, "slim": 12, "rfb": 11}[family]
+    assert routes["dw"] == dw
+    # the stem (3 -> 8 or 16) and RetinaFace's first pointwise (8 -> 16)
+    assert routes["dp4a"] == (2 if family == "mobilenet0.25" else 1)
+    assert all(o % 8 == 0 for _, _, _, _, o, _, _, _, _ in expected)
+
+
+@pytest.mark.parametrize("o", [8, 16, 24, 32, 40, 192, 200])
+def test_conv_plan_covers_narrow_outputs(o):
+    """An O that is no multiple of 64 takes 64-channel tiles, the last
+    partly past O (its rows zero-filled, its stores skipped)."""
+    p = _conv_plan(8, 36, 40, o, 9 * 16, SMS)
+    assert p.bn == (128 if o % 128 == 0 else 64)
+    assert (p.n_tiles - 1) * p.bn < o <= p.n_tiles * p.bn
+
+
+@pytest.mark.parametrize("c", [8, 16, 64, 256])
+def test_depthwise_route_takes_no_plan(c):
+    assert conv_route(c, groups=c) == "dw"
+    assert _launch_plan(8, 36, 40, c, c, 3, SMS, groups=c) == _NO_PLAN
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c", [8, 24, 64])
+def test_wrapper_runs_depthwise_plain_version_on_cpu(c, stride):
+    """On CPU tensors the wrapper runs the plain version with ``groups``,
+    which sums each channel's 9 taps alone."""
+    from facekit_torch.ops.conv_s8 import (_conv_s8_cuda, conv_s8,
+                                           conv_s8_reference)
+    rng = np.random.default_rng(c + stride)
+    x = torch.tensor(rng.integers(-127, 128, (2, 9, 7, c)), dtype=torch.int8)
+    w = torch.tensor(rng.integers(-127, 128, (c, 3, 3, 1)), dtype=torch.int8)
+    before = conv_s8.launches
+    got = conv_s8(x, w, stride, 1, groups=c)
+    assert conv_s8.launches == before
+    assert torch.equal(got, conv_s8_reference(x, w, stride, 1, c))
+    xp = torch.nn.functional.pad(x.int(), (0, 0, 1, 1, 1, 1))
+    for ch in (0, c - 1):
+        patch = xp[1, 0:3, 0:3, ch]
+        assert int(got[1, 0, 0, ch]) == int((patch * w[ch, :, :, 0]).sum())
+    with pytest.raises(ValueError, match="CUDA"):
+        _conv_s8_cuda(x, w, stride, 1, c)

@@ -265,7 +265,7 @@ def test_gen_config_is_no_longer_refused(tmp_path):
     FaceServer(cfg, warmup=False, device="cpu").close()
 
 
-@pytest.mark.parametrize("override", [{"det_network": "slim"},
+@pytest.mark.parametrize("override", [{"extras": {"rec_int8Residual": True}},
                                       {"extras": {"profiler_port": 9999}}])
 def test_gen_does_not_lift_other_refusals(override, tmp_path):
     cfg = dataclasses.replace(FaceKitConfig(

@@ -365,13 +365,21 @@ def test_conv_kernel_matches_plain_bit_for_bit(cuda_device, n, h, w, c, o,
 
 @pytest.mark.cuda
 def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
+    """What no route takes: O no multiple of 8, a 5x5 kernel, groups
+    other than 1 and C (or a depthwise 1x1), float input."""
     x = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=cuda_device)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        conv_s8(x, torch.zeros((32, 3, 3, 64), dtype=torch.int8,
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv_s8(x, torch.zeros((12, 3, 3, 64), dtype=torch.int8,
                                device=cuda_device))
     with pytest.raises(ValueError, match="1x1 or 3x3"):
         conv_s8(x, torch.zeros((64, 5, 5, 64), dtype=torch.int8,
                                device=cuda_device))
+    with pytest.raises(ValueError, match="depthwise 3x3"):
+        conv_s8(x, torch.zeros((64, 3, 3, 2), dtype=torch.int8,
+                               device=cuda_device), groups=32)
+    with pytest.raises(ValueError, match="depthwise 3x3"):
+        conv_s8(x, torch.zeros((64, 1, 1, 1), dtype=torch.int8,
+                               device=cuda_device), groups=64)
     with pytest.raises(TypeError):
         conv_s8(x.float(), torch.zeros((64, 3, 3, 64), device=cuda_device))
 
@@ -481,6 +489,119 @@ def test_conv_ir50_shapes_at_batch_2(cuda_device, shape):
     got = conv_s8(x, wt, stride, pad)
     torch.cuda.synchronize()
     assert torch.equal(got, conv_s8_reference(x, wt, stride, pad))
+
+
+DET_HW = (288, 320)          # the detectors' input at configs/default.json
+
+
+def _detector_conv_shapes(n, family):
+    """(N, H, W, C, O, kernel, stride, padding, groups) of every int8 site
+    of one int8 detector forward at DET_HW and batch n (RetinaFace's 47,
+    slim's 25, RFB's 23; tests/test_torch_conv_plan.py holds this list to
+    the sites a forward of the port's modules runs)."""
+    from facekit_torch.models.lightdet import DW_CHAIN, RFB_INDEX
+    from facekit_torch.models.retinaface import (_FPN_IN, _OUT_CH, _STAGE1,
+                                                 _STAGE2, _STAGE3)
+    hw = list(DET_HW)
+    out = []
+
+    def site(c, o, k, stride, pad, groups=1, at=None):
+        h, w = at or hw
+        out.append((n, h, w, c, o, k, stride, pad, groups))
+        if at is None:
+            hw[:] = [(d + 2 * pad - k) // stride + 1 for d in hw]
+
+    def dw_unit(ci, co, stride):
+        site(ci, ci, 3, stride, 1, ci)
+        site(ci, co, 1, 1, 0)
+
+    if family == "mobilenet0.25":
+        site(3, 8, 3, 2, 1)
+        levels = []
+        for stage in (_STAGE1, _STAGE2, _STAGE3):
+            for ci, co, stride in stage:
+                dw_unit(ci, co, stride)
+            levels.append(tuple(hw))
+        for c, at in zip(_FPN_IN, levels):
+            site(c, _OUT_CH, 1, 1, 0, at=at)
+        site(_OUT_CH, _OUT_CH, 3, 1, 1, at=levels[1])          # merge2
+        site(_OUT_CH, _OUT_CH, 3, 1, 1, at=levels[0])          # merge1
+        for at in levels:                                      # SSH
+            site(_OUT_CH, _OUT_CH // 2, 3, 1, 1, at=at)
+            site(_OUT_CH, _OUT_CH // 4, 3, 1, 1, at=at)
+            for _ in range(3):
+                site(_OUT_CH // 4, _OUT_CH // 4, 3, 1, 1, at=at)
+        return out
+    site(3, 16, 3, 2, 1)
+    for i, (ci, co, stride) in enumerate(DW_CHAIN):
+        if not (family == "rfb" and i == RFB_INDEX):
+            dw_unit(ci, co, stride)
+    return out
+
+
+DET_CONV_CASES = list(dict.fromkeys(
+    shape for n in (1, 8) for family in ("mobilenet0.25", "slim", "rfb")
+    for shape in _detector_conv_shapes(n, family)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", DET_CONV_CASES,
+    ids=lambda s: "n{0}h{1}w{2}c{3}o{4}k{5}s{6}g{8}".format(*s))
+def test_conv_detector_shapes_bit_for_bit(cuda_device, shape):
+    """Every distinct int8 site of the three detectors at 288x320, at
+    batches 1 and 8: the depthwise route (C from 8 to 256, strides 1 and
+    2), the 8-, 16- and 32-channel outputs on both dense routes, and the
+    9x10 and 5x5 maps whose pixels fill a part of one 128-pixel tile."""
+    n, h, w, c, o, ks, stride, pad, groups = shape
+    rng = np.random.default_rng(n + h + w + c + o + ks + stride + groups)
+    x = _s8(rng, (n, h, w, c)).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, c // groups)).to(cuda_device)
+    before = conv_s8.launches
+    got = conv_s8(x, wt, stride, pad, groups)
+    ref = conv_s8_reference(x, wt, stride, pad, groups)
+    torch.cuda.synchronize()
+    assert conv_s8.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+# (N, H, W, C, O, kernel, stride, padding, groups): odd sizes, so every
+# route's pixel tiles end ragged; C = 24 and 8 take the depthwise route's
+# 4-channel runs; O = 24 and 40 end a 64-channel tile part way, on the
+# dp4a (C = 8) and the tensor-core route (C = 16, 64; split K at batch 1);
+# extreme sums on the depthwise route
+CONV_NARROW_CASES = [(2, 13, 11, 24, 24, 3, 1, 1, 24),
+                     (3, 9, 7, 8, 8, 3, 2, 1, 8),
+                     (1, 15, 17, 256, 256, 3, 2, 1, 256),
+                     (2, 13, 11, 32, 32, 3, 1, 0, 32),
+                     (2, 13, 11, 8, 24, 1, 1, 0, 1),
+                     (2, 13, 11, 4, 40, 3, 2, 1, 1),
+                     (3, 9, 7, 16, 40, 3, 1, 1, 1),
+                     (1, 7, 7, 64, 24, 3, 1, 1, 1),
+                     (2, 13, 11, 64, 200, 1, 2, 0, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,ks,stride,pad,groups", CONV_NARROW_CASES)
+def test_conv_narrow_and_depthwise_bit_for_bit(cuda_device, n, h, w, c, o,
+                                               ks, stride, pad, groups):
+    rng = np.random.default_rng(3 * n + h + w + c + o + ks + groups)
+    x = _s8(rng, (n, h, w, c)).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, c // groups)).to(cuda_device)
+    got = conv_s8(x, wt, stride, pad, groups)
+    ref = conv_s8_reference(x, wt, stride, pad, groups)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if groups > 1:
+        # every input -127 and every weight 127: each inner sum is 9 of
+        # the largest products
+        full = conv_s8(torch.full_like(x, -127), torch.full_like(wt, 127),
+                       stride, pad, groups)
+        torch.cuda.synchronize()
+        assert int(full.min()) == -9 * 127 ** 2
+        assert torch.equal(full, conv_s8_reference(
+            torch.full_like(x, -127), torch.full_like(wt, 127), stride, pad,
+            groups))
 
 
 @pytest.mark.cuda

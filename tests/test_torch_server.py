@@ -199,12 +199,12 @@ def test_recognize_batch_pads_to_buckets(servers):
 
 
 @pytest.mark.parametrize("override", [
-    {"det_network": "slim"}, {"extras": {"rec_int8Residual": True}},
+    {"extras": {"rec_int8Residual": True}},
     {"mesh_shape": {"gallery": 4}},
     {"mesh_shape": {"data": 2}},
     {"extras": {"server_enginesDir": "/tmp/engines"}},
-    {"extras": {"server_hostOps": "native"}}, {"det_network": "rfb"},
-    {"det_quantize": True}, {"extras": {"profiler_port": 9999}}])
+    {"extras": {"server_hostOps": "native"}},
+    {"extras": {"profiler_port": 9999}}])
 def test_unported_configs_are_refused(override, tmp_path):
     cfg = FaceKitConfig(database_path=str(tmp_path / "x.db"), **_COMMON)
     cfg = dataclasses.replace(cfg, **override)
@@ -392,6 +392,7 @@ def test_import_loads_no_jax_and_no_facekit():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'facekit'))\n"
         "assert not bad, bad\n"
+        "assert 'facekit_torch.models.lightdet' in sys.modules\n"
         "print(len([n for n in sys.modules "
         "if n.startswith('facekit_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -551,6 +552,47 @@ def _det_file(tmp, with_landmarks):
     save_params(random_retinaface_params(seed=0,
                                          with_landmarks=with_landmarks), path)
     return path
+
+
+@pytest.mark.parametrize("override", [
+    {"det_network": "slim"}, {"det_network": "rfb"}, {"det_quantize": True}])
+async def test_detector_configs_serve_ws_inference(override, tmp_path):
+    """The slim and RFB detectors and the int8 detector, once refused at
+    startup: a server on the CPU with each draws its random detector from
+    ``det_network`` and answers one WS /inference batch with the face it
+    enrolled from the same frame."""
+    cfg = FaceKitConfig(database_path=str(tmp_path / "d.db"),
+                        **dict(_DET, **override))
+    server = FaceServer(cfg, rec_params=random_arcface_params("ir_tiny",
+                                                             seed=8),
+                        warmup=False, device="cpu")
+    try:
+        det = server.pipeline.det_net
+        assert type(det).__name__ == ("LightDet" if "det_network" in override
+                                      else "RetinaFace")
+        assert server.pipeline.use_landmarks
+        assert any(type(m).__name__ == "QConv" for m in det.modules()) == \
+            bool(override.get("det_quantize"))
+        frame = np.random.default_rng(16).integers(0, 256, (480, 640, 3),
+                                                   dtype=np.uint8)
+        data = _jpg(tmp_path / "f.jpg", frame)
+        res = server.pipeline.recognize_frame(server.pixels.decode(data),
+                                              return_crops=True)
+        slot = int(res.crops.std(dim=(1, 2, 3)).masked_fill(
+            ~res.valid, -1.0).argmax())
+        assert res.valid[slot] and res.crops[slot].std() > 10
+        _enroll([server], [("gus", res.embeddings[slot].numpy())])
+        server.reload_gallery()
+        client = TestClient(TestServer(make_app(server)))
+        await client.start_server()
+        try:
+            reply = json.loads((await _ws_replies(client, [data]))[0])
+        finally:
+            await client.close()
+    finally:
+        server.close()
+    assert reply["userId"] == "gus" and reply["similarity"] > 0.999
+    assert _decode(reply["image"]).shape == (112, 112, 3)
 
 
 def test_det_weights_without_landmarks_flag_drop_the_head(tmp_path):

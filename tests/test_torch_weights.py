@@ -37,7 +37,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _flat(tree, prefix=""):
-    """{dotted path: numpy leaf}; lists and maps keyed "0", "1" alike."""
+    """{dotted path: numpy leaf, or None}; lists and maps keyed "0", "1"
+    alike."""
+    if tree is None:
+        return {prefix: None}
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -51,10 +54,14 @@ def _flat(tree, prefix=""):
 
 
 def assert_same_leaves(a, b):
-    """Same paths, shapes, dtypes and bits, checked from both sides."""
+    """Same paths, shapes, dtypes and bits (``None`` where the other has
+    ``None``), checked from both sides."""
     fa, fb = _flat(a), _flat(b)
     assert sorted(fa) == sorted(fb)
     for k in fa:
+        if fa[k] is None or fb[k] is None:
+            assert fa[k] is fb[k] is None, k
+            continue
         assert fa[k].dtype == fb[k].dtype, k
         assert fa[k].shape == fb[k].shape, k
         assert fa[k].tobytes() == fb[k].tobytes(), k
@@ -239,21 +246,23 @@ def test_cli_end_to_end_on_cpu(model, tmp_path, capsys):
 
 
 def test_cli_refusals(tmp_path, capsys):
-    """The modes facekit has and the port lacks exit non-zero naming the
-    ROADMAP item; ``--verify`` defaults to the card and, without one,
-    raises before anything is written; unconsumed keys need
+    """The mode facekit has and the port lacks exits non-zero naming the
+    ROADMAP item; a light-detector mode refuses a checkpoint of another
+    model, naming the missing key; ``--verify`` defaults to the card and,
+    without one, raises before anything is written; unconsumed keys need
     ``--no-strict``."""
     ckpt, out = str(tmp_path / "m.pth"), str(tmp_path / "m.msgpack")
     sd = _ir_tiny_sd()
     sd["head.kernel"] = torch.zeros(3)
     torch.save(sd, ckpt)
-    for mode, item in (("slim", "detect remainder"),
-                       ("rfb", "detect remainder"),
-                       ("train-checkpoint", "train/")):
-        with pytest.raises(SystemExit) as e:
+    with pytest.raises(SystemExit) as e:
+        cli_main(["train-checkpoint", ckpt, out])
+    assert e.value.code != 0
+    assert "train/" in capsys.readouterr().err
+    for mode in ("slim", "rfb"):
+        with pytest.raises(ConversionError, match=r"missing key `conv1\.0"):
             cli_main([mode, ckpt, out])
-        assert e.value.code != 0
-        assert item in capsys.readouterr().err
+        assert not os.path.exists(out)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cli_main(["arcface", ckpt, out, "--network", "ir_tiny",

@@ -95,3 +95,48 @@ def retinaface_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             _conv(sd, f"{theirs}.{i}.conv1x1.weight", p["w"])
             _t(sd, f"{theirs}.{i}.conv1x1.bias", p["b"])
     return sd
+
+
+def _biased(sd, prefix, w, b) -> None:
+    _conv(sd, f"{prefix}.weight", w)
+    _t(sd, f"{prefix}.bias", b)
+
+
+def _depth_conv2d(sd, prefix, p) -> None:
+    _biased(sd, f"{prefix}.0", p["dw_w"], p["dw_b"])
+    _biased(sd, f"{prefix}.2", p["pw_w"], p["pw_b"])
+
+
+def _basic_conv(sd, prefix, p) -> None:
+    _conv(sd, f"{prefix}.conv.weight", p["w"])
+    if "bn" in p:
+        _bn(sd, f"{prefix}.bn", p["bn"])
+    else:
+        _t(sd, f"{prefix}.conv.bias", p["b"])
+
+
+def lightdet_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Slim / RFB tree -> ``net_slim.py`` / ``net_rfb.py``'s state_dict
+    keys (``conv8.branch*``, ``ConvLinear`` and ``shortcut`` where the tree
+    has ``rfb8``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_bn(sd, "conv1", tree["conv1"])
+    for i, p in enumerate(tree["dw"]):
+        if p is not None:
+            _conv_dw(sd, f"conv{i + 2}", p)
+    if "rfb8" in tree:
+        rfb = tree["rfb8"]
+        for b in ("b0", "b1", "b2"):
+            for j, p in enumerate(rfb[b]):
+                _basic_conv(sd, f"conv8.branch{b[1]}.{j}", p)
+        _basic_conv(sd, "conv8.ConvLinear", rfb["linear"])
+        _basic_conv(sd, "conv8.shortcut", rfb["shortcut"])
+    _biased(sd, "conv14.0", tree["conv14_a"]["w"], tree["conv14_a"]["b"])
+    _depth_conv2d(sd, "conv14.2", tree["conv14_b"])
+    for name in ("loc", "conf", "landm"):
+        for lvl, p in enumerate(tree[name]):
+            if lvl < 3:
+                _depth_conv2d(sd, f"{name}.{lvl}", p)
+            else:
+                _biased(sd, f"{name}.{lvl}", p["w"], p["b"])
+    return sd
