@@ -78,6 +78,8 @@ TF32_PEAK_OPS = 495e12
 F32_TF32_PASSES = 3
 SCORE_ATOL = 1e-4        # f32 sums over D=512 in another order
 SPLIT_REPS = 5           # searches traced per case for the pass split
+TRACE_TRIES = 3          # traces taken until one holds every call's events
+L2_FLUSH_BYTES = 256 << 20   # > the H100's 50 MB L2, overwritten per call
 # the cutoff-tie check: copies of one row per query, each in its own
 # chunk; the top k must be the k lowest indices of the copies
 TIE_COPIES = 70
@@ -230,12 +232,61 @@ def pass_split(fn, args_list, reps: int = SPLIT_REPS):
             "other_us": sum(other) / reps if other else None}
 
 
-def device_us(fn, args_list, reps: int = SPLIT_REPS):
+def device_us(fn, args_list, reps: int = SPLIT_REPS, tries: int = TRACE_TRIES):
     """Mean device µs of one call ``fn(*args)``: every kernel and memset it
     runs on the card, from ``traced_calls``. Beside ``cuda_ms`` (CUDA
     events around calls issued back to back) it tells the card's time from
-    the host's."""
-    return sum(us for _, _, us in traced_calls(fn, args_list, reps)) / reps
+    the host's. A trace may drop the events of a short run: one that
+    holds fewer events than calls is taken again, up to ``tries`` times;
+    None if none holds them."""
+    for _ in range(tries):
+        events = traced_calls(fn, args_list, reps)
+        if len(events) >= reps:
+            return sum(us for _, _, us in events) / reps
+    return None
+
+
+def flushed_kernel_us(cases, name: str, flush, reps: int = SPLIT_REPS,
+                      tries: int = TRACE_TRIES):
+    """For each ``(fn, args_list)`` of ``cases``, the mean device µs of the
+    one kernel whose name holds ``name`` that a call ``fn(*args)``
+    launches: ``reps`` calls a case, one at a time, all in one trace (the
+    traces of single short runs lose their events), in order. ``flush``,
+    a device tensor larger than the L2, is overwritten before each call,
+    so every call reads its operands from HBM, as the bound counts them.
+    A trace that does not hold one such kernel per call is taken again,
+    up to ``tries`` times; all None if none does."""
+    import torch
+    for fn, args_list in cases:
+        fn(*args_list[0])                        # warm up
+
+    def run():
+        for fn, args_list in cases:
+            for i in range(reps):
+                flush.fill_(i)
+                fn(*args_list[i % len(args_list)])
+                torch.cuda.synchronize()
+    for _ in range(tries):
+        us = [d for _, d in sorted((start, d) for n, start, d
+                                   in device_events(run) if name in n)]
+        if len(us) == reps * len(cases):
+            return [sum(us[i:i + reps]) / reps
+                    for i in range(0, len(us), reps)]
+    return [None] * len(cases)
+
+
+def site_us(events, order, reps: int = SPLIT_REPS):
+    """{site shape: mean device µs of its ``conv_s8`` kernels} inside
+    ``reps`` traced forwards, by the order the kernels started in:
+    ``order`` lists one forward's site shapes in call order. None when the
+    trace does not hold one kernel per site."""
+    conv = sorted((start, us) for n, start, us in events if "conv_s8" in n)
+    if len(conv) != reps * len(order):
+        return None
+    acc = collections.defaultdict(list)
+    for i, (_, us) in enumerate(conv):
+        acc[order[i % len(order)]].append(us)
+    return {shape: sum(v) / len(v) for shape, v in acc.items()}
 
 
 def search_bound(n_rows: int, b: int, k: int, dtype: str):
@@ -974,6 +1025,10 @@ def phase_conv(device, batches=CONV_BATCHES, seed=3):
     return out
 
 
+def _ms(us):
+    return None if us is None else us / 1e3
+
+
 def conv_forwards(convs):
     """One line per batch of ``convs``: the conv_s8_case lines of the int8
     IR-50's sites summed by their launches_per_forward (ms, host ms,
@@ -986,6 +1041,8 @@ def conv_forwards(convs):
               if c["batch"] == batch and c["launches_per_forward"]]
 
         def total(key, cs=cs):
+            if any(c[key] is None for c in cs):
+                return None              # a case whose trace held no kernel
             return sum(c[key] * c["launches_per_forward"] for c in cs)
         routes = {}
         for c in cs:
@@ -995,11 +1052,11 @@ def conv_forwards(convs):
                "launches_per_forward": sum(c["launches_per_forward"]
                                            for c in cs),
                "ms": total("ms"), "host_ms": total("host_us") / 1e3,
-               "device_ms": total("device_us") / 1e3,
+               "device_ms": _ms(total("device_us")),
                "bound_ms": total("bound_ms"),
                "plain_ms": total("plain_ms"),
                "bf16_cudnn_ms": total("bf16_cudnn_ms"),
-               "bf16_cudnn_device_ms": total("bf16_cudnn_device_us") / 1e3,
+               "bf16_cudnn_device_ms": _ms(total("bf16_cudnn_device_us")),
                "sites_by_route": routes}
         if rec["launches_per_forward"] != SITES_PER_FORWARD:
             raise AssertionError(f"conv_s8 batch {batch}: "
@@ -1542,19 +1599,26 @@ def recorded_convs():
         L.conv_s8 = real
 
 
-def det_conv_cases(device, shapes, gen):
+def det_conv_cases(device, shapes, in_forward, gen):
     """One ``conv_s8_det_case`` line per distinct int8 detector site shape
     (N, H, W, C, O, k, stride, pad, groups; ``shapes`` maps each to its
     sites per forward on each path): the kernel against its plain
-    version bit for bit on fresh random int8 operands, its CUDA-event ms
-    and traced device µs beside the bound, and cuDNN's bf16 conv of the
-    same shape (``groups`` = C for the depthwise sites) as a guide only."""
+    version bit for bit on fresh random int8 operands; its CUDA-event ms;
+    its traced device µs with the L2 flushed before each call, every
+    case in one trace (``device_us``, the operands read from HBM as the
+    bound counts them);
+    the mean device µs of a site of this shape inside the served forward
+    on each path (``in_forward_us``, from ``in_forward``); the bound; and
+    cuDNN's bf16 conv of the same shape (``groups`` = C for the depthwise
+    sites) as a guide only. A device time whose trace never held one
+    kernel per call is None."""
     import torch
     import torch.nn.functional as F
 
     from facekit_torch.ops.conv_s8 import (conv_route, conv_s8,
                                            conv_s8_reference)
-    out = []
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    out, timed = [], []                  # timed: (conv_s8, its args) a case
     for shape, per_forward in shapes.items():
         n, h, w, c, o, ks, stride, pad, groups = shape
         xs = [torch.randint(-127, 128, (n, h, w, c), generator=gen,
@@ -1575,41 +1639,62 @@ def det_conv_cases(device, shapes, gen):
             return F.conv2d(x_, w_, stride=stride, padding=pad,
                             groups=groups)
         bound, by = conv_bound(n, h, w, c, o, ks, stride, pad, groups)
-        # a trace may drop the events of a short run: trace once more
-        dev = device_us(conv_s8, args) or device_us(conv_s8, args)
         rec = {"phase": "conv_s8_det_case",
                "shape": {"N": n, "H": h, "W": w, "C": c, "O": o, "k": ks,
                          "stride": stride, "pad": pad, "groups": groups},
                "launches_per_forward": per_forward,
                "route": conv_route(c, groups), "max_abs_err": 0,
                "ms": cuda_ms(conv_s8, args, 20),
-               "device_us": dev,
+               "in_forward_us": {path: in_forward[path].get(shape)
+                                 if in_forward.get(path) else None
+                                 for path in per_forward},
                "plain_ms": cuda_ms(conv_s8_reference, args, 2),
                "bf16_cudnn_ms": cuda_ms(cudnn, [(x, wb) for x in xb], 20),
                "bound_ms": bound, "bound_by": by}
-        emit(rec)
         out.append(rec)
+        timed.append((conv_s8, args))
+    for rec, us in zip(out, flushed_kernel_us(timed, "conv_s8", flush)):
+        rec["device_us"] = us
+        emit(rec)
+    del flush, timed
     torch.cuda.synchronize()
     return out
 
 
+# the conv_s8_det_case keys summed per forward (µs ones summed as ms)
+DET_CASE_SUMS = ("ms", "device_us", "bound_ms", "plain_ms",
+                 "bf16_cudnn_ms")
+
+
 def det_case_sums(cases):
     """Per int8 detector path and batch, the ``conv_s8_det_case`` lines
-    summed, each times its sites per forward on that path: the conv's
-    time per detector forward, beside its bound, the plain version and
-    cuDNN's bf16 convs, and the sites each route serves."""
+    summed, each times its sites per forward on that path, in all and by
+    route: the conv's ms per detector forward, its device ms alone with
+    the L2 flushed (``device_ms``) and inside the served forward
+    (``in_forward_device_ms``), beside its bound, the
+    plain version and cuDNN's bf16 convs. A sum over a case whose device
+    time is None is None."""
     out = {}
+
+    def add(acc, c, per, in_forward):
+        acc["sites"] += per
+        for k, v in [*((k, c[k]) for k in DET_CASE_SUMS),
+                     ("in_forward_device_us", in_forward)]:
+            key = k.replace("_us", "_ms")
+            if acc[key] is not None:
+                acc[key] = None if v is None else \
+                    acc[key] + v * per / (1e3 if "_us" in k else 1)
+
+    def zero():
+        return {"sites": 0, "in_forward_device_ms": 0.0,
+                **{k.replace("_us", "_ms"): 0.0 for k in DET_CASE_SUMS}}
     for c in cases:
         for path, per in c["launches_per_forward"].items():
-            acc = out.setdefault(f"{path} b{c['shape']['N']}", {
-                "sites": 0, "ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
-                "plain_ms": 0.0, "bf16_cudnn_ms": 0.0, "sites_by_route": {}})
-            acc["sites"] += per
-            routes = acc["sites_by_route"]
-            routes[c["route"]] = routes.get(c["route"], 0) + per
-            for k in ("ms", "bound_ms", "plain_ms", "bf16_cudnn_ms"):
-                acc[k] += c[k] * per
-            acc["device_ms"] += c["device_us"] * per / 1e3
+            acc = out.setdefault(f"{path} b{c['shape']['N']}",
+                                 {**zero(), "by_route": {}})
+            route = acc["by_route"].setdefault(c["route"], zero())
+            for a in (acc, route):
+                add(a, c, per, c["in_forward_us"][path])
     return out
 
 
@@ -1657,6 +1742,7 @@ def phase_server_detectors(device, repo_dir, seed=9, n_users=8):
     queries = np.concatenate([frames[[0, 3, 5, n_users - 1]],
                               frames[n_users:]])
     shapes = {}                      # site shape -> {path: per forward}
+    in_forward = {}                  # path -> {site shape: device µs}
     out = []
     with tempfile.TemporaryDirectory() as tmp:
         img_path = os.path.join(tmp, "whole.png")
@@ -1668,6 +1754,7 @@ def phase_server_detectors(device, repo_dir, seed=9, n_users=8):
                 database_path=os.path.join(tmp, f"{name}.db"), **override)
             family = cfg.det_network
             int8 = cfg.det_quantize
+            order = {}               # batch -> site shapes in call order
             server = FaceServer(cfg, rec_params=rec_params, device=device)
             pipe = server.pipeline
             try:
@@ -1797,11 +1884,12 @@ def phase_server_detectors(device, repo_dir, seed=9, n_users=8):
                     for b in (1, len(queries)):
                         with recorded_convs() as site_calls:
                             det_forward(x_dev[:b])
-                        per = collections.Counter(
-                            (*x.shape, w.shape[0], w.shape[1], stride, pad,
-                             groups)
-                            for x, w, stride, pad, groups, _ in site_calls)
-                        for key, count in per.items():
+                        order[b] = [(*x.shape, w.shape[0], w.shape[1],
+                                     stride, pad, groups)
+                                    for x, w, stride, pad, groups, _
+                                    in site_calls]
+                        for key, count in collections.Counter(
+                                order[b]).items():
                             shapes.setdefault(key, {})[name] = count
                     # drift of the int8 detector at f32 against the float
                     # one, both on the card
@@ -1854,7 +1942,13 @@ def phase_server_detectors(device, repo_dir, seed=9, n_users=8):
                             bf16_forward, [(x_dev[:b],)], 10)
                     del bf16
                 for b in (1, len(queries)):
-                    events = traced_calls(det_forward, [(x_dev[:b],)])
+                    for _ in range(TRACE_TRIES):
+                        events = traced_calls(det_forward, [(x_dev[:b],)])
+                        sites = site_us(events, order[b]) if int8 else None
+                        if sites or not int8:
+                            break
+                    if int8:
+                        in_forward.setdefault(name, {}).update(sites or {})
                     total = sum(us for _, _, us in events) / SPLIT_REPS
                     conv = sum(us for n_, _, us in events
                                if "conv_s8" in n_) / SPLIT_REPS
@@ -1886,7 +1980,7 @@ def phase_server_detectors(device, repo_dir, seed=9, n_users=8):
             finally:
                 server.close()
     gen = torch.Generator(device=device).manual_seed(seed)
-    cases = det_conv_cases(device, shapes, gen)
+    cases = det_conv_cases(device, shapes, in_forward, gen)
     return out, cases
 
 

@@ -6,6 +6,7 @@ from facekit_torch.models.arcface import (  # noqa: F401
     calibrate_arcface_int8,
     quantize_arcface,
 )
+from facekit_torch.models.detector import detector_family  # noqa: F401
 from facekit_torch.models.lightdet import LightDet  # noqa: F401
 from facekit_torch.models.retinaface import (  # noqa: F401
     RetinaFace,

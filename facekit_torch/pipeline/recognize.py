@@ -40,11 +40,10 @@ import torch
 from facekit_torch.config import FaceKitConfig
 from facekit_torch.models.arcface import (ArcFace, calibrate_arcface_int8,
                                           quantize_arcface)
-from facekit_torch.models.lightdet import LightDet
-from facekit_torch.models.retinaface import RetinaFace, quantize_detector
+from facekit_torch.models.detector import detector_family
+from facekit_torch.models.retinaface import quantize_detector
 from facekit_torch.ops.align import warp_align_frames
-from facekit_torch.ops.anchors import (SLIM_RFB_MIN_SIZES, SLIM_RFB_STEPS,
-                                       generate_anchors)
+from facekit_torch.ops.anchors import generate_anchors
 from facekit_torch.ops.boxes import Detections, select_faces_batch
 from facekit_torch.ops.preprocess import det_normalize, rec_normalize
 from facekit_torch.ops.resize import crop_resize, letterbox, resize_image
@@ -73,13 +72,10 @@ def _own_frames(arr, device: torch.device) -> torch.Tensor:
 def _detector(config: FaceKitConfig, det_params, device):
     """The float f32 detector of ``config.det_network`` with ``det_params``
     carried over, and its anchors on ``device``."""
-    if config.det_network in ("slim", "rfb"):
-        det = LightDet(config.det_network)
-        anchors = generate_anchors(config.det_hw, SLIM_RFB_STEPS,
-                                   SLIM_RFB_MIN_SIZES, device=device)
-    else:
-        det = RetinaFace(with_landmarks="ldm_head" in det_params)
-        anchors = generate_anchors(config.det_hw, device=device)
+    family = detector_family(config.det_network)
+    det = family.build(det_params)
+    anchors = generate_anchors(config.det_hw, family.steps, family.min_sizes,
+                               device=device)
     det.load_state_dict(from_jax(det_params, det))
     return det, anchors
 

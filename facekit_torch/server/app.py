@@ -51,9 +51,8 @@ from facekit_torch.gallery import GalleryStore
 from facekit_torch.pipeline import FacePipeline
 from facekit_torch.pipeline.recognize import CALIBRATION_HEADROOM
 from facekit_torch.utils import LatencyTracker, resolve_device
-from facekit_torch.weights import (load_params, random_arcface_params,
-                                   random_lightdet_params,
-                                   random_retinaface_params)
+from facekit_torch.models import detector_family
+from facekit_torch.weights import load_params, random_arcface_params
 
 log = logging.getLogger("facekit_torch.server")
 
@@ -127,27 +126,21 @@ def load_detector_params(config):
     template lacks is dropped and one it needs but the file lacks refuses
     to start."""
     params = load_params(config.det_weights)
-    if config.det_network in ("slim", "rfb"):
-        if "landm" not in params:
-            raise ValueError(f"{config.det_weights}: det_network "
-                             f"{config.det_network} but the detector file "
-                             "has no landm heads")
-        return params
-    if not config.det_withLandmarks:
-        return {k: v for k, v in params.items() if k != "ldm_head"}
-    if "ldm_head" not in params:
-        raise ValueError(f"{config.det_weights}: det_withLandmarks is true "
-                         "but the detector file has no ldm_head")
+    key = detector_family(config.det_network).landmarks
+    if key == "ldm_head" and not config.det_withLandmarks:
+        return {k: v for k, v in params.items() if k != key}
+    if key not in params:
+        raise ValueError(f"{config.det_weights}: det_network "
+                         f"{config.det_network} with landmarks but the "
+                         f"detector file has no {key}")
     return params
 
 
 def random_detector_params(config, seed: int = 0):
     """Random params of ``config.det_network``'s detector, drawn with numpy
     (facekit's ``init_model_params`` draws its family's init)."""
-    if config.det_network in ("slim", "rfb"):
-        return random_lightdet_params(config.det_network, seed=seed)
-    return random_retinaface_params(seed=seed,
-                                    with_landmarks=config.det_withLandmarks)
+    return detector_family(config.det_network).random_params(
+        seed, config.det_withLandmarks)
 
 
 def _load_calibration_crops(folder: str, rec_hw, pixels, batch: int = 16,

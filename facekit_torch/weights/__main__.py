@@ -19,7 +19,7 @@ import argparse
 import numpy as np
 import torch
 
-from facekit_torch.models import ArcFace, LightDet, RetinaFace
+from facekit_torch.models import ArcFace, detector_family
 from facekit_torch.utils.device import resolve_device
 from facekit_torch.weights.bridge import from_jax
 from facekit_torch.weights.convert import (convert_arcface_state_dict,
@@ -41,12 +41,10 @@ def _verify(model: str, path: str, network: str, device) -> None:
         net = ArcFace(network,
                       embed_dim=params["output"]["linear"]["w"].shape[0])
         x = rng.normal(0, 1, (1, 112, 112, 3))
-    elif model == "retinaface":
-        net = RetinaFace(with_landmarks="ldm_head" in params)
-        x = rng.normal(0, 1, (1, 288, 320, 3))
-    else:
-        net = LightDet(model)
-        x = rng.normal(0, 1, (1, 320, 320, 3))
+    else:                        # retinaface, slim or rfb
+        net = detector_family(model).build(params)
+        x = rng.normal(0, 1, (1, 288, 320, 3) if model == "retinaface"
+                       else (1, 320, 320, 3))
     net.load_state_dict(from_jax(params, net))
     net = net.to(device).eval()
     with torch.inference_mode():
