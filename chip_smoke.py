@@ -30,7 +30,13 @@ config's IR-50 and RetinaFace written as reference-layout checkpoints,
 converted by ``python -m facekit_torch.weights --verify`` on the card,
 a folder of crops enrolled by ``main()`` in gen mode (rows bit-equal to
 a server given the original tree), every crop recognized through the
-app, and ``/probe/device``. Each path runs with every kernel's launch
+app, and ``/probe/device``; then ``server_engines``: both shipped
+configs exported by ``python -m facekit_torch.engine export`` on the
+card, a ``FaceServer`` booted from each directory, its WS /inference and
+/recognize replies, embeddings and kernel launches held to the same
+server's eager pipeline at every bucket, boot, export and latency beside
+eager, and the registered ops' cost per call (``dispatch_cost``). Each
+path runs with every kernel's launch
 count set to 0 just before it and read just after. Prints one
 JSON line per phase, the ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -43,8 +49,9 @@ the conv's build, its ``ptxas`` line and the conv phase alone;
 path alone (it runs on an older checkout too, to compare the two in one
 call); ``--gen`` the build of the two kernels it runs and
 ``weights_gen`` alone; ``--detectors`` the build of the three kernels
-it runs, the conv's ``ptxas`` line and ``server_detectors`` alone.
-``weights_gen`` and ``server_detectors`` serve through aiohttp.
+it runs, the conv's ``ptxas`` line and ``server_detectors`` alone;
+``--engines`` the build and ``server_engines`` alone. ``weights_gen``
+and ``server_detectors`` serve through aiohttp.
 """
 
 from __future__ import annotations
@@ -2211,6 +2218,322 @@ def phase_weights_gen(device, repo_dir, power, seed=8, n_classes=16,
     return rec
 
 
+
+# -- server_engines: the exported engines of both shipped configs -------------
+
+ENGINE_CONFIGS = ("default", "throughput")
+ENGINE_REPS = 8              # latency samples per bucket, mode and turn
+
+
+def _engine_export_cli(repo_dir, device, cfg_path, out):
+    """``python -m facekit_torch.engine export -c CFG -o OUT`` on
+    ``device`` in its own process: (seconds, one record per file)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "facekit_torch.engine", "export", "-c",
+         cfg_path, "-o", out, "--device", device], cwd=repo_dir,
+        capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    records = [json.loads(ln) for ln in res.stdout.splitlines()
+               if ln.startswith("{")]
+    if res.returncode != 0 or not records:
+        raise AssertionError(f"engine export CLI failed (rc "
+                             f"{res.returncode}): {res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+    return seconds, records
+
+
+@contextlib.contextmanager
+def eager_serving(server):
+    """``server`` serving from its eager pipeline, engines set aside: the
+    same params, state and gallery, so replies compare one to one."""
+    engines, server.engines = server.engines, None
+    try:
+        yield server
+    finally:
+        server.engines = engines
+
+
+def _same_replies(a, b, what):
+    """Two lists of server replies equal: userIds, names, flags and
+    similarities exactly, crops pixel for pixel."""
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} replies against {len(b)}")
+    for x, y in zip(a, b):
+        if (x is None) != (y is None):
+            raise AssertionError(f"{what}: {x} against {y}")
+        if x is None:
+            continue
+        if {k: v for k, v in x.items() if k != "crop"} != \
+                {k: v for k, v in y.items() if k != "crop"}:
+            raise AssertionError(f"{what}: {x} against {y}")
+        if "crop" in x and not np.array_equal(x["crop"], y["crop"]):
+            raise AssertionError(f"{what}: the crops differ")
+
+
+def dispatch_cost(device, seed=11):
+    """Per-call cost of the registered op against the direct wrapper:
+    ``ir_block`` at batch 8 (bf16, 56x56x64) and ``conv_s8`` at an IR-50
+    site (batch 8, 28x28x128, 3x3): host µs to issue a call on an idle
+    card, and ms per call by CUDA events over calls back to back."""
+    import torch
+
+    from facekit_torch.ops.conv_s8 import _conv_s8_cuda
+    from facekit_torch.ops.ir_block import _ir_block_cuda
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = 64
+    x = torch.randn((8, 56, 56, c), generator=gen, device=device).to(
+        torch.bfloat16)
+    w1, w2 = (torch.randn((c, 3, 3, c), generator=gen, device=device).mul(
+        0.05).to(torch.bfloat16) for _ in range(2))
+    par = torch.rand((5, c), generator=gen, device=device) + 0.5
+    x8 = torch.randint(-127, 128, (8, 28, 28, 128), generator=gen,
+                       device=device, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (128, 3, 3, 128), generator=gen,
+                       device=device, dtype=torch.int8)
+    ops = torch.ops.facekit_torch
+    cases = {"ir_block": ((x, w1, w2, par), ops.ir_block, _ir_block_cuda),
+             "conv_s8": ((x8, w8, 1, 1, 1), ops.conv_s8, _conv_s8_cuda)}
+    out = {}
+    for name, (args, op, direct) in cases.items():
+        row = {}
+        for _ in range(2):                                  # in turns
+            for tag, fn in (("op", op), ("direct", direct), ("direct", direct),
+                            ("op", op)):
+                row.setdefault(f"{tag}_host_us", []).append(
+                    host_us(fn, [args], reps=50))
+                row.setdefault(f"{tag}_ms", []).append(
+                    cuda_ms(fn, [args], iters=200))
+        out[name] = {k: statistics.median(v) for k, v in row.items()}
+        out[name]["extra_host_us"] = (out[name]["op_host_us"]
+                                      - out[name]["direct_host_us"])
+    return out
+
+
+def phase_server_engines(device, repo_dir, seed=10, n_users=8):
+    """Both shipped configs served from exported engines on the card, at
+    full width: configs/default.json (RetinaFace-MobileNet0.25 at 288x320,
+    bf16 IR-50, buckets 1 and 8) and configs/throughput.json (int8 IR-50
+    calibrated from a folder of crops, int8 gallery, buckets 1, 8, 64).
+    For each: the export CLI in its own process (seconds and bytes per
+    file); the seconds from ``FaceServer(...)`` to ready, eager and from
+    the engines; n_users faces of frames and n_users crops enrolled; at
+    every bucket WS ``/inference``'s and ``/recognize``'s batch functions
+    from the engines, held reply for reply (crops pixel for pixel) and
+    embedding for embedding to the same server's eager pipeline, with
+    the same kernel launches; then both latencies in turns. Random
+    detector weights: threshold 0.5, as ``server_inference``. Last, the
+    dispatcher's cost per call (``dispatch_cost``)."""
+    import cv2
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.server import FaceServer
+
+    rng = np.random.default_rng(seed)
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        crops_dir = os.path.join(tmp, "calibration")
+        os.mkdir(crops_dir)
+        for i in range(16):
+            cv2.imwrite(os.path.join(crops_dir, f"c{i:02d}.png"),
+                        rng.integers(0, 256, (112, 112, 3), dtype=np.uint8))
+        for name in ENGINE_CONFIGS:
+            with open(os.path.join(repo_dir, "configs", f"{name}.json")) as f:
+                raw = json.load(f)
+            raw["det_threshold_bbox"] = DET_THRESHOLD
+            if "rec_calibrationDir" in raw:
+                raw["rec_calibrationDir"] = crops_dir
+            cfg_path = os.path.join(tmp, f"{name}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(raw, f)
+            eng_dir = os.path.join(tmp, f"{name}_engines")
+            export_s, files = _engine_export_cli(repo_dir, device, cfg_path,
+                                                 eng_dir)
+            cfg = load_config(cfg_path)
+            boot = {}
+            for mode in ("eager", "engines"):
+                run_cfg = dataclasses.replace(cfg, database_path=os.path.join(
+                    tmp, f"{name}_{mode}.db"))
+                t0 = time.perf_counter()
+                server = FaceServer(run_cfg, device=device, engines_dir=(
+                    eng_dir if mode == "engines" else None))
+                torch.cuda.synchronize()
+                boot[mode] = time.perf_counter() - t0
+                if mode == "eager":
+                    server.close()
+                    del server
+            try:
+                results.append(_engines_run(server, name, rng, n_users,
+                                            export_s, files, boot))
+            finally:
+                server.close()
+    cost = dispatch_cost(device)
+    emit({"phase": "dispatch_cost", **cost})
+    return results, cost
+
+
+def _engines_run(server, name, rng, n_users, export_s, files, boot):
+    import torch
+
+    cfg = server.config
+    fh, fw = cfg.frame_hw
+    rh, rw = cfg.rec_hw
+    if server.calibrated != bool(cfg.rec_quantize):
+        raise AssertionError(f"{name}: calibrated {server.calibrated}")
+    # -- enrollment (eager, as in every mode): a face of each of n_users
+    #    frames (the slot whose crop holds the most pixel variance) and
+    #    n_users crops
+    frames = rng.integers(0, 256, (n_users, fh, fw, 3), dtype=np.uint8)
+    crops = rng.integers(0, 256, (n_users, rh, rw, 3), dtype=np.uint8)
+    res = server.pipeline.recognize_frames(frames, return_crops=True)
+    spread = res.crops.std(dim=(2, 3, 4)).masked_fill(~res.valid, -1.0)
+    slot = spread.argmax(1).cpu()
+    for u in range(n_users):
+        for kind, emb in (("f", res.embeddings[u, slot[u]].cpu().numpy()),
+                          ("c", server.pipeline.embed_cropped(crops[u]))):
+            uid = f"{kind}{u:02d}"
+            server.db.insert_user(uid, uid.upper())
+            if server.db.insert_face(uid, f"{uid}.png", emb) != 1:
+                raise AssertionError(f"insert_face failed for {uid}")
+    server.reload_gallery()
+
+    # -- every bucket from the engines, then eagerly, on the same server
+    def batches(b, pool):
+        n = min(b, 4)
+        fresh = rng.integers(0, 256, (b - n, *pool.shape[1:]), np.uint8)
+        return list(pool[:n]) + list(fresh)
+    queries = {b: (batches(b, frames), batches(b, crops))
+               for b in server.batch_buckets}
+
+    def serve():
+        return {b: (server.inference_batch(fq), server.recognize_batch(cq))
+                for b, (fq, cq) in queries.items()}
+    runs = {}
+    for mode in ("engines", "eager"):
+        with (eager_serving(server) if mode == "eager"
+              else contextlib.nullcontext()):
+            reset_launches()
+            replies = serve()
+            torch.cuda.synchronize()
+            runs[mode] = (replies, launches())
+    if runs["engines"][1] != runs["eager"][1]:
+        raise AssertionError(f"{name}: launches from the engines "
+                             f"{runs['engines'][1]} against eager "
+                             f"{runs['eager'][1]}")
+    counts = runs["engines"][1]
+    forwards = 2 * len(server.batch_buckets)
+    int8 = bool(cfg.rec_quantize)
+    want = {"ir_block": 0 if int8 else 20 * forwards,
+            "conv_s8": 52 * forwards if int8 else 0}
+    if any(counts[k] != v for k, v in want.items()) or \
+            counts["cosine_topk_int8" if int8 else "cosine_topk"] != forwards:
+        raise AssertionError(f"{name}: launches {counts} ({forwards} "
+                             "forwards)")
+    min_sim = 1.0
+    for b, (ws, rec) in runs["engines"][0].items():
+        ews, erec = runs["eager"][0][b]
+        _same_replies(ws, ews, f"{name} WS bucket {b}")
+        _same_replies(rec, erec, f"{name} /recognize bucket {b}")
+        for j in range(min(b, 4)):
+            for kind, reply in (("f", ws[j]), ("c", rec[j])):
+                if reply is None or reply["userId"] != f"{kind}{j:02d}" or \
+                        reply["similarity"] < 0.99:
+                    raise AssertionError(f"{name} bucket {b}: enrolled "
+                                         f"{kind}{j:02d} answered {reply}")
+                min_sim = min(min_sim, reply["similarity"])
+    # the programs' outputs, tensor for tensor, at the top bucket
+    snap = server.gallery.snapshot()
+    top = server.batch_buckets[-1]
+    fq, cq = (server.pad_batch(q) for q in queries[top])
+    eng = (server.serving_recognize(fq, snap), server.serving_embed(cq, snap))
+    with eager_serving(server):
+        ref = (server.serving_recognize(fq, snap),
+               server.serving_embed(cq, snap))
+    (res_e, *m_e), emb_e = eng[0], eng[1]
+    (res_r, *m_r), emb_r = ref[0], ref[1]
+    pairs = [(a, b) for a, b in zip(res_e[:4] + (res_e.crops,),
+                                    res_r[:4] + (res_r.crops,))]
+    pairs += list(zip(m_e, m_r)) + list(zip(emb_e, emb_r))
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    if not bit_equal:
+        raise AssertionError(f"{name}: engine outputs differ from eager: "
+                             + str([float((a.float() - b.float()).abs()
+                                          .max()) for a, b in pairs]))
+
+    # -- latency, engines and eager in turns (E, e, e, E), on two fresh
+    #    batches a bucket taken in turn
+    inputs = {(b, kind): [list(rng.integers(0, 256, (b, *pool.shape[1:]),
+                                            np.uint8)) for _ in range(2)]
+              for b in server.batch_buckets
+              for kind, pool in (("inference", frames),
+                                 ("recognize", crops))}
+
+    def ms(fn, batches):
+        ts = []
+        for i in range(ENGINE_REPS + 1):
+            t0 = time.perf_counter()
+            fn(batches[i % 2])
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return ts[1:]
+    lat = collections.defaultdict(list)
+    for mode in ("engines", "eager", "eager", "engines"):
+        with (eager_serving(server) if mode == "eager"
+              else contextlib.nullcontext()):
+            for (b, kind), batches in inputs.items():
+                fn = (server.inference_batch if kind == "inference"
+                      else server.recognize_batch)
+                lat[f"{kind}_ms_b{b}_{mode}"] += ms(fn, batches)
+    # -- where the time of one call goes, at bucket 1, engines and eager
+    traces = {}
+    for mode in ("engines", "eager"):
+        with (eager_serving(server) if mode == "eager"
+              else contextlib.nullcontext()):
+            for kind, fn in (("inference", server.inference_batch),
+                             ("recognize", server.recognize_batch)):
+                traces[f"{kind}_b1_{mode}"] = call_trace(
+                    fn, inputs[(1, kind)][0])
+    rec = {"phase": "server_engines", "config": f"configs/{name}.json",
+           "det_threshold_bbox": cfg.det_threshold_bbox,
+           "network": cfg.rec_network, "dtype": cfg.compute_dtype,
+           "rec_quantize": int8, "calibrated": server.calibrated,
+           "buckets": server.batch_buckets, "export_cli_s": export_s,
+           "files": files, "boot_s": boot, "users": 2 * n_users,
+           "launches": counts, "bit_equal": bit_equal,
+           "min_enrolled_similarity": min_sim,
+           **{k: statistics.median(v) for k, v in sorted(lat.items())},
+           "traces": traces}
+    emit(rec)
+    return rec
+
+
+def call_trace(fn, arg, top=8):
+    """One call ``fn(arg)`` (after one untimed) under ``torch.profiler``:
+    host ms to its device sync, the device's busy ms (kernels and
+    memsets), kernel launches, and the ``top`` host operations by total
+    CPU time (name, calls, ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(arg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(prof.key_averages(), key=lambda a: -a.cpu_time_total)
+    return {"host_ms": host_ms,
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in device) / 1e3,
+            "device_ops": len(device),
+            "top": [[a.key, a.count, a.cpu_time_total / 1e3]
+                    for a in rows[:top]]}
+
+
 def main(argv) -> int:
     """No arguments: the whole smoke test. ``--searches``: the two search
     phases alone (build, ptxas, ``kernel_case``, ``kernel_int8_case``),
@@ -2221,8 +2544,10 @@ def main(argv) -> int:
     ``server_throughput``), for comparing them with another checkout;
     ``--gen``: the checkpoint-to-gallery phase alone (``weights_gen``);
     ``--detectors``: the conv's ``ptxas`` line and the detector paths
-    alone (``server_detectors``, ``conv_s8_det_case``). None of the five
-    prints an ``ok`` line."""
+    alone (``server_detectors``, ``conv_s8_det_case``); ``--engines``:
+    both shipped configs served from exported engines alone
+    (``server_engines``, ``dispatch_cost``). None of the six prints an
+    ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2243,7 +2568,8 @@ def main(argv) -> int:
              "--convs": ["conv_s8"],
              "--throughput": ["conv_s8", "cosine_topk_int8"],
              "--gen": ["cosine_topk", "ir_block"],
-             "--detectors": ["conv_s8", "cosine_topk", "ir_block"]}
+             "--detectors": ["conv_s8", "cosine_topk", "ir_block"],
+             "--engines": None}
     mode = argv[0] if len(argv) == 1 and argv[0] in modes else None
     if argv and mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -2256,6 +2582,10 @@ def main(argv) -> int:
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
     if mode == "--gen":
         phase_weights_gen("cuda", repo_dir, power)
+        print(power, flush=True)
+        return 0
+    if mode == "--engines":
+        phase_server_engines("cuda", repo_dir)
         print(power, flush=True)
         return 0
     if mode == "--detectors":
@@ -2299,6 +2629,13 @@ def main(argv) -> int:
     inference = phase_server_inference("cuda", repo_dir)
     detectors, det_cases = phase_server_detectors("cuda", repo_dir)
     phase_weights_gen("cuda", repo_dir, power)
+    engines, dispatch = phase_server_engines("cuda", repo_dir)
+    # each kernel's launches on the engine-served paths, per config
+    engine_launches = {e["config"]: e["launches"] for e in engines}
+
+    def on_engines(name):
+        return {"engine_launches": {c: n[name]
+                                    for c, n in engine_launches.items()}}
 
     main_case = next(t for t in timings if t["dtype"] == "bfloat16"
                      and t["B"] == 8 and t["k"] == 1)
@@ -2342,7 +2679,8 @@ def main(argv) -> int:
         "big_batch_cases": [
             {key: c[key] for key in ("dtype", "B", "k", "ms", "bound_ms",
                                      "max_abs_err")}
-            for c in big if c["dtype"] != "int8"]}, {
+            for c in big if c["dtype"] != "int8"],
+        **on_engines("cosine_topk")}, {
         "name": "cosine_topk_int8", "route": "cuda",
         "source": "facekit_torch/ops/csrc/cosine_topk_int8.cu",
         "replaces": "facekit/ops/similarity.py:183",
@@ -2363,7 +2701,8 @@ def main(argv) -> int:
             for t in int8_timings if t["B"] <= 8 and t["k"] == 64],
         "big_batch_cases": [
             {key: c[key] for key in ("B", "k", "ms", "bound_ms")}
-            for c in big if c["dtype"] == "int8"]}, {
+            for c in big if c["dtype"] == "int8"],
+        **on_engines("cosine_topk_int8")}, {
         "name": "conv_s8", "route": "cuda",
         "source": "facekit_torch/ops/csrc/conv_s8.cu",
         "replaces": "docs/experiments/pallas_s8_stride2_conv.py:86",
@@ -2417,7 +2756,8 @@ def main(argv) -> int:
         "detector_sites": det_case_sums(det_cases),
         # registers, stack and spill of each route's kernels, the
         # depthwise one among them
-        "ptxas": conv_regs}, {
+        "ptxas": conv_regs, **on_engines("conv_s8"),
+        "registered_op": dispatch["conv_s8"]}, {
         "name": "ir_block", "route": "cuda",
         "source": "facekit_torch/ops/csrc/ir_block.cu",
         "replaces": "docs/experiments/fused_block_kernel.py:84",
@@ -2441,7 +2781,8 @@ def main(argv) -> int:
             {"batch": n, **{key: per_forward(key, "float32", n)
                             for key in ("ms", "plain_ms", "eager_ms",
                                         "bound_ms")}}
-            for n in IR_BLOCK_BATCHES["float32"]]}]})
+            for n in IR_BLOCK_BATCHES["float32"]],
+        **on_engines("ir_block"), "registered_op": dispatch["ir_block"]}]})
     print(power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -30,3 +30,4 @@ from facekit_torch.ops.similarity import (  # noqa: F401
     quantize_rows_int8,
 )
 from facekit_torch.ops.conv_s8 import conv_s8, conv_s8_reference  # noqa: F401
+from facekit_torch.ops.ir_block import ir_block, ir_block_reference  # noqa: F401

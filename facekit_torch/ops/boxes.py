@@ -25,7 +25,7 @@ stack), instead of taking k sequential launches per frame.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -272,7 +272,28 @@ def select_faces_batch(loc: torch.Tensor, conf: torch.Tensor,
     can only be wrong when more than ``nms_top_k`` candidates clear the
     threshold and fewer than ``max_faces`` of the window's survive. With
     ``nms_exact`` the frames where that happens take NMS over all their
-    candidates (``nms_streaming``); the others keep the fast result."""
+    candidates (``nms_streaming``); the others keep the fast result.
+
+    The stage syncs with the host (the fixed point's test, the live count,
+    the fallback's frames), which no tracer follows, so under
+    ``torch.export`` it is one opaque op, ``facekit_torch::select_faces``,
+    with every argument but the tensors frozen into the graph; the op runs
+    this same function."""
+    if torch.compiler.is_exporting():
+        boxes, scores, valid, points = torch.ops.facekit_torch.select_faces(
+            loc, conf, anchors, ldm, list(frame_hw), list(input_hw),
+            max_faces, float(score_threshold), float(iou_threshold),
+            nms_top_k, bool(nms_exact))
+        return Detections(boxes, scores, valid,
+                          points if ldm is not None else None)
+    return _select_faces_eager(loc, conf, anchors, frame_hw, input_hw,
+                               max_faces, score_threshold, iou_threshold,
+                               nms_top_k, nms_exact, ldm)
+
+
+def _select_faces_eager(loc, conf, anchors, frame_hw, input_hw, max_faces,
+                        score_threshold, iou_threshold, nms_top_k, nms_exact,
+                        ldm) -> Detections:
     masked, boxes, points = _decode_all(loc, conf, anchors, frame_hw,
                                         input_hw, score_threshold, ldm)
     fb, fs, fi, n_surv = _nms_select(boxes, masked, iou_threshold, nms_top_k,
@@ -287,6 +308,37 @@ def select_faces_batch(loc: torch.Tensor, conf: torch.Tensor,
     landmarks = _gather_rows(points, fi) if points is not None else None
     fs = torch.where(valid, fs, 0.0)
     return Detections(boxes=fb, scores=fs, valid=valid, landmarks=landmarks)
+
+
+@torch.library.custom_op("facekit_torch::select_faces", mutates_args=())
+def _select_faces_op(loc: torch.Tensor, conf: torch.Tensor,
+                     anchors: torch.Tensor, ldm: Optional[torch.Tensor],
+                     frame_hw: List[int], input_hw: List[int],
+                     max_faces: int, score_threshold: float,
+                     iou_threshold: float, nms_top_k: int, nms_exact: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """``select_faces_batch`` as a registered op, on every device. An op
+    returns no None, so without ``ldm`` the landmarks are zeros."""
+    det = _select_faces_eager(loc, conf, anchors, tuple(frame_hw),
+                              tuple(input_hw), max_faces, score_threshold,
+                              iou_threshold, nms_top_k, nms_exact, ldm)
+    points = det.landmarks
+    if points is None:
+        points = det.boxes.new_zeros((*det.boxes.shape[:-1], 5, 2))
+    return det.boxes, det.scores, det.valid, points
+
+
+@_select_faces_op.register_fake
+def _(loc, conf, anchors, ldm, frame_hw, input_hw, max_faces,
+      score_threshold, iou_threshold, nms_top_k, nms_exact):
+    n, a = conf.shape[:2]
+    f = min(max_faces, nms_top_k, a)
+    dtype = torch.promote_types(loc.dtype, anchors.dtype)
+    return (loc.new_empty((n, f, 4), dtype=dtype),
+            conf.new_empty((n, f)),
+            conf.new_empty((n, f), dtype=torch.bool),
+            loc.new_empty((n, f, 5, 2), dtype=dtype))
 
 
 def select_faces(loc: torch.Tensor, conf: torch.Tensor,

@@ -26,6 +26,10 @@ CUDA cores. Both dense routes take any multiple of 8 output channels.
 The plan passed to the C entry point names the dense route (``bn = 0``:
 dp4a); ``groups`` names the depthwise one.
 
+The convolution is also the ``torch.library`` op ``facekit_torch::conv_s8``
+(the plain version on the CPU, the kernel on CUDA), which the wrapper
+calls while ``torch.export`` traces it.
+
 PyTorch has no s8 convolution on CUDA, so no float path stands in for it.
 """
 
@@ -68,8 +72,13 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
     CPU tensors run ``conv_s8_reference``. CUDA tensors launch the kernel
     on the current stream, without synchronizing; a shape it does not take
-    raises. ``conv_s8.launches`` counts the launches.
+    raises. ``conv_s8.launches`` counts the launches. Under
+    ``torch.export`` it is the registered op ``facekit_torch::conv_s8``,
+    which runs the same two functions.
     """
+    if torch.compiler.is_exporting():
+        return torch.ops.facekit_torch.conv_s8(x, w, int(stride),
+                                               int(padding), int(groups))
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv_s8_reference(x, w, stride, padding, groups)
     return _conv_s8_cuda(x, w, int(stride), int(padding), int(groups))
@@ -230,3 +239,24 @@ def _conv_s8_cuda(x, w, stride, padding, groups=1):
                            f"{err}")
     conv_s8.launches += 1
     return out
+
+
+# -- the convolution as a registered op, for torch.export
+
+@torch.library.custom_op("facekit_torch::conv_s8", mutates_args=(),
+                         device_types="cpu")
+def _conv_s8_op(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
+                groups: int) -> torch.Tensor:
+    return conv_s8_reference(x, w, stride, padding, groups)
+
+
+_conv_s8_op.register_kernel("cuda")(_conv_s8_cuda)
+
+
+@_conv_s8_op.register_fake
+def _(x, w, stride, padding, groups):
+    n, h, wd, _ = x.shape
+    o, ks = w.shape[0], w.shape[1]
+    return x.new_empty((n, (h + 2 * padding - ks) // stride + 1,
+                        (wd + 2 * padding - ks) // stride + 1, o),
+                       dtype=torch.int32)

@@ -25,6 +25,9 @@ output channel) and ``par`` is (5, C) f32: s1, b1, alpha, s2, b2.
     tensors run the plain version; CUDA tensors launch the hand-written
     Hopper kernel ``ops/csrc/ir_block.cu`` on the current stream, one
     launch per block, or raise. ``ir_block.launches`` counts the launches;
+  * ``facekit_torch::ir_block`` is the block as a ``torch.library`` op
+    on (x, w1, w2, par): the plain version on the CPU, the kernel on CUDA;
+    ``ir_block`` calls it while ``torch.export`` traces;
   * ``u_rounding_bound`` is how far two right versions may lie apart
     through the rounding of u, which the comparisons of the kernel with
     the plain version on the card allow for in bf16.
@@ -64,6 +67,15 @@ def block_operands(block, dtype: torch.dtype):
     cached = getattr(block, "_fused_operands", None)
     if cached is not None and cached[0] == key:
         return cached[1]
+    operands = _operands(block, dtype)
+    block._fused_operands = (key, operands)
+    return operands
+
+
+def _operands(block, dtype: torch.dtype):
+    """``block_operands`` computed afresh, from the block's tensors as they
+    are: inside a ``torch.export`` trace these are the state passed in, so
+    the graph computes the operands and the block's cache is not read."""
     with torch.no_grad():
         w1 = block.conv1.to(dtype).permute(0, 2, 3, 1).contiguous()
         w2 = block.conv2.to(dtype).permute(0, 2, 3, 1).contiguous()
@@ -72,7 +84,6 @@ def block_operands(block, dtype: torch.dtype):
         s2, b2 = fused_affine(block.bn2.scale, block.bn2.bias,
                               block.bn2.mean, block.bn2.var)
         par = torch.stack([s1, b1, block.prelu.float(), s2, b2]).contiguous()
-    block._fused_operands = (key, (w1, w2, par))
     return w1, w2, par
 
 
@@ -123,7 +134,11 @@ def ir_block(x: torch.Tensor, block) -> torch.Tensor:
     """One stride-1, identity-shortcut, SE-free float ``IRBlock`` applied
     to x (N, H, W, C). CPU tensors run ``ir_block_reference``; CUDA tensors
     launch the kernel on the current stream, without synchronizing, or
-    raise."""
+    raise. Under ``torch.export`` the operands are computed in the graph
+    and the block is the registered op ``facekit_torch::ir_block``, which
+    runs the same two functions."""
+    if torch.compiler.is_exporting():
+        return torch.ops.facekit_torch.ir_block(x, *_operands(block, x.dtype))
     w1, w2, par = block_operands(block, x.dtype)
     if x.device.type == "cpu":
         return ir_block_reference(x, w1, w2, par)
@@ -189,3 +204,20 @@ def _ir_block_cuda(x, w1, w2, par):
                            f"{err}")
     ir_block.launches += 1
     return out
+
+
+# -- the block as a registered op, for torch.export
+
+@torch.library.custom_op("facekit_torch::ir_block", mutates_args=(),
+                         device_types="cpu")
+def _ir_block_op(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                 par: torch.Tensor) -> torch.Tensor:
+    return ir_block_reference(x, w1, w2, par)
+
+
+_ir_block_op.register_kernel("cuda")(_ir_block_cuda)
+
+
+@_ir_block_op.register_fake
+def _(x, w1, w2, par):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)

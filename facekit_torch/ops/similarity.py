@@ -26,6 +26,11 @@ as long as at k = 1 (``_search_plan``), and the one pass 2 of every search
 keeps only the partials at or above a lower bound on each query's k-th
 score (``ops/csrc/topk_fold.cuh``).
 
+Each search is also the ``torch.library`` op ``facekit_torch::cosine_topk``
+/ ``facekit_torch::cosine_topk_int8`` (its plain version on the CPU, its
+kernel on CUDA), which the wrappers call while ``torch.export`` traces
+them; eager calls go to the same functions without the dispatcher.
+
 Meaning shared by all: gallery rows at or past ``count`` score -1e30;
 each query's top k come in the order (score descending, row index
 ascending), so among equal scores the lowest index wins and, when k
@@ -81,7 +86,12 @@ def cosine_topk(gallery: torch.Tensor, queries: torch.Tensor, count: int,
     kernel, on the current stream and without synchronizing; anything the
     kernel does not take raises. ``cosine_topk.launches`` counts the
     launches.
+    Under ``torch.export`` it is the registered op
+    ``facekit_torch::cosine_topk``, which runs the same two functions.
     """
+    if torch.compiler.is_exporting():
+        return torch.ops.facekit_torch.cosine_topk(gallery, queries,
+                                                   int(count), int(k))
     if gallery.device.type == "cpu" and queries.device.type == "cpu":
         return cosine_topk_reference(gallery, queries, count, k)
     return _cosine_topk_cuda(gallery, queries, int(count), int(k))
@@ -138,8 +148,13 @@ def cosine_topk_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
     the f32 queries with plain torch ops (as facekit does outside its
     ``pallas_call``, ``similarity.py:198``) and launch the kernel, on the
     current stream and without synchronizing; anything the kernel does not
-    take raises. ``cosine_topk_int8.launches`` counts the launches.
+    take raises. ``cosine_topk_int8.launches`` counts the launches. Under
+    ``torch.export`` it is the registered op
+    ``facekit_torch::cosine_topk_int8``.
     """
+    if torch.compiler.is_exporting():
+        return torch.ops.facekit_torch.cosine_topk_int8(
+            gallery_q, gallery_scale, queries, int(count), int(k))
     if all(t.device.type == "cpu" for t in (gallery_q, gallery_scale,
                                              queries)):
         return cosine_topk_int8_reference(gallery_q, gallery_scale, queries,
@@ -332,3 +347,46 @@ def _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries, count, k):
                            f"error {err}")
     cosine_topk_int8.launches += 1
     return out_v, out_i
+
+
+# -- the two searches as registered ops, for torch.export: the CPU
+#    implementation is the plain version, the CUDA one the kernel's wrapper
+
+@torch.library.custom_op("facekit_torch::cosine_topk", mutates_args=(),
+                         device_types="cpu")
+def _cosine_topk_op(gallery: torch.Tensor, queries: torch.Tensor,
+                    count: int, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return cosine_topk_reference(gallery, queries, count, k)
+
+
+_cosine_topk_op.register_kernel("cuda")(_cosine_topk_cuda)
+
+
+@_cosine_topk_op.register_fake
+def _(gallery, queries, count, k):
+    return _topk_outputs(queries, k)
+
+
+@torch.library.custom_op("facekit_torch::cosine_topk_int8", mutates_args=(),
+                         device_types="cpu")
+def _cosine_topk_int8_op(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
+                         queries: torch.Tensor, count: int, k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return cosine_topk_int8_reference(gallery_q, gallery_scale, queries,
+                                      count, k)
+
+
+_cosine_topk_int8_op.register_kernel("cuda")(_cosine_topk_int8_cuda)
+
+
+@_cosine_topk_int8_op.register_fake
+def _(gallery_q, gallery_scale, queries, count, k):
+    return _topk_outputs(queries, k)
+
+
+def _topk_outputs(queries: torch.Tensor, k: int):
+    """Empty (B, k) f32 scores and int32 indices beside ``queries``."""
+    b = queries.shape[0]
+    return (queries.new_empty((b, k), dtype=torch.float32),
+            queries.new_empty((b, k), dtype=torch.int32))

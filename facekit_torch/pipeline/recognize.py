@@ -27,6 +27,12 @@ the embedder is the int8 ArcFace, dynamic until ``calibrate_embedder``
 fixes its activation scales; the float weights stay on the host for that
 (``:373-416``). An int8 gallery is searched with the f32 embeddings
 (``_match_queries``, ``:208-225``).
+
+The bodies of the two serving programs are module functions of the
+networks and the frames, ``recognize_program`` and ``embed_program``
+(with ``detector_program``): the eager methods call them under
+inference mode, and ``facekit_torch.engine`` traces the same functions
+into its exported engines, the networks run on a state given as input.
 """
 
 from __future__ import annotations
@@ -161,10 +167,7 @@ class FacePipeline:
     def _detector_outputs(self, frames: torch.Tensor):
         """(N, fh, fw, 3) BGR frames on the device -> the detector's (loc,
         conf, ldm) on the letterboxed, normalized frames."""
-        if self.det_net is None:
-            raise ValueError("this pipeline has no detector (det_params)")
-        return self.det_net(det_normalize(letterbox(frames.float(),
-                                                    self.config.det_hw)))
+        return detector_program(self, self.det_net, frames)
 
     def _select_faces(self, loc, conf, ldm) -> Detections:
         """Detector outputs -> Detections with max_faces slots per frame,
@@ -180,7 +183,8 @@ class FacePipeline:
 
     @torch.inference_mode()
     def _detect(self, frames: torch.Tensor) -> Detections:
-        return self._select_faces(*self._detector_outputs(frames))
+        return self._select_faces(*detector_program(self, self.det_net,
+                                                    frames))
 
     def detect_frames(self, frames_bgr) -> Detections:
         """Detection only: (N, H, W, 3) BGR frames -> Detections (boxes,
@@ -190,18 +194,8 @@ class FacePipeline:
     @torch.inference_mode()
     def _recognize_frames(self, frames: torch.Tensor, return_crops: bool
                           ) -> FrameResult:
-        det = self._detect(frames)
-        n, nf = det.valid.shape
-        if self.align:
-            faces = warp_align_frames(frames, det.landmarks,
-                                      self.config.rec_hw, dtype=self.dtype)
-        else:
-            faces = crop_resize(frames.float(), det.boxes, self.config.rec_hw,
-                                "cubic")
-        flat = faces.reshape(n * nf, *faces.shape[2:])
-        emb = self.rec_net(rec_normalize(flat)).reshape(n, nf, -1)
-        return FrameResult(det.boxes, det.scores, det.valid, emb,
-                           det.landmarks, faces if return_crops else None)
+        return recognize_program(self, self.det_net, self.rec_net, frames,
+                                 return_crops)
 
     def recognize_frames(self, frames_bgr, return_crops: bool = False
                          ) -> FrameResult:
@@ -236,7 +230,7 @@ class FacePipeline:
     @torch.inference_mode()
     def _embed(self, imgs: torch.Tensor) -> torch.Tensor:
         """(N, rec_h, rec_w, 3) BGR on the device -> (N, D) f32."""
-        return self.rec_net(rec_normalize(imgs.float()))
+        return embed_program(self.rec_net, imgs)
 
     @torch.inference_mode()
     def match_flat(self, flat_embeddings, gallery_arr: torch.Tensor,
@@ -278,3 +272,43 @@ class FacePipeline:
     def embed_cropped_batch(self, imgs_bgr) -> np.ndarray:
         """(N, rec_h, rec_w, 3) BGR pre-resized crops -> (N, D)."""
         return self._embed(_own_frames(imgs_bgr, self.device)).cpu().numpy()
+
+
+# -- the serving programs, shared by the eager methods above and the
+#    engines (``facekit_torch.engine``), which trace them with
+#    ``torch.func.functional_call`` modules; no inference mode inside
+
+def detector_program(pipe: FacePipeline, det_net, frames: torch.Tensor):
+    """(N, fh, fw, 3) BGR frames -> ``det_net``'s (loc, conf, ldm) on the
+    letterboxed, normalized frames, at ``pipe``'s config."""
+    if det_net is None:
+        raise ValueError("this pipeline has no detector (det_params)")
+    return det_net(det_normalize(letterbox(frames.float(),
+                                           pipe.config.det_hw)))
+
+
+def recognize_program(pipe: FacePipeline, det_net, rec_net,
+                      frames: torch.Tensor, return_crops: bool
+                      ) -> FrameResult:
+    """facekit's ``_recognize_frames`` (``:191-204``): detect, align (or
+    crop), embed all N * max_faces faces in one call of ``rec_net``. The
+    statics (geometry, thresholds, alignment, dtype) and the anchors come
+    from ``pipe``; the networks are arguments, so an export can pass
+    them over a state given as input."""
+    det = pipe._select_faces(*detector_program(pipe, det_net, frames))
+    n, nf = det.valid.shape
+    if pipe.align:
+        faces = warp_align_frames(frames, det.landmarks, pipe.config.rec_hw,
+                                  dtype=pipe.dtype)
+    else:
+        faces = crop_resize(frames.float(), det.boxes, pipe.config.rec_hw,
+                            "cubic")
+    flat = faces.reshape(n * nf, *faces.shape[2:])
+    emb = rec_net(rec_normalize(flat)).reshape(n, nf, -1)
+    return FrameResult(det.boxes, det.scores, det.valid, emb,
+                       det.landmarks, faces if return_crops else None)
+
+
+def embed_program(rec_net, imgs: torch.Tensor) -> torch.Tensor:
+    """(N, rec_h, rec_w, 3) BGR crops -> (N, D) f32 embeddings."""
+    return rec_net(rec_normalize(imgs.float()))

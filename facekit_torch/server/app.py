@@ -24,6 +24,10 @@ verbatim:
 With ``gen: true``, ``main`` enrolls the ``gen_imgSource`` folder tree in
 batches (``FaceServer.enroll_folder``) and exits instead of serving.
 
+With ``--engines DIR`` (``extras.server_enginesDir``) WS ``/inference``
+and ``/recognize`` run the exported engines of ``facekit_torch.engine``
+and then the gallery match; enrollment stays eager.
+
 Host pixel work uses OpenCV. A config that needs a part not ported yet is
 refused at startup (``refuse_unported``). With ``rec_quantize`` the server
 calibrates the int8 embedder from ``extras.rec_calibrationDir`` at startup
@@ -47,9 +51,11 @@ import numpy as np
 import torch
 
 from facekit_torch.db import Database
+from facekit_torch.engine import engine_states, load_serving_engines
 from facekit_torch.gallery import GalleryStore
 from facekit_torch.pipeline import FacePipeline
-from facekit_torch.pipeline.recognize import CALIBRATION_HEADROOM
+from facekit_torch.pipeline.recognize import (CALIBRATION_HEADROOM,
+                                              FrameResult, _own_frames)
 from facekit_torch.utils import LatencyTracker, resolve_device
 from facekit_torch.models import detector_family
 from facekit_torch.weights import load_params, random_arcface_params
@@ -102,11 +108,9 @@ def refuse_unported(config) -> None:
         reasons.append("rec_int8Residual (s8-resident block outputs) is not "
                        "ported yet (ROADMAP.md Queue 1, int8 remainder)")
     if config.mesh_shape:
-        reasons.append("mesh_shape needs multi-GPU serving (ROADMAP.md "
+        reasons.append("mesh_shape needs multi-GPU serving, with or without "
+                       "server_enginesDir (identify engines; ROADMAP.md "
                        "Queue 1, parallel)")
-    if config.extras.get("server_enginesDir"):
-        reasons.append("server_enginesDir needs engine export (ROADMAP.md "
-                       "Queue 1, export)")
     if config.extras.get("server_hostOps", "cv2") != "cv2":
         reasons.append("server_hostOps other than cv2 needs the native host "
                        "ops (ROADMAP.md Queue 1, server remainder)")
@@ -141,6 +145,24 @@ def random_detector_params(config, seed: int = 0):
     (facekit's ``init_model_params`` draws its family's init)."""
     return detector_family(config.det_network).random_params(
         seed, config.det_withLandmarks)
+
+
+def model_params(config, rec_params=None, det_params=None):
+    """(rec_params, det_params) a server of ``config`` serves: those given,
+    else ``config.rec_weights`` / ``config.det_weights``, else random ones
+    drawn with numpy (embedder from seed 1, detector of ``det_network``
+    from seed 0, RetinaFace with the landmark head when
+    ``det_withLandmarks``)."""
+    if rec_params is None:
+        rec_params = (load_params(config.rec_weights) if config.rec_weights
+                      else random_arcface_params(
+                          config.rec_network, seed=1,
+                          input_size=config.rec_hw[0],
+                          embed_dim=config.rec_outputDim))
+    if det_params is None:
+        det_params = (load_detector_params(config) if config.det_weights
+                      else random_detector_params(config, seed=0))
+    return rec_params, det_params
 
 
 def _load_calibration_crops(folder: str, rec_hw, pixels, batch: int = 16,
@@ -197,26 +219,19 @@ class FaceServer:
     (src/app.cpp:12-106)."""
 
     def __init__(self, config, rec_params=None, warmup: bool = True,
-                 device=None, det_params=None):
+                 device=None, det_params=None, engines_dir=None):
         """``rec_params`` / ``det_params``: embedder and detector params in
-        facekit's layout; None loads ``config.rec_weights`` /
-        ``config.det_weights`` or, without weights, draws random ones with
-        numpy (embedder from seed 1, detector of ``det_network`` from seed
-        0, RetinaFace with the landmark head when ``det_withLandmarks``). ``device`` defaults to
-        ``"cuda"``."""
+        facekit's layout; None loads them as ``model_params`` does.
+        ``device`` defaults to ``"cuda"``. ``engines_dir`` (or
+        ``extras.server_enginesDir``): serve WS /inference and /recognize
+        from the engines exported there (``python -m facekit_torch.engine
+        export``), one recognize / embed pair per batch bucket; the
+        enrollment paths stay eager."""
         refuse_unported(config)
         self.config = config
         self.device = resolve_device(device)
         self.pixels = _Cv2Pixels()
-        if rec_params is None:
-            rec_params = (load_params(config.rec_weights) if config.rec_weights
-                          else random_arcface_params(
-                              config.rec_network, seed=1,
-                              input_size=config.rec_hw[0],
-                              embed_dim=config.rec_outputDim))
-        if det_params is None:
-            det_params = (load_detector_params(config) if config.det_weights
-                          else random_detector_params(config, seed=0))
+        rec_params, det_params = model_params(config, rec_params, det_params)
         self.pipeline = FacePipeline(config, rec_params, det_params,
                                      device=self.device)
         # optional int8 calibration from a folder of face crops: static
@@ -234,6 +249,18 @@ class FaceServer:
         self.batch_buckets = sorted(set(buckets))
         self.batch_size = self.batch_buckets[-1]
         self.batch_wait_ms = float(config.extras.get("server_batchWaitMs", 3.0))
+        # engine-served mode (facekit/server/app.py:283-335): the hot-path
+        # programs come from exported files, checked against this config
+        # and pipeline; the gallery match runs after them, so the engines
+        # freeze no gallery and /reload works as in eager mode
+        engines_dir = engines_dir or config.extras.get("server_enginesDir")
+        self.engines = None
+        if engines_dir:
+            self.engines = load_serving_engines(
+                engines_dir, config, self.pipeline, self.batch_buckets)
+            self._det_state, self._rec_state = engine_states(self.pipeline)
+            log.info("serving from engines in %s (batch buckets %s)",
+                     engines_dir, self.batch_buckets)
         self.gallery = GalleryStore(embed_dim=config.rec_outputDim,
                                     buckets=config.gallery_bucket_sizes,
                                     dtype=config.gallery_dtype,
@@ -251,19 +278,18 @@ class FaceServer:
             max_workers=int(config.extras.get("server_enrollThreads", 2)))
         self.metrics = LatencyTracker()
         if warmup:
-            # builds the kernels and primes both serving paths at every
-            # batch bucket, and the enrollment path, so no request pays it
+            # builds the kernels and primes both serving paths (engines
+            # and the match at both query shapes, or the eager programs)
+            # at every batch bucket, and the enrollment path, so no
+            # request pays it
             rh, rw = config.rec_hw
             fh, fw = config.frame_hw
             snap = self.gallery.snapshot()
+            snap = snap._replace(count=max(snap.count, 1))
             for b in self.batch_buckets:
-                self.pipeline.embed_and_match(
-                    np.zeros((b, rh, rw, 3), np.uint8), snap.arr,
-                    max(snap.count, 1), gallery_scale=snap.scales)
-                self.pipeline.recognize_and_match(
-                    np.zeros((b, fh, fw, 3), np.uint8), snap.arr,
-                    max(snap.count, 1), return_crops=True,
-                    gallery_scale=snap.scales)
+                self.serving_embed(np.zeros((b, rh, rw, 3), np.uint8), snap)
+                self.serving_recognize(np.zeros((b, fh, fw, 3), np.uint8),
+                                       snap)
             self.pipeline.embed_cropped(np.zeros((rh, rw, 3), np.uint8))
             if not config.api_imgIsCropped:
                 self.pipeline.recognize_frame(np.zeros((fh, fw, 3), np.uint8))
@@ -284,9 +310,17 @@ class FaceServer:
 
     def serving_embed(self, crops: np.ndarray, snap):
         """Padded (B, rh, rw, 3) u8 crops -> (emb, sims (B, k), idx)
-        against a gallery snapshot, as device tensors."""
-        return self.pipeline.embed_and_match(crops, snap.arr, snap.count,
+        against a gallery snapshot, as device tensors: the embed engine of
+        batch B and the match, or the eager pipeline."""
+        if self.engines is None:
+            return self.pipeline.embed_and_match(crops, snap.arr, snap.count,
+                                                 gallery_scale=snap.scales)
+        fn = self.engines["embed"][crops.shape[0]]
+        with torch.inference_mode():
+            emb = fn(self._rec_state, _own_frames(crops, self.device))
+        vals, idx = self.pipeline.match_flat(emb, snap.arr, snap.count,
                                              gallery_scale=snap.scales)
+        return emb, vals, idx
 
     def recognize_batch(self, crops: List[np.ndarray]
                         ) -> List[Optional[Dict[str, Any]]]:
@@ -308,10 +342,20 @@ class FaceServer:
     def serving_recognize(self, frames: np.ndarray, snap):
         """Padded (B, fh, fw, 3) u8 frames -> (FrameResult with crops,
         sims (B, F, k), idx (B, F, k)) against a gallery snapshot, as
-        device tensors."""
-        return self.pipeline.recognize_and_match(
-            frames, snap.arr, snap.count, return_crops=True,
-            gallery_scale=snap.scales)
+        device tensors: the recognize engine of batch B and the match
+        (``facekit/server/app.py:571-586``), or the eager pipeline."""
+        if self.engines is None:
+            return self.pipeline.recognize_and_match(
+                frames, snap.arr, snap.count, return_crops=True,
+                gallery_scale=snap.scales)
+        fn = self.engines["recognize"][frames.shape[0]]
+        with torch.inference_mode():
+            boxes, scores, valid, emb, crops = fn(
+                self._det_state, self._rec_state,
+                _own_frames(frames, self.device))
+        vals, idx = self.pipeline.match_flat(emb, snap.arr, snap.count,
+                                             gallery_scale=snap.scales)
+        return FrameResult(boxes, scores, valid, emb, None, crops), vals, idx
 
     def inference_batch(self, frames: List[np.ndarray]
                         ) -> List[Optional[Dict[str, Any]]]:
@@ -806,6 +850,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; cpu to "
                          "run on the CPU)")
+    ap.add_argument("--engines", default=None, metavar="DIR",
+                    help="serve WS /inference and /recognize from the "
+                         "engines in DIR (python -m facekit_torch.engine "
+                         "export); also settable as extras.server_enginesDir")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -814,7 +862,8 @@ def main(argv=None):
         import dataclasses
         cfg = dataclasses.replace(cfg, database_path=args.db)
     device = resolve_device(args.device)
-    server = FaceServer(cfg, warmup=not args.no_warmup, device=device)
+    server = FaceServer(cfg, warmup=not args.no_warmup, device=device,
+                        engines_dir=args.engines)
     if cfg.gen:  # batch-enrollment mode, then exit (src/app.cpp:69-99)
         try:
             n = server.enroll_folder(cfg.gen_imgSource, cfg.gen_imgIsCropped)

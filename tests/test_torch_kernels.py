@@ -687,3 +687,174 @@ def test_ir_block_kernel_refuses_what_it_does_not_take(cuda_device):
         _ir_block_cuda(x, w1.to(torch.bfloat16), w2, par)
     with pytest.raises(ValueError, match="f32 expected"):
         _ir_block_cuda(x, w1, w2, par[:4])
+
+
+# -- the registered ops and the exported engines on the card ------------------
+
+def _as_tuple(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def _cuda_op_cases(device):
+    """(op, args, direct wrapper, plain check, launch counter) per kernel,
+    at served shapes: the bf16 and int8 searches at B = 8, the s8 conv at
+    the IR-50 28x28x128 site of batch 8, the bf16 block at 56x56x64."""
+    rng = np.random.default_rng(21)
+    g, q = _data(21, b=8)
+    gb = torch.tensor(g).to(device, torch.bfloat16)
+    qb = torch.tensor(q).to(device, torch.bfloat16)
+    gq, gs = quantize_rows_int8(torch.tensor(g, device=device))
+    qf = torch.tensor(q, device=device)
+    x8, w8 = _s8(rng, (8, 28, 28, 128)), _s8(rng, (128, 3, 3, 128))
+    w1, w2, par = _ir_operands(rng, 64, torch.bfloat16)
+    x = torch.tensor(rng.normal(size=(8, 56, 56, 64)),
+                     dtype=torch.float32).to(torch.bfloat16)
+
+    def search_close(got, args):
+        ref_v, ref_i = cosine_topk_reference(*args)
+        assert torch.equal(got[1], ref_i)
+        assert (got[0] - ref_v).abs().max() <= 1e-5
+
+    def exact(plain):
+        def check(got, args):
+            for a, b in zip(_as_tuple(got), _as_tuple(plain(*args))):
+                assert torch.equal(a, b)
+        return check
+
+    def block_close(got, args):
+        ref = ir_block_reference(*args).float()
+        err = (got.float() - ref).abs()
+        steps = 2.0 ** -6 * ref.abs() + 2.0 ** -9
+        assert (err > steps).float().mean() <= 1e-5
+        assert (err <= steps + u_rounding_bound(*args)).all()
+
+    ops = torch.ops.facekit_torch
+    return {
+        "cosine_topk": (ops.cosine_topk, (gb, qb, N, 1), _cosine_topk_cuda,
+                        search_close, cosine_topk),
+        "cosine_topk_int8": (ops.cosine_topk_int8, (gq, gs, qf, 777, 5),
+                             _cosine_topk_int8_cuda,
+                             exact(cosine_topk_int8_reference),
+                             cosine_topk_int8),
+        "conv_s8": (ops.conv_s8, (x8.to(device), w8.to(device), 1, 1, 1),
+                    _conv_s8_cuda, exact(conv_s8_reference), conv_s8),
+        "ir_block": (ops.ir_block, tuple(t.to(device)
+                                         for t in (x, w1, w2, par)),
+                     _ir_block_cuda, block_close, ir_block),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cosine_topk", "cosine_topk_int8",
+                                  "conv_s8", "ir_block"])
+def test_registered_op_launches_its_kernel(cuda_device, name):
+    """On CUDA tensors each op launches its kernel once and returns what
+    the direct wrapper returns, bit for bit; it holds to its plain version
+    as the kernel tests above do (the conv and the int8 search bit for
+    bit); its fake gives the real output's shapes and dtypes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    torch.backends.cudnn.allow_tf32 = False
+    op, args, direct, check, counter = _cuda_op_cases(cuda_device)[name]
+    before = counter.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for a, b in zip(_as_tuple(got), _as_tuple(direct(*args))):
+        assert torch.equal(a, b)
+    check(got, args)
+    with FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                    else a for a in args))
+    for f, r in zip(_as_tuple(fake), _as_tuple(got)):
+        assert f.shape == r.shape and f.dtype == r.dtype
+        assert f.device == r.device
+
+
+def _launch_counts():
+    return {f.__name__: f.launches
+            for f in (cosine_topk, cosine_topk_int8, conv_s8, ir_block)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_recognize_engine_on_the_card_equals_eager(cuda_device, tmp_path,
+                                                   int8):
+    """An ir_tiny + RetinaFace recognize engine exported and loaded on
+    the card equals the eager pipeline there bit for bit and launches the
+    same kernels as often (int8: the 47 + 12 conv_s8 sites); it refuses
+    to load on the CPU, and a CPU engine refuses to load on the card."""
+    from facekit_torch.config import FaceKitConfig
+    from facekit_torch.engine import (engine_states, export_embed_engine,
+                                      export_recognize_engine, load_engine,
+                                      save_engine)
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.weights import (random_arcface_params,
+                                       random_retinaface_params)
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = FaceKitConfig(rec_network="ir_tiny", compute_dtype="bfloat16",
+                        gallery_dtype="int8" if int8 else "bfloat16",
+                        rec_quantize=int8, det_quantize=int8,
+                        det_inputShape=(3, 64, 64), input_frameWidth=160,
+                        input_frameHeight=120, det_threshold_bbox=0.5,
+                        extras={"rec_useAlignment": True})
+    rp = random_arcface_params("ir_tiny", seed=4)
+    dp = random_retinaface_params(seed=0)
+    pipe = FacePipeline(cfg, rp, dp, device=cuda_device)
+    path = str(tmp_path / "recognize.fke")
+    save_engine(path, *export_recognize_engine(pipe, 2, return_crops=True))
+    fn, meta = load_engine(path, "cuda")
+    assert meta["device"] == "cuda"
+    frames = np.random.default_rng(3).integers(0, 256, (2, 120, 160, 3),
+                                               dtype=np.uint8)
+    before = _launch_counts()
+    with torch.inference_mode():
+        got = fn(*engine_states(pipe), torch.tensor(frames,
+                                                   device=cuda_device))
+    torch.cuda.synchronize()
+    mid = _launch_counts()
+    ref = pipe.recognize_frames(frames, return_crops=True)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    engine = {k: mid[k] - before[k] for k in mid}
+    eager = {k: after[k] - mid[k] for k in mid}
+    assert engine == eager
+    assert engine["conv_s8"] == (47 + 12 if int8 else 0)
+    assert ref.valid.any()
+    for a, b in zip(got, (ref.boxes, ref.scores, ref.valid, ref.embeddings,
+                          ref.crops)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    with pytest.raises(ValueError, match="device='cuda'"):
+        load_engine(path, "cpu")
+    cpu = FacePipeline(cfg, rp, dp, device="cpu")
+    save_engine(str(tmp_path / "embed.fke"), *export_embed_engine(cpu, 1))
+    with pytest.raises(ValueError, match="device='cpu'"):
+        load_engine(str(tmp_path / "embed.fke"), "cuda")
+
+
+@pytest.mark.cuda
+def test_ir50_embed_engine_launches_ir_block(cuda_device, tmp_path):
+    """The bf16 IR-50 embed engine on the card: 20 ``ir_block`` launches
+    per call, as the eager forward, and the same embeddings bit for
+    bit."""
+    from facekit_torch.config import FaceKitConfig
+    from facekit_torch.engine import (engine_states, export_embed_engine,
+                                      load_engine, save_engine)
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.weights import random_arcface_params
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = FacePipeline(FaceKitConfig(rec_network="ir_50",
+                                      compute_dtype="bfloat16"),
+                        random_arcface_params("ir_50", seed=1),
+                        device=cuda_device)
+    path = str(tmp_path / "embed.fke")
+    save_engine(path, *export_embed_engine(pipe, 8))
+    fn, _ = load_engine(path, "cuda")
+    crops = torch.tensor(np.random.default_rng(5).integers(
+        0, 256, (8, 112, 112, 3), dtype=np.uint8), device=cuda_device)
+    before = ir_block.launches
+    with torch.inference_mode():
+        got = fn(engine_states(pipe)[1], crops)
+    torch.cuda.synchronize()
+    assert ir_block.launches == before + 20
+    assert torch.equal(got, pipe._embed(crops))
+    assert ir_block.launches == before + 40

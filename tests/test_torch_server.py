@@ -202,7 +202,10 @@ def test_recognize_batch_pads_to_buckets(servers):
     {"extras": {"rec_int8Residual": True}},
     {"mesh_shape": {"gallery": 4}},
     {"mesh_shape": {"data": 2}},
-    {"extras": {"server_enginesDir": "/tmp/engines"}},
+    # engines alone serve since they were ported; with a mesh (identify
+    # engines) they are still refused
+    {"mesh_shape": {"gallery": 4},
+     "extras": {"server_enginesDir": "/tmp/engines"}},
     {"extras": {"server_hostOps": "native"}},
     {"extras": {"profiler_port": 9999}}])
 def test_unported_configs_are_refused(override, tmp_path):
@@ -379,16 +382,34 @@ def test_default_device_without_cuda_raises(tmp_path):
         server_main(["--device", "cuda"])
 
 
-def test_import_loads_no_jax_and_no_facekit():
+def test_import_loads_no_jax_and_no_facekit(tmp_path):
     """In a fresh interpreter (this one has imported jax), importing every
     module of facekit_torch (the CLIs' ``__main__`` modules too, which run
-    nothing on import) leaves jax and facekit out of sys.modules."""
+    nothing on import; ``facekit_torch.engine`` among them), then exporting,
+    saving, loading and calling an engine, leaves jax and facekit out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import facekit_torch\n"
         "for m in pkgutil.walk_packages(facekit_torch.__path__, "
         "'facekit_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'facekit_torch.engine' in sys.modules\n"
+        "import torch\n"
+        "from facekit_torch.config import FaceKitConfig\n"
+        "from facekit_torch.engine import (engine_states, "
+        "export_embed_engine, load_engine, save_engine)\n"
+        "from facekit_torch.pipeline import FacePipeline\n"
+        "from facekit_torch.weights import random_arcface_params\n"
+        "pipe = FacePipeline(FaceKitConfig(rec_network='ir_tiny', "
+        "compute_dtype='float32'), random_arcface_params('ir_tiny'), "
+        "device='cpu')\n"
+        f"path = {str(tmp_path / 'embed.fke')!r}\n"
+        "save_engine(path, *export_embed_engine(pipe, 1))\n"
+        "fn, _ = load_engine(path, 'cpu')\n"
+        "emb = fn(engine_states(pipe)[1], torch.zeros((1, 112, 112, 3), "
+        "dtype=torch.uint8))\n"
+        "assert emb.shape == (1, 512)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'facekit'))\n"
         "assert not bad, bad\n"
