@@ -35,8 +35,19 @@ configs exported by ``python -m facekit_torch.engine export`` on the
 card, a ``FaceServer`` booted from each directory, its WS /inference and
 /recognize replies, embeddings and kernel launches held to the same
 server's eager pipeline at every bucket, boot, export and latency beside
-eager, and the registered ops' cost per call (``dispatch_cost``). Each
-path runs with every kernel's launch
+eager, and the registered ops' cost per call (``dispatch_cost``); then
+``server_remainder``: configs/default.json served on the native pixel
+backend (``server_hostOps: "native"``), its replies, crops and
+similarities bit-equal to the cv2 server's on JPEG payloads, a PNG
+answered "null", host decode µs and WS round trips of both (or, where
+the native library cannot be built, the server's refusal with the
+build's message); configs/throughput.json calibrated with
+``rec_int8Residual``, every site of a forward bit-equal to the plain
+conv, its drift from the f32 embedder against calibrated int8's, device
+ms and operations per forward and ``/recognize`` latency of both, and a
+residual engine pair served at bucket 1, bit-equal to eager; and
+``warp_align_frames(slice_win=320)`` bit-identical to the full path.
+Each path runs with every kernel's launch
 count set to 0 just before it and read just after. Prints one
 JSON line per phase, the ``kernels`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -50,12 +61,14 @@ path alone (it runs on an older checkout too, to compare the two in one
 call); ``--gen`` the build of the two kernels it runs and
 ``weights_gen`` alone; ``--detectors`` the build of the three kernels
 it runs, the conv's ``ptxas`` line and ``server_detectors`` alone;
-``--engines`` the build and ``server_engines`` alone. ``weights_gen``
-and ``server_detectors`` serve through aiohttp.
+``--engines`` the build and ``server_engines`` alone; ``--remainder``
+the build and ``server_remainder`` alone. ``weights_gen``,
+``server_detectors`` and ``server_remainder`` serve through aiohttp.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
 import contextlib
 import dataclasses
@@ -2508,6 +2521,571 @@ def _engines_run(server, name, rng, n_users, export_s, files, boot):
     return rec
 
 
+# -- server_remainder: native host ops, int8-residual, windowed align ----------
+
+REMAINDER_REPS = 8           # latency samples per backend or mode and turn
+DECODE_REPS = 40             # host decodes per backend and turn
+SLICE_WIN = 320              # warp_align_frames' window in server_remainder
+RESIDUAL_USERS = 16
+
+
+def _smooth_images(rng, n, hw):
+    """n uint8 BGR images of size ``hw``, random at a tenth of the size and
+    resized up: JPEGs of these decode like photographs, not like noise."""
+    import cv2
+    h, w = hw
+    small = rng.integers(0, 256, (n, max(h // 10, 2), max(w // 10, 2), 3),
+                         dtype=np.uint8)
+    return np.stack([cv2.resize(s, (w, h), interpolation=cv2.INTER_CUBIC)
+                     for s in small])
+
+
+def phase_server_remainder(device, repo_dir, seed=12):
+    """What facekit serves on one device that the port served last:
+    ``server_hostOps: "native"`` (``_remainder_native``), the int8-residual
+    embedder (``_remainder_residual``) and the windowed alignment
+    (``_remainder_windowed``), at full width. Returns their records."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        nat = _remainder_native(device, repo_dir, tmp, seed)
+        res = _remainder_residual(device, repo_dir, tmp, seed + 1)
+    win = _remainder_windowed(device, seed + 2)
+    emit({"phase": "server_remainder", "part": "seconds",
+          "seconds": time.perf_counter() - t0})
+    return nat, res, win
+
+
+def _remainder_native(device, repo_dir, tmp, seed):
+    """configs/default.json served on the native pixel backend and on the
+    cv2 one, the same weights (random, from seeds) on both, det threshold
+    0.5 as ``server_inference``. Each server: 8 users enrolled from the
+    faces of 8 decoded 640x480 JPEG frames and 2 through ``/insert/face``
+    of 112x112 JPEG files; then ``/recognize`` of 4 JPEG crops and a PNG,
+    WS ``/inference`` of 3 JPEG frames and a PNG (one at a time, so each
+    runs at bucket 1) through the app, and the WS batch function at
+    buckets 1 and 8 on the frames the server decodes; launches counted
+    over all of it. Every reply, crop and similarity must equal the cv2
+    server's (the JPEGs are at their target size, so no resize runs);
+    the PNG gets "null" from the JPEG-only native backend. Then host
+    decode µs per 640x480 JPEG and WS round trips, in turns. Where the
+    native library cannot be built, the server must refuse the config
+    with the build's message instead."""
+    import asyncio
+
+    import cv2
+    import torch
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from facekit_torch import native
+    from facekit_torch.config import load_config
+    from facekit_torch.server import FaceServer, make_app
+    from facekit_torch.weights import random_arcface_params
+
+    rng = np.random.default_rng(seed)
+    base = load_config(os.path.join(repo_dir, "configs", "default.json"))
+    base = dataclasses.replace(base, det_threshold_bbox=DET_THRESHOLD)
+    rec_params = random_arcface_params(base.rec_network, seed=seed)
+
+    def config(host_ops):
+        extras = dict(base.extras)
+        if host_ops == "native":
+            extras["server_hostOps"] = "native"
+        return dataclasses.replace(base, extras=extras, database_path=(
+            os.path.join(tmp, f"{host_ops}.db")))
+
+    if not native.available():
+        msg = native.build_error()
+        try:
+            FaceServer(config("native"), rec_params=rec_params,
+                       device=device, warmup=False)
+        except RuntimeError as e:
+            if msg not in str(e):
+                raise AssertionError(f"native refusal without the build's "
+                                     f"message: {e}") from e
+        else:
+            raise AssertionError("a native server started without its "
+                                 "library")
+        print("server_remainder: the native host ops do not build on this "
+              "machine; the server refuses server_hostOps native: "
+              + msg.replace("\n", " | "), flush=True)
+        rec = {"phase": "server_remainder", "part": "native",
+               "refused": msg}
+        emit(rec)
+        return rec
+
+    fh, fw = base.frame_hw
+    rh, rw = base.rec_hw
+    frames = _smooth_images(rng, 8, (fh, fw))
+    crops = _smooth_images(rng, 4, (rh, rw))
+    frame_jpgs = [cv2.imencode(".jpg", f)[1].tobytes() for f in frames]
+    crop_jpgs = [cv2.imencode(".jpg", c)[1].tobytes() for c in crops]
+    png = cv2.imencode(".png", crops[0])[1].tobytes()
+    crop_paths = []
+    for i, data in enumerate(crop_jpgs[:2]):
+        crop_paths.append(os.path.join(tmp, f"crop{i}.jpg"))
+        with open(crop_paths[-1], "wb") as f:
+            f.write(data)
+    servers = {hp: FaceServer(config(hp), rec_params=rec_params,
+                              device=device) for hp in ("native", "cv2")}
+    if servers["native"].pixels.name != "native" or \
+            servers["cv2"].pixels.name != "cv2":
+        raise AssertionError("the servers' pixel backends")
+
+    async def drive(server, client):
+        """The main path on one server; (replies, launches)."""
+        px = server.pixels
+        reset_launches()
+        decoded = [px.decode(d, (fw, fh)) for d in frame_jpgs]
+        res = server.pipeline.recognize_frames(np.stack(decoded),
+                                               return_crops=True)
+        spread = res.crops.std(dim=(2, 3, 4)).masked_fill(~res.valid, -1.0)
+        slot = spread.argmax(1).cpu()
+        for j in range(len(frame_jpgs)):
+            server.db.insert_user(f"f{j}", f"F{j}")
+            server.db.insert_face(f"f{j}", f"f{j}.jpg",
+                                  res.embeddings[j, slot[j]].cpu().numpy())
+        out = {"insert": []}
+        for i, path in enumerate(crop_paths):
+            await client.post("/insert/user", data=json.dumps(
+                {"userId": f"c{i}", "userName": f"C{i}"}))
+            r = await client.post("/insert/face", data=json.dumps(
+                {"data": [{"userId": f"c{i}", "imgPath": path}]}))
+            out["insert"].append(await r.text())
+        await client.get("/reload")
+        out["recognize"] = [await (await client.post(
+            "/recognize", data=d)).text() for d in crop_jpgs + [png]]
+        ws = await client.ws_connect("/inference")
+        out["ws"] = []
+        for d in frame_jpgs[:3] + [png]:
+            await ws.send_bytes(d)
+            out["ws"].append((await ws.receive()).data)
+        await ws.close()
+        out["batch"] = [server.inference_batch(decoded[:1]),
+                        server.inference_batch(decoded)]
+        torch.cuda.synchronize()
+        return out, launches()
+
+    async def ws_round_trips(client, reps):
+        ws = await client.ws_connect("/inference")
+        ts = []
+        for i in range(reps + 1):
+            t0 = time.perf_counter()
+            await ws.send_bytes(frame_jpgs[i % len(frame_jpgs)])
+            await ws.receive()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        await ws.close()
+        return ts[1:]
+
+    async def run():
+        clients = {hp: TestClient(TestServer(make_app(s)))
+                   for hp, s in servers.items()}
+        for c in clients.values():
+            await c.start_server()
+        try:
+            runs = {hp: await drive(servers[hp], clients[hp])
+                    for hp in ("native", "cv2")}
+            lat = collections.defaultdict(list)
+            for hp in ("native", "cv2", "cv2", "native"):
+                lat[hp] += await ws_round_trips(clients[hp], REMAINDER_REPS)
+            return runs, lat
+        finally:
+            for c in clients.values():
+                await c.close()
+    try:
+        runs, ws_ms = asyncio.run(run())
+        # host decode of one 640x480 JPEG, in turns
+        dec = collections.defaultdict(list)
+        for hp in ("native", "cv2", "cv2", "native"):
+            px = servers[hp].pixels
+            for i in range(DECODE_REPS):
+                t0 = time.perf_counter()
+                px.decode(frame_jpgs[i % len(frame_jpgs)])
+                dec[hp].append((time.perf_counter() - t0) * 1e6)
+    finally:
+        for s in servers.values():
+            s.close()
+
+    # -- checks
+    (nat, n_counts), (ref, c_counts) = runs["native"], runs["cv2"]
+    # per server: 1 enrollment forward, 2 /insert/face, 4 /recognize, 3 WS
+    # frames, 2 batches; the cv2 server also answers both PNGs
+    for hp, counts, extra in (("native", n_counts, 0), ("cv2", c_counts, 2)):
+        searches = 4 + 3 + 2 + extra
+        want = {"ir_block": IR_BLOCKS_PER_FORWARD * (3 + searches),
+                "cosine_topk": searches, "conv_s8": 0,
+                "cosine_topk_int8": 0}
+        if counts != want:
+            raise AssertionError(f"native pixels, {hp} server: launches "
+                                 f"{counts}, expected {want}")
+    if nat["insert"] != ref["insert"] or \
+            not all("inserted successfully" in t for t in nat["insert"]):
+        raise AssertionError(f"/insert/face: {nat['insert']} against "
+                             f"{ref['insert']}")
+    if nat["recognize"][:4] != ref["recognize"][:4]:
+        raise AssertionError(f"/recognize: {nat['recognize']} against "
+                             f"{ref['recognize']}")
+    for i in range(2):
+        if json.loads(nat["recognize"][i])["userId"] != f"c{i}":
+            raise AssertionError(f"/recognize of c{i}: "
+                                 f"{nat['recognize'][i]}")
+    if nat["recognize"][4] != "null" or ref["recognize"][4] == "null" or \
+            nat["ws"][3] != "null" or ref["ws"][3] == "null":
+        raise AssertionError("a PNG payload: native "
+                             f"{nat['recognize'][4][:40]} / {nat['ws'][3][:40]}"
+                             f", cv2 {ref['recognize'][4][:40]} / "
+                             f"{ref['ws'][3][:40]}")
+    jpeg_bytes_equal, crop_mad = True, 0.0
+    for got, want in zip(nat["ws"][:3], ref["ws"][:3]):
+        got, want = json.loads(got), json.loads(want)
+        b_n, b_c = (base64.b64decode(d.pop("image")) for d in (got, want))
+        if got != want:
+            raise AssertionError(f"WS reply {got} against {want}")
+        jpeg_bytes_equal &= b_n == b_c
+        i_n, i_c = (cv2.imdecode(np.frombuffer(b, np.uint8),
+                                 cv2.IMREAD_COLOR) for b in (b_n, b_c))
+        crop_mad = max(crop_mad, float(np.abs(i_n.astype(int)
+                                              - i_c.astype(int)).mean()))
+    for got, want in zip(nat["batch"], ref["batch"]):
+        _same_replies(got, want, "native pixels, WS batch")
+    best = [a["similarity"] for a in nat["batch"][1] if a is not None]
+    rec = {"phase": "server_remainder", "part": "native",
+           "config": "configs/default.json", "server_hostOps": "native",
+           "det_threshold_bbox": DET_THRESHOLD,
+           "frames": [1, len(frame_jpgs)], "launches": {"native": n_counts,
+                                                        "cv2": c_counts},
+           "replies_bit_equal": True, "ws_jpeg_bytes_equal": jpeg_bytes_equal,
+           "ws_crop_jpeg_mean_abs_diff": crop_mad,
+           "png_reply": nat["recognize"][4],
+           "batch8_best_similarities": best,
+           "decode_us_640x480": {hp: statistics.median(v)
+                                 for hp, v in dec.items()},
+           "ws_round_trip_ms_b1": {hp: statistics.median(v)
+                                   for hp, v in ws_ms.items()}}
+    emit(rec)
+    return rec
+
+
+def _remainder_residual(device, repo_dir, tmp, seed):
+    """configs/throughput.json calibrated from a folder of crops, with
+    ``rec_int8Residual`` and without: the residual server's main path (16
+    crops enrolled, ``/recognize``'s batch function at 1, 8 and 64 crops,
+    launches counted: 52 ``conv_s8`` per forward, one int8 search per
+    batch), every site's s32 sum of one forward held to
+    ``conv_s8_reference`` on the card's own input, the drift of both int8
+    forms from the f32 float embedder on the card (facekit's relation:
+    residual < max(5 x calibrated, 2e-2)), device ms and operations per
+    forward from a trace at batches 1, 8 and 64 and ``/recognize``
+    latency, both forms in turns. Last, a residual engine pair exported
+    and served at bucket 1: metadata ``rec_int8_residual``, replies and
+    outputs bit-equal to the same server's eager pipeline."""
+    import cv2
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.engine import export_engines, read_meta
+    from facekit_torch.ops.conv_s8 import conv_s8_reference
+    from facekit_torch.ops.preprocess import rec_normalize
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.server import FaceServer
+    from facekit_torch.weights import random_arcface_params
+
+    rng = np.random.default_rng(seed)
+    cfg = load_config(os.path.join(repo_dir, "configs", "throughput.json"))
+    cfg = dataclasses.replace(cfg, det_threshold_bbox=DET_THRESHOLD)
+    params = random_arcface_params(cfg.rec_network, seed=seed)
+    rh, rw = cfg.rec_hw
+    n = RESIDUAL_USERS
+    crops = rng.integers(0, 256, (n, rh, rw, 3), dtype=np.uint8)
+    fresh = rng.integers(0, 256, (64, rh, rw, 3), dtype=np.uint8)
+    enrolled_q = [0, 5, 10, n - 1]
+    batches = [crops[:1], np.concatenate([crops[enrolled_q], fresh[:4]]),
+               np.concatenate([crops[enrolled_q], fresh[:60]])]
+    calib_dir = os.path.join(tmp, "calibration")
+    os.mkdir(calib_dir)
+    for i, c in enumerate(crops):
+        cv2.imwrite(os.path.join(calib_dir, f"c{i:02d}.jpg"), c)
+
+    def config(mode, **extra):
+        extras = dict(cfg.extras, rec_calibrationDir=calib_dir, **extra)
+        if mode == "residual":
+            extras["rec_int8Residual"] = True
+        return dataclasses.replace(cfg, extras=extras, database_path=(
+            os.path.join(tmp, f"{mode}{len(extra)}.db")))
+
+    servers = {m: FaceServer(config(m), rec_params=params, device=device)
+               for m in ("residual", "calibrated")}
+    try:
+        res, cal = servers["residual"], servers["calibrated"]
+        if res.pipeline.rec_net.int8 != "residual" or \
+                cal.pipeline.rec_net.int8 != "static":
+            raise AssertionError("the embedders' forms")
+        # -- the main path
+        reset_launches()
+        for u in range(n):
+            res.db.insert_user(f"u{u:02d}", f"U{u}")
+            if res.db.insert_face(f"u{u:02d}", f"c{u}.jpg",
+                                  res.pipeline.embed_cropped(crops[u])) != 1:
+                raise AssertionError("insert_face failed")
+        res.reload_gallery()
+        answers = [res.recognize_batch(list(b)) for b in batches]
+        torch.cuda.synchronize()
+        counts = launches()
+        forwards = n + len(batches)
+        want = {"conv_s8": SITES_PER_FORWARD * forwards,
+                "cosine_topk_int8": len(batches), "cosine_topk": 0,
+                "ir_block": 0}
+        if counts != want:
+            raise AssertionError(f"residual path: launches {counts}, "
+                                 f"expected {want}")
+        min_sim = 1.0
+        for b, ans in zip(batches, answers):
+            for j in range(min(len(b), len(enrolled_q))):
+                u = enrolled_q[j] if len(b) > 1 else 0
+                if ans[j]["userId"] != f"u{u:02d}" or \
+                        ans[j]["similarity"] < 0.99:
+                    raise AssertionError(f"residual: enrolled crop {u} "
+                                         f"answered {ans[j]}")
+                min_sim = min(min_sim, ans[j]["similarity"])
+
+        # -- every site's sum against the plain conv on the card's input
+        with recorded_convs() as calls:
+            e_r = res.pipeline.embed_cropped_batch(batches[1])
+            torch.cuda.synchronize()
+        if len(calls) != SITES_PER_FORWARD:
+            raise AssertionError(f"residual: {len(calls)} int8 sites")
+        for x, w, stride, pad, groups, got in calls:
+            if not torch.equal(got, conv_s8_reference(x, w, stride, pad,
+                                                      groups)):
+                raise AssertionError(f"residual: site {tuple(x.shape)} -> "
+                                     f"{tuple(got.shape)} differs from the "
+                                     "plain conv")
+        # -- drift from the f32 float embedder on the card
+        f32 = FacePipeline(dataclasses.replace(
+            cfg, rec_quantize=False, compute_dtype="float32"), params,
+            device=device)
+        e_f = f32.embed_cropped_batch(batches[1])
+        del f32
+        e_q = cal.pipeline.embed_cropped_batch(batches[1])
+        if not np.isfinite(e_r).all() or e_r.shape != (8, DIM):
+            raise AssertionError("residual embeddings not finite (8, 512)")
+        drift_r = float((1 - (e_r * e_f).sum(-1)).max())
+        drift_q = float((1 - (e_q * e_f).sum(-1)).max())
+        if not drift_r < max(5 * drift_q, 2e-2):
+            raise AssertionError(f"residual drift {drift_r} against "
+                                 f"calibrated {drift_q}")
+
+        # -- device ms and operations per forward, /recognize latency
+        per_forward = {}
+        for m, server in servers.items():
+            net = server.pipeline.rec_net
+            for b in CONV_BATCHES:
+                xs = [rec_normalize(torch.tensor(rng.integers(
+                    0, 256, (b, rh, rw, 3), dtype=np.uint8),
+                    device=device).float()) for _ in range(2)]
+                with torch.inference_mode():
+                    ms = cuda_ms(net, [(x,) for x in xs], REMAINDER_REPS)
+                    events = device_events(lambda: [
+                        net(xs[i % 2]) for i in range(SPLIT_REPS)])
+                busy = sum(us for _, _, us in events) / SPLIT_REPS / 1e3
+                per_forward[f"{m}_b{b}"] = {
+                    "back_to_back_ms": ms, "device_busy_ms": busy,
+                    "device_ops": len(events) / SPLIT_REPS,
+                    "conv_s8_kernels": sum("conv_s8" in e[0]
+                                           for e in events) / SPLIT_REPS,
+                    "idle_share": max(0.0, 1 - busy / ms)}
+        snaps = {}
+        for m, server in servers.items():
+            if server is cal:
+                for u in range(n):
+                    cal.db.insert_user(f"u{u:02d}", f"U{u}")
+                    cal.db.insert_face(f"u{u:02d}", f"c{u}.jpg",
+                                       cal.pipeline.embed_cropped(crops[u]))
+                cal.reload_gallery()
+            snaps[m] = server.gallery.snapshot()
+        lat = collections.defaultdict(list)
+        for m in ("residual", "calibrated", "calibrated", "residual"):
+            for b in CONV_BATCHES:
+                for _ in range(REMAINDER_REPS + 1):
+                    batch = rng.integers(0, 256, (b, rh, rw, 3), np.uint8)
+                    t0 = time.perf_counter()
+                    _, v, _ = servers[m].serving_embed(
+                        servers[m].pad_batch(list(batch)), snaps[m])
+                    v.cpu()
+                    lat[f"{m}_b{b}"].append((time.perf_counter() - t0) * 1e3)
+        # -- a residual engine pair at bucket 1, exported from this
+        #    server's pipeline (the state stays outside the programs)
+        eng_dir = os.path.join(tmp, "residual_engines")
+        t0 = time.perf_counter()
+        export_engines(res.pipeline, eng_dir, [1])
+        export_s = time.perf_counter() - t0
+    finally:
+        for s in servers.values():
+            s.close()
+    del servers, res, cal
+
+    # -- the engine pair served at bucket 1
+    metas = {p: read_meta(os.path.join(eng_dir, f"{p}.fke"))
+             for p in ("recognize", "embed")}
+    if not all(m["rec_int8_residual"] and m["rec_calibrated"]
+               for m in metas.values()):
+        raise AssertionError(f"residual engine metadata: {metas}")
+    eng_cfg = config("residual", server_batchBuckets=[1])
+    t0 = time.perf_counter()
+    server = FaceServer(eng_cfg, rec_params=params, device=device,
+                        engines_dir=eng_dir)
+    boot_s = time.perf_counter() - t0
+    try:
+        for u in range(4):
+            server.db.insert_user(f"u{u}", f"U{u}")
+            server.db.insert_face(f"u{u}", f"c{u}.jpg",
+                                  server.pipeline.embed_cropped(crops[u]))
+        server.reload_gallery()
+        frame = rng.integers(0, 256, (1, *cfg.frame_hw, 3), np.uint8)
+        runs = {}
+        for mode in ("engines", "eager"):
+            with (eager_serving(server) if mode == "eager"
+                  else contextlib.nullcontext()):
+                reset_launches()
+                replies = (server.recognize_batch([crops[2]]),
+                           server.inference_batch(list(frame)))
+                snap = server.gallery.snapshot()
+                outs = (server.serving_embed(crops[2:3], snap),
+                        server.serving_recognize(frame, snap))
+                torch.cuda.synchronize()
+                runs[mode] = (replies, launches(), outs)
+        (e_rep, e_cnt, e_out), (r_rep, r_cnt, r_out) = (runs["engines"],
+                                                        runs["eager"])
+        if e_cnt != r_cnt or e_cnt["conv_s8"] != 4 * SITES_PER_FORWARD:
+            raise AssertionError(f"residual engine launches {e_cnt} "
+                                 f"against eager {r_cnt}")
+        _same_replies(e_rep[0], r_rep[0], "residual engine /recognize")
+        _same_replies(e_rep[1], r_rep[1], "residual engine WS")
+        if e_rep[0][0]["userId"] != "u2":
+            raise AssertionError(f"residual engine: {e_rep[0]}")
+        (emb_e, (res_e, *m_e)), (emb_r, (res_r, *m_r)) = e_out, r_out
+        pairs = list(zip(emb_e, emb_r)) + list(zip(m_e, m_r)) + list(zip(
+            res_e[:4] + (res_e.crops,), res_r[:4] + (res_r.crops,)))
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError("residual engine outputs differ from eager")
+    finally:
+        server.close()
+
+    rec = {"phase": "server_remainder", "part": "int8_residual",
+           "config": "configs/throughput.json + rec_calibrationDir + "
+                     "rec_int8Residual",
+           "users": n, "batches": [len(b) for b in batches],
+           "forwards": forwards, "launches": counts,
+           "sites_bit_equal": len(calls),
+           "min_enrolled_similarity": min_sim,
+           "cos_drift_vs_f32_card": {"residual": drift_r,
+                                     "calibrated": drift_q},
+           "per_forward": per_forward,
+           "embed_match_ms": {k: statistics.median(v[1:])
+                              for k, v in lat.items()},
+           "engine": {"bucket": 1, "export_s": export_s, "boot_s": boot_s,
+                      "rec_int8_residual": True, "bit_equal": True,
+                      "launches": e_cnt}}
+    emit(rec)
+    return rec
+
+
+def _face_landmarks(rng, n, nf, hw, device, big=None):
+    """(n, nf, 5, 2) landmarks on the card: the ArcFace template rotated
+    up to 60 degrees, scaled 0.6-1.5 (3.0 for the face ``big``, an (i, j)
+    pair), placed anywhere in an (h, w) frame, with a little noise."""
+    import torch
+
+    from facekit_torch.ops.align import ARCFACE_TEMPLATE_112
+    h, w = hw
+    t = ARCFACE_TEMPLATE_112 - 56.0
+    out = np.zeros((n, nf, 5, 2), np.float32)
+    for i in range(n):
+        for j in range(nf):
+            a = np.deg2rad(rng.uniform(-60, 60))
+            r = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+            scale = 3.0 if (i, j) == big else rng.uniform(0.6, 1.5)
+            out[i, j] = (t @ r.T * scale + rng.uniform((0, 0), (w, h))
+                         + rng.normal(scale=0.7, size=(5, 2)))
+    return torch.tensor(out, device=device)
+
+
+def align_times(device, seed=15, n=8, nf=4):
+    """ms per call (CUDA events, calls back to back), and the card's busy
+    ms and operations per call from a trace, of the served alignment and
+    crop at WS bucket 8's shape (8 frames of 480x640, 4 faces each):
+    ``warp_align_frames`` with bf16 pass products, and ``crop_resize``
+    (cubic, 112x112) of the landmarks' boxes. Calls only
+    what every checkout with the alignment has, so it times an older one too
+    (``--align``)."""
+    import torch
+
+    from facekit_torch.ops.align import warp_align_frames
+    from facekit_torch.ops.resize import crop_resize
+
+    rng = np.random.default_rng(seed)
+    frames = torch.tensor(rng.integers(0, 256, (n, 480, 640, 3), np.uint8),
+                          device=device)
+    lms = _face_landmarks(rng, n, nf, (480, 640), device)
+    boxes = torch.cat([lms.amin(-2) - 20.0, lms.amax(-2) + 20.0], -1)
+    fns = {"warp_align_frames": lambda: warp_align_frames(
+               frames, lms, dtype=torch.bfloat16),
+           "crop_resize_cubic": lambda: crop_resize(
+               frames.float(), boxes, (112, 112), "cubic")}
+    out = {}
+    for name, fn in fns.items():
+        out[f"{name}_ms"] = cuda_ms(fn, [()], 20)
+        events = device_events(lambda: [fn() for _ in range(SPLIT_REPS)])
+        out[f"{name}_device_ms"] = sum(
+            us for _, _, us in events) / SPLIT_REPS / 1e3
+        out[f"{name}_device_ops"] = len(events) / SPLIT_REPS
+    return out
+
+
+def _remainder_windowed(device, seed):
+    """``warp_align_frames(slice_win=SLICE_WIN)`` on the card at N = 8
+    frames of 480x640 with F = 4 faces each: bit-identical to the full
+    path in f32 and in bf16 pass products, once with every face's window
+    fitting (the windowed path) and once with one face too large (the
+    whole batch on the full path); ms per call of each path (CUDA events
+    around calls back to back; the windowed choice syncs once a call)."""
+    import torch
+
+    from facekit_torch.ops import align as A
+
+    rng = np.random.default_rng(seed)
+    n, nf, h, w = 8, 4, 480, 640
+    frames = torch.tensor(rng.integers(0, 256, (n, h, w, 3), np.uint8),
+                          device=device)
+
+    rec = {"phase": "server_remainder", "part": "windowed_align",
+           "frames": [n, h, w], "faces": nf, "slice_win": SLICE_WIN}
+    tmpl = A._template((112, 112), device)
+    for case, oversized in (("fitting", False), ("oversized", True)):
+        lms = _face_landmarks(rng, n, nf, (h, w), device,
+                              big=(5, 2) if oversized else None)
+        boxes = A._window_box(lms, tmpl, 112, 112)
+        side = float((boxes[..., 2] - boxes[..., 0]).max())
+        if (side <= SLICE_WIN - 4) == oversized:
+            raise AssertionError(f"windowed {case}: largest side {side}")
+        for dtype in (torch.float32, torch.bfloat16):
+            full = A.warp_align_frames(frames, lms, dtype=dtype)
+            win = A.warp_align_frames(frames, lms, dtype=dtype,
+                                      slice_win=SLICE_WIN)
+            if not torch.equal(full, win):
+                raise AssertionError(
+                    f"windowed {case} {dtype}: differs from the full path "
+                    f"by up to {float((full - win).abs().max())}")
+        rec[f"{case}_largest_side"] = side
+        for tag, sw in (("full", None), ("windowed", SLICE_WIN)):
+            rec[f"{case}_{tag}_ms"] = cuda_ms(
+                lambda: A.warp_align_frames(frames, lms, dtype=torch.bfloat16,
+                                            slice_win=sw), [()], 10)
+    rec["bit_identical"] = True
+    rec["served"] = align_times(device)
+    emit(rec)
+    return rec
+
+
 def call_trace(fn, arg, top=8):
     """One call ``fn(arg)`` (after one untimed) under ``torch.profiler``:
     host ms to its device sync, the device's busy ms (kernels and
@@ -2546,8 +3124,11 @@ def main(argv) -> int:
     ``--detectors``: the conv's ``ptxas`` line and the detector paths
     alone (``server_detectors``, ``conv_s8_det_case``); ``--engines``:
     both shipped configs served from exported engines alone
-    (``server_engines``, ``dispatch_cost``). None of the six prints an
-    ``ok`` line."""
+    (``server_engines``, ``dispatch_cost``); ``--remainder``: the native
+    pixel backend, the int8-residual embedder and the windowed alignment
+    alone (``server_remainder``); ``--align``: the served alignment's and
+    crop's ms alone (``align_times``), which runs on older checkouts too.
+    None of the eight prints an ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2569,7 +3150,7 @@ def main(argv) -> int:
              "--throughput": ["conv_s8", "cosine_topk_int8"],
              "--gen": ["cosine_topk", "ir_block"],
              "--detectors": ["conv_s8", "cosine_topk", "ir_block"],
-             "--engines": None}
+             "--engines": None, "--remainder": None, "--align": []}
     mode = argv[0] if len(argv) == 1 and argv[0] in modes else None
     if argv and mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -2586,6 +3167,14 @@ def main(argv) -> int:
         return 0
     if mode == "--engines":
         phase_server_engines("cuda", repo_dir)
+        print(power, flush=True)
+        return 0
+    if mode == "--align":
+        emit({"phase": "align_times", **align_times("cuda")})
+        print(power, flush=True)
+        return 0
+    if mode == "--remainder":
+        phase_server_remainder("cuda", repo_dir)
         print(power, flush=True)
         return 0
     if mode == "--detectors":
@@ -2630,12 +3219,22 @@ def main(argv) -> int:
     detectors, det_cases = phase_server_detectors("cuda", repo_dir)
     phase_weights_gen("cuda", repo_dir, power)
     engines, dispatch = phase_server_engines("cuda", repo_dir)
-    # each kernel's launches on the engine-served paths, per config
+    native_path, residual_path, _ = phase_server_remainder("cuda", repo_dir)
+    # each kernel's launches on the engine-served paths, per config, and
+    # on server_remainder's native-pixels (both servers) and residual paths
     engine_launches = {e["config"]: e["launches"] for e in engines}
+    native_launches = native_path.get("launches")
 
     def on_engines(name):
-        return {"engine_launches": {c: n[name]
-                                    for c, n in engine_launches.items()}}
+        out = {"engine_launches": {c: n[name]
+                                   for c, n in engine_launches.items()}}
+        if name in ("cosine_topk", "ir_block"):
+            out["native_pixels_launches"] = (
+                None if native_launches is None else
+                {hp: n[name] for hp, n in native_launches.items()})
+        else:
+            out["residual_launches"] = residual_path["launches"][name]
+        return out
 
     main_case = next(t for t in timings if t["dtype"] == "bfloat16"
                      and t["B"] == 8 and t["k"] == 1)

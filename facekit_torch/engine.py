@@ -68,15 +68,17 @@ def state_signature(state: Dict[str, torch.Tensor]) -> List[List[Any]]:
 
 
 def _quant_meta(pipeline) -> Dict[str, Any]:
-    """Quantization state for the metadata (``facekit/engine.py:52-66``).
-    A calibrated int8 embedder holds an ``ascale`` per site that a dynamic
-    one lacks (its state signature differs too); the int8-residual mode is
-    not ported, so it is always False."""
+    """Quantization state for the metadata (``facekit/engine.py:52-66``),
+    from the embedder's form: a calibrated int8 embedder ("static", or
+    "residual" with its s8 block outputs) holds an ``ascale`` per site
+    that a dynamic one lacks, a residual one an ``oscale`` per block too
+    (their state signatures differ as well)."""
     cfg = pipeline.config
     quantized = bool(cfg.rec_quantize)
+    form = pipeline.rec_net.int8
     return {"rec_quantize": quantized,
-            "rec_calibrated": quantized and pipeline.rec_net.int8 == "static",
-            "rec_int8_residual": False,
+            "rec_calibrated": quantized and form in ("static", "residual"),
+            "rec_int8_residual": quantized and form == "residual",
             "det_quantize": bool(cfg.det_quantize)}
 
 
@@ -370,8 +372,8 @@ def main(argv=None) -> None:
 
     from facekit_torch.config import load_config
     from facekit_torch.pipeline import FacePipeline
-    from facekit_torch.server.app import (_Cv2Pixels, calibrate_from_config,
-                                          model_params)
+    from facekit_torch.server.app import (calibrate_from_config,
+                                          host_pixels, model_params)
 
     ap = argparse.ArgumentParser(
         "facekit_torch.engine", description="export serving engines")
@@ -407,7 +409,7 @@ def main(argv=None) -> None:
                         device=resolve_device(args.device))
     # the calibration the server applies for this config: an engine must
     # embed with the scales the server serves with
-    calibrated = calibrate_from_config(pipe, cfg, _Cv2Pixels())
+    calibrated = calibrate_from_config(pipe, cfg, host_pixels(cfg))
     if cfg.extras.get("rec_calibrationDir") and cfg.rec_quantize \
             and not calibrated:
         raise SystemExit(

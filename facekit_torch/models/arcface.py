@@ -20,8 +20,16 @@ stem, ``conv1``, ``conv2`` and the shortcut conv of every block) holds a
 ``layers.conv2d_int8``; BN, PReLU, SE and the head stay float. Without
 ``ascale`` the activation scales are dynamic, per sample; calibration
 (``calibrate_arcface_int8``) folds each site's activation maxima over f32
-forwards of the float model and fixes them. The int8-residual mode
-(``:126-158``) is not ported.
+forwards of the float model and fixes them.
+
+The int8-residual form (``:121-158``, ``int8="residual"``, calibrated
+only): the activation between blocks stays s8 with one calibrated f32
+scale per block output (``oscale`` on the stem and on every block). A
+block dequantizes its s8 input to the compute dtype, runs op by op with
+every conv through ``conv2d_int8``, adds the shortcut and quantizes the
+sum with its ``oscale``; one dequantization follows the last block. Its
+numerics differ from the calibrated form by that one extra 127-level
+quantization per block.
 """
 
 from __future__ import annotations
@@ -65,12 +73,28 @@ def _weight(*shape) -> nn.Parameter:
 QConv = L.QConv
 
 
+INT8_FORMS = (None, "dynamic", "static", "residual")
+
+
 def _conv_site(o: int, i: int, k: int, int8: Optional[str]):
-    """A float OIHW weight, or a ``QConv`` for ``int8`` "dynamic" or
-    "static" (calibrated)."""
+    """A float OIHW weight, or a ``QConv`` for ``int8`` "dynamic", or
+    "static" / "residual" (calibrated)."""
     if int8 is None:
         return _weight(o, i, k, k)
-    return QConv(o, i, k, calibrated=int8 == "static")
+    return QConv(o, i, k, calibrated=int8 in ("static", "residual"))
+
+
+def _oscale(module: nn.Module, int8: Optional[str]) -> None:
+    """The residual form's f32 scale of ``module``'s output."""
+    module.register_buffer("oscale",
+                           torch.ones(()) if int8 == "residual" else None)
+
+
+def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """s8 of ``x`` at ``scale``: clamp(round(x / scale), -127, 127), the
+    division in f32 and round half to even (``arcface.py:121-123``)."""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(
+        torch.int8)
 
 
 def _conv(x, w, stride: int, padding: int, stats=None, name: str = ""):
@@ -91,6 +115,7 @@ class _Stem(nn.Module):
         self.conv = _conv_site(64, 3, 3, int8)
         self.bn = BatchNorm(64)
         self.prelu = _weight(64)
+        _oscale(self, int8)
 
     def forward(self, x, stats=None):
         x = _conv(x, self.conv, stride=1, padding=1, stats=stats,
@@ -137,6 +162,7 @@ class IRBlock(nn.Module):
         self.shortcut = (_Shortcut(in_c, depth, int8) if in_c != depth
                          else None)
         self.se = _SE(depth) if se else None
+        _oscale(self, int8)
 
     def fusable(self) -> bool:
         """A float block of the form ``ops.ir_block`` computes: stride 1,
@@ -173,6 +199,13 @@ class IRBlock(nn.Module):
             stats[f"{prefix}.out"] = out.float().abs().amax()
         return out
 
+    def forward_q8(self, xq: torch.Tensor, xs: torch.Tensor,
+                   dtype: torch.dtype):
+        """The residual form's block (``arcface.py:126-158``): s8 input
+        ``xq`` at scale ``xs`` -> (s8 output, its scale ``oscale``)."""
+        x = (xq.float() * xs).to(dtype)
+        return quantize_act(self.composed(x), self.oscale), self.oscale
+
 
 class _Linear(nn.Module):
     def __init__(self, out_f: int, in_f: int):
@@ -202,14 +235,15 @@ class _Head(nn.Module):
 class ArcFace(nn.Module):
     """(N, H, W, 3) normalized RGB -> (N, embed_dim) L2-normalized f32.
 
-    ``int8``: None (float), "dynamic" or "static" (calibrated activation
-    scales): which form the conv sites take."""
+    ``int8``: None (float), "dynamic", "static" (calibrated activation
+    scales) or "residual" (calibrated, s8 between blocks): which form the
+    conv sites and the blocks take."""
 
     def __init__(self, network: str = "ir_50", input_size: int = 112,
                  embed_dim: int = 512, int8: Optional[str] = None):
         super().__init__()
-        if int8 not in (None, "dynamic", "static"):
-            raise ValueError(f"int8={int8!r}: None, 'dynamic' or 'static'")
+        if int8 not in INT8_FORMS:
+            raise ValueError(f"int8={int8!r}: one of {INT8_FORMS}")
         self.network = network
         self.input_size = input_size
         self.embed_dim = embed_dim
@@ -238,8 +272,16 @@ class ArcFace(nn.Module):
         """``stats``: a dict to record each site's activation amax in (the
         calibration forward, ``arcface_act_amax``)."""
         x = self.input(x.to(self.compute_dtype), stats)
-        for i, blk in enumerate(self.blocks):
-            x = blk(x, stats, prefix=f"b{i}")
+        if self.int8 == "residual":
+            # s8 between blocks; one dequantization after the last
+            # (arcface.py:276-285)
+            xq, xs = quantize_act(x, self.input.oscale), self.input.oscale
+            for blk in self.blocks:
+                xq, xs = blk.forward_q8(xq, xs, self.compute_dtype)
+            x = (xq.float() * xs).to(self.compute_dtype)
+        else:
+            for i, blk in enumerate(self.blocks):
+                x = blk(x, stats, prefix=f"b{i}")
         return self.output(x)
 
 
@@ -255,29 +297,44 @@ def _sites(net: ArcFace):
 
 
 def quantize_arcface(net: ArcFace,
-                     act_amax: Optional[Dict[str, float]] = None) -> ArcFace:
+                     act_amax: Optional[Dict[str, float]] = None,
+                     int8_residual: bool = False) -> ArcFace:
     """Post-training int8 quantization of a float f32 ``net``, the port of
-    ``quantize_arcface_params`` without ``int8_residual``: every conv
-    site's weight per output channel (``layers.quantize_conv_weight``);
-    with ``act_amax`` (per-site activation maxima) each site also gets the
-    static activation scale ``float32(max(amax, 1e-12) / 127)``, the
-    division taken in Python floats and rounded to f32 once, as facekit
-    does (``arcface.py:194-204``). Returns a new module on ``net``'s
-    device in f32; ``net`` is left as it is."""
+    ``quantize_arcface_params``: every conv site's weight per output
+    channel (``layers.quantize_conv_weight``); with ``act_amax`` (per-site
+    activation maxima) each site also gets the static activation scale
+    ``float32(max(amax, 1e-12) / 127)``, the division taken in Python
+    floats and rounded to f32 once, as facekit does (``arcface.py:
+    194-204``). ``int8_residual`` (needs ``act_amax``) adds the same scale
+    of the block outputs, "stem.out" and "b{i}.out", as ``oscale`` on the
+    stem and on each block: the residual form. Returns a new module on
+    ``net``'s device in f32; ``net`` is left as it is."""
     if net.int8 is not None or net.compute_dtype != torch.float32:
         raise ValueError("quantize_arcface takes a float f32 ArcFace")
+    if int8_residual and act_amax is None:
+        raise ValueError("int8_residual requires calibrated act_amax "
+                         "(block-output scales have no dynamic mode)")
     state = net.state_dict()
     dev = state["input.conv"].device
+
+    def scale_of(name):
+        return torch.tensor(
+            np.float32(max(float(act_amax[name]), 1e-12) / 127.0),
+            device=dev)
+
     for name, key in _sites(net):
         q, scale = L.quantize_conv_weight(state.pop(key))
         state[f"{key}.q"] = q
         state[f"{key}.scale"] = scale
         if act_amax is not None:
-            state[f"{key}.ascale"] = torch.tensor(
-                np.float32(max(float(act_amax[name]), 1e-12) / 127.0),
-                device=dev)
-    out = ArcFace(net.network, net.input_size, net.embed_dim,
-                  int8="dynamic" if act_amax is None else "static")
+            state[f"{key}.ascale"] = scale_of(name)
+    if int8_residual:
+        state["input.oscale"] = scale_of("stem.out")
+        for i in range(len(net.blocks)):
+            state[f"blocks.{i}.oscale"] = scale_of(f"b{i}.out")
+    form = ("residual" if int8_residual else
+            "dynamic" if act_amax is None else "static")
+    out = ArcFace(net.network, net.input_size, net.embed_dim, int8=form)
     out.load_state_dict(state)
     return out.to(dev).eval()
 
@@ -298,11 +355,13 @@ def arcface_act_amax(net: ArcFace, x: torch.Tensor) -> Dict[str, float]:
 
 
 def calibrate_arcface_int8(net: ArcFace, batches: Iterable[torch.Tensor],
-                           headroom: float = 1.0) -> ArcFace:
+                           headroom: float = 1.0,
+                           int8_residual: bool = False) -> ArcFace:
     """Post-training calibration (``arcface.py:322-347``): fold each site's
     activation maxima over f32 forwards of the float ``net`` on the given
     normalized-RGB batches, then quantize with static activation scales
-    from amax * headroom (in Python floats)."""
+    from amax * headroom (in Python floats); with ``int8_residual``, into
+    the residual form."""
     agg: Dict[str, float] = {}
     n = 0
     for x in batches:
@@ -311,4 +370,5 @@ def calibrate_arcface_int8(net: ArcFace, batches: Iterable[torch.Tensor],
         n += 1
     if n == 0:
         raise ValueError("calibration needs at least one batch")
-    return quantize_arcface(net, {k: v * headroom for k, v in agg.items()})
+    return quantize_arcface(net, {k: v * headroom for k, v in agg.items()},
+                            int8_residual=int8_residual)

@@ -12,9 +12,9 @@ with f32 accumulation, as facekit's ``preferred_element_type``.
 
 Functions are batched over leading dims where facekit vmaps.
 ``warp_align_gather`` is facekit's per-pixel gather formulation, kept as
-a public op; serving uses the shear passes. facekit's windowed
-``slice_win`` option (a measured negative that serving does not use) is
-not ported (ROADMAP.md Queue 1).
+a public op; serving uses the shear passes. ``warp_align_frames``'s
+``slice_win`` (facekit's windowed crop, which serving does not use) cuts
+each face's window from the uint8 frame before the crop.
 """
 
 from __future__ import annotations
@@ -182,23 +182,57 @@ def _shear_passes(win, lm, box, template, c_win, oh, ow, dtype):
     return ot.transpose(1, 2)                                # (F,oh,ow,3)
 
 
+def _window_crops(frames: torch.Tensor, boxes: torch.Tensor, s: int,
+                  c_win: int) -> torch.Tensor:
+    """Each face's S x S window cut from the uint8 frames at the clamped
+    integer origin floor(box) - 1, then ``crop_resize`` with that origin:
+    (N, F, c_win, c_win, 3), bit-identical to the full frame's crop when
+    every window holds its box (``facekit/ops/align.py:320-341``)."""
+    n, h, w, _ = frames.shape
+    dev = frames.device
+    ox = torch.clamp(torch.floor(boxes[..., 0]) - 1, 0, w - s).long()
+    oy = torch.clamp(torch.floor(boxes[..., 1]) - 1, 0, h - s).long()
+    span = torch.arange(s, device=dev)
+    rows = (oy[..., None] + span)[..., :, None]              # (N, F, S, 1)
+    cols = (ox[..., None] + span)[..., None, :]              # (N, F, 1, S)
+    nidx = torch.arange(n, device=dev)[:, None, None, None]
+    wins = frames[nidx, rows, cols]                          # (N,F,S,S,3)
+    return crop_resize(wins.float(), boxes, (c_win, c_win), "linear",
+                       saturate=False, origins=torch.stack([ox, oy], -1))
+
+
 def warp_align_frames(frames: torch.Tensor, landmarks: torch.Tensor,
                       out_hw: Tuple[int, int] = (112, 112),
                       window: Optional[int] = None,
-                      dtype=torch.float32) -> torch.Tensor:
+                      dtype=torch.float32,
+                      slice_win: Optional[int] = None) -> torch.Tensor:
     """Batched alignment: frames (N, H, W, 3) (uint8 or float) and
     landmarks (N, F, 5, 2) -> (N, F, oh, ow, 3) f32 (facekit's
-    ``warp_align_frames`` with ``slice_win=None``). ``dtype`` is the
-    precision of the two pass products only; positions and weights are
-    built in f32 and the products accumulate in f32."""
+    ``warp_align_frames``, ``facekit/ops/align.py:273-354``). ``dtype``
+    is the precision of the two pass products only; positions and weights
+    are built in f32 and the products accumulate in f32.
+
+    ``slice_win=S`` (pass the uint8 frames): when every face's window box
+    has a side of at most S - 4, each face's S x S window is cut from the
+    frame and cropped with an integer tap shift, which is bit-identical to
+    the full-frame path; one larger face anywhere sends the whole batch
+    down the full-frame path. The choice costs one host sync (facekit
+    branches on the device with ``lax.cond``). The served path never takes
+    this option."""
     oh, ow = out_hw
     c_win = window or _default_window(out_hw)
     n, nf = landmarks.shape[:2]
+    h, w = frames.shape[1:3]
     template = _template(out_hw, frames.device)
     lms = landmarks.float()
     boxes = _window_box(lms, template, oh, ow)               # (N, F, 4)
-    wins = crop_resize(frames.float(), boxes, (c_win, c_win), "linear",
-                       saturate=False)                       # (N,F,C,C,3)
+    s = slice_win
+    if (s is not None and s < max(h, w) and s <= h and s <= w
+            and bool(((boxes[..., 2] - boxes[..., 0]) <= s - 4).all())):
+        wins = _window_crops(frames, boxes, s, c_win)
+    else:
+        wins = crop_resize(frames.float(), boxes, (c_win, c_win), "linear",
+                           saturate=False)                   # (N,F,C,C,3)
     out = _shear_passes(wins.reshape(n * nf, c_win, c_win, 3),
                         lms.reshape(n * nf, 5, 2), boxes.reshape(n * nf, 4),
                         template, c_win, oh, ow, dtype)

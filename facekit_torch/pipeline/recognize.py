@@ -150,14 +150,18 @@ class FacePipeline:
         normalized as the serving path normalizes them; the float f32
         embedder runs on them on the device, each site's activation maxima
         are folded over all batches, and the int8 embedder is rebuilt with
-        static scales (``facekit/pipeline/recognize.py:390-416``).
+        static scales (``facekit/pipeline/recognize.py:390-416``), in the
+        int8-residual form with ``extras.rec_int8Residual``.
         """
         if not self.config.rec_quantize:
             raise ValueError("calibrate_embedder requires rec_quantize")
         float_net = copy.deepcopy(self._rec_net_float).to(self.device)
         batches = (rec_normalize(_own_frames(b, self.device).float())
                    for b in crop_batches)
-        net = calibrate_arcface_int8(float_net, batches, headroom=headroom)
+        net = calibrate_arcface_int8(
+            float_net, batches, headroom=headroom,
+            int8_residual=bool(self.config.extras.get("rec_int8Residual",
+                                                      False)))
         del float_net
         self._serve(net)
 

@@ -28,11 +28,15 @@ With ``--engines DIR`` (``extras.server_enginesDir``) WS ``/inference``
 and ``/recognize`` run the exported engines of ``facekit_torch.engine``
 and then the gallery match; enrollment stays eager.
 
-Host pixel work uses OpenCV. A config that needs a part not ported yet is
-refused at startup (``refuse_unported``). With ``rec_quantize`` the server
-calibrates the int8 embedder from ``extras.rec_calibrationDir`` at startup
-(``calibrate_from_config``). Device work runs on one executor thread; the
-kernels launch on the device's current stream.
+Host pixel work (decode, resize, the reply's JPEG) uses OpenCV, or the
+port's native C++ runtime (``facekit_torch.native``) when cv2 is missing
+or ``extras.server_hostOps`` is "native" (``host_pixels``). A config that
+needs a part not ported yet is refused at startup (``refuse_unported``).
+With ``rec_quantize`` the server calibrates the int8 embedder from
+``extras.rec_calibrationDir`` at startup (``calibrate_from_config``),
+with ``extras.rec_int8Residual`` into the int8-residual embedder. Device
+work runs on one executor thread; the kernels launch on the device's
+current stream.
 """
 
 from __future__ import annotations
@@ -101,22 +105,74 @@ class _Cv2Pixels:
         return buf.tobytes() if ok else None
 
 
+class _NativePixels:
+    """Host pixel backend over the port's native runtime (libjpeg and the
+    native resize, ``facekit/server/app.py:84-120``). JPEG decode is
+    bit-identical to cv2's (the same libjpeg family), resize within 1 LSB.
+    A JPEG-only codec: other formats decode to None, the contract's
+    failure path."""
+
+    name = "native"
+
+    def __init__(self):
+        from facekit_torch import native
+        if not native.available():
+            raise RuntimeError("native host backend unavailable: "
+                               f"{native.build_error()}")
+        self.native = native
+
+    def decode(self, data: bytes, resize_wh=None):
+        return self.native.decode_jpeg_bgr(data, resize_wh)
+
+    def imread(self, path: str, resize_wh=None):
+        try:
+            with open(path, "rb") as f:
+                return self.decode(f.read(), resize_wh)
+        except OSError:
+            return None
+
+    def resize(self, img, wh):
+        w, h = wh
+        return self.native.resize_u8(
+            np.ascontiguousarray(img, np.uint8), (h, w), "linear",
+            saturate=True).astype(np.uint8)
+
+    def encode_jpg(self, img) -> Optional[bytes]:
+        return self.native.encode_jpeg_bgr(
+            np.clip(np.asarray(img), 0, 255).astype(np.uint8))
+
+
+def host_pixels(config):
+    """The host pixel backend of ``config`` (``facekit/server/app.py:
+    123-139``): cv2 when importable, the native runtime when cv2 is
+    missing or when forced with ``extras.server_hostOps: "native"``. A
+    native backend that cannot be built raises."""
+    if config.extras.get("server_hostOps") != "native":
+        try:
+            return _Cv2Pixels()
+        except ImportError:
+            # loud: the native backend decodes JPEG only, so PNG frames
+            # and enrollment files would fail like corrupt input
+            log.warning("cv2 not importable; host pixel work falls back "
+                        "to the native backend (decodes JPEG only: PNG "
+                        "inputs will decode as None)")
+    return _NativePixels()
+
+
 def refuse_unported(config) -> None:
-    """Raise for a config that needs a part the port does not have yet."""
+    """Raise for a config that needs a part the port does not have: a
+    mesh (multi-GPU serving, not ported yet) or a live profiler server
+    (none in torch: ``facekit_torch.utils.profile_trace`` writes a
+    trace instead)."""
     reasons = []
-    if config.extras.get("rec_int8Residual"):
-        reasons.append("rec_int8Residual (s8-resident block outputs) is not "
-                       "ported yet (ROADMAP.md Queue 1, int8 remainder)")
     if config.mesh_shape:
         reasons.append("mesh_shape needs multi-GPU serving, with or without "
                        "server_enginesDir (identify engines; ROADMAP.md "
                        "Queue 1, parallel)")
-    if config.extras.get("server_hostOps", "cv2") != "cv2":
-        reasons.append("server_hostOps other than cv2 needs the native host "
-                       "ops (ROADMAP.md Queue 1, server remainder)")
     if config.extras.get("profiler_port"):
-        reasons.append("profiler_port (a live profiler server) is not ported "
-                       "yet (ROADMAP.md Queue 1, server remainder)")
+        reasons.append("profiler_port (a live profiler server) is not ported: "
+                       "torch has no attachable profiler server; "
+                       "facekit_torch.utils.profile_trace writes a trace")
     if reasons:
         raise ValueError("config needs parts facekit_torch has not ported "
                          "yet: " + "; ".join(reasons))
@@ -195,9 +251,19 @@ def calibrate_from_config(pipeline, config, pixels) -> bool:
     and ``rec_calibrationHeadroom``, default 1.25) to ``pipeline``
     (``facekit/server/app.py:168-204``). Returns True if calibrated; a
     missing or empty folder degrades to dynamic scales with a warning
-    rather than refusing to start."""
+    rather than refusing to start, except with ``extras.rec_int8Residual``,
+    which has no dynamic mode: then a missing calibration raises."""
     calib_dir = config.extras.get("rec_calibrationDir")
+    residual = bool(config.extras.get("rec_int8Residual", False))
     if not (calib_dir and config.rec_quantize):
+        if residual:
+            # the flag is read only by the calibration: without one the
+            # server would serve dynamic int8 while the operator believes
+            # residual mode is on
+            raise ValueError(
+                "rec_int8Residual requires rec_quantize AND "
+                "rec_calibrationDir (s8-resident residuals need "
+                "calibrated per-block output scales)")
         return False
     headroom = float(config.extras.get("rec_calibrationHeadroom",
                                        CALIBRATION_HEADROOM))
@@ -206,6 +272,8 @@ def calibrate_from_config(pipeline, config, pixels) -> bool:
             _load_calibration_crops(calib_dir, config.rec_hw, pixels),
             headroom=headroom)
     except (OSError, ValueError) as e:
+        if residual:    # degrading would silently drop residual mode
+            raise
         log.warning("int8 calibration skipped (%s); "
                     "using dynamic activation scales", e)
         return False
@@ -230,7 +298,7 @@ class FaceServer:
         refuse_unported(config)
         self.config = config
         self.device = resolve_device(device)
-        self.pixels = _Cv2Pixels()
+        self.pixels = host_pixels(config)
         rec_params, det_params = model_params(config, rec_params, det_params)
         self.pipeline = FacePipeline(config, rec_params, det_params,
                                      device=self.device)

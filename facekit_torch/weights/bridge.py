@@ -16,7 +16,8 @@ flatten plus one layout change:
     ``calibrate_arcface_int8``, ``quantize_detector_params``) has ``{"q",
     "scale"[, "ascale"]}`` leaves at its conv sites: ``q`` goes to int8
     OIHW without passing through a float, ``scale`` and ``ascale`` stay
-    f32, bit for bit;
+    f32, bit for bit, as do the ``oscale`` leaves of an int8-residual
+    tree (``input.oscale``, ``blocks.<i>.oscale``);
   * a ``None`` leaf (RFB's ``dw[6]``, where its block sits) has no
     parameters and is skipped.
 """
@@ -53,7 +54,8 @@ def from_jax(params, network: torch.nn.Module) -> Dict[str, torch.Tensor]:
     Every key of the network must be supplied, every supplied key must be
     used, and shapes and dtypes (int8 or float) must match; anything else
     raises. A quantized tree needs an ``ArcFace(int8=...)`` of the same
-    form: "static" where its sites carry ``ascale``, else "dynamic".
+    form: "residual" where the stem and blocks carry ``oscale``, "static"
+    where only its sites carry ``ascale``, else "dynamic".
     """
     flat: Dict[str, np.ndarray] = {}
     _flatten(params, "", flat)

@@ -265,11 +265,24 @@ def test_gen_config_is_no_longer_refused(tmp_path):
     FaceServer(cfg, warmup=False, device="cpu").close()
 
 
-@pytest.mark.parametrize("override", [{"extras": {"rec_int8Residual": True}},
-                                      {"extras": {"profiler_port": 9999}}])
+@pytest.mark.parametrize("override", [{"extras": {"profiler_port": 9999}}])
 def test_gen_does_not_lift_other_refusals(override, tmp_path):
     cfg = dataclasses.replace(FaceKitConfig(
         database_path=str(tmp_path / "x.db"), gen=True, **_COMMON),
         **override)
     with pytest.raises(ValueError, match="not ported"):
+        FaceServer(cfg, warmup=False, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"extras": {"rec_int8Residual": True}},
+    {"rec_quantize": True, "extras": {"rec_int8Residual": True}}])
+def test_gen_refuses_uncalibrated_int8_residual(override, tmp_path):
+    """facekit's refusal of residual mode without calibration holds in gen
+    mode too: it would enroll with dynamic int8 embeddings."""
+    cfg = dataclasses.replace(FaceKitConfig(
+        database_path=str(tmp_path / "x.db"), gen=True, **_COMMON),
+        **override)
+    with pytest.raises(ValueError, match="rec_int8Residual requires "
+                       "rec_quantize AND rec_calibrationDir"):
         FaceServer(cfg, warmup=False, device="cpu")

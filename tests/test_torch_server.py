@@ -199,20 +199,92 @@ def test_recognize_batch_pads_to_buckets(servers):
 
 
 @pytest.mark.parametrize("override", [
-    {"extras": {"rec_int8Residual": True}},
     {"mesh_shape": {"gallery": 4}},
     {"mesh_shape": {"data": 2}},
     # engines alone serve since they were ported; with a mesh (identify
     # engines) they are still refused
     {"mesh_shape": {"gallery": 4},
      "extras": {"server_enginesDir": "/tmp/engines"}},
-    {"extras": {"server_hostOps": "native"}},
     {"extras": {"profiler_port": 9999}}])
 def test_unported_configs_are_refused(override, tmp_path):
     cfg = FaceKitConfig(database_path=str(tmp_path / "x.db"), **_COMMON)
     cfg = dataclasses.replace(cfg, **override)
     with pytest.raises(ValueError, match="not ported"):
         FaceServer(cfg, warmup=False, device="cpu")
+
+
+# facekit's refusal (facekit/server/app.py:177-188): the residual flag is
+# read by the calibration only, so without one it would be ignored
+_RESIDUAL_REFUSAL = "rec_int8Residual requires rec_quantize AND " \
+    "rec_calibrationDir"
+
+
+@pytest.mark.parametrize("override", [
+    {"extras": {"rec_int8Residual": True}},
+    {"rec_quantize": True, "extras": {"rec_int8Residual": True}},
+    {"rec_quantize": False, "extras": {"rec_int8Residual": True,
+                                       "rec_calibrationDir": "/tmp"}}])
+def test_int8_residual_without_calibration_is_refused(override, tmp_path):
+    cfg = dataclasses.replace(FaceKitConfig(
+        database_path=str(tmp_path / "x.db"), **_COMMON), **override)
+    with pytest.raises(ValueError, match=_RESIDUAL_REFUSAL):
+        FaceServer(cfg, warmup=False, device="cpu")
+    with pytest.raises(ValueError, match=_RESIDUAL_REFUSAL):
+        JaxServer(JaxConfig(database_path=str(tmp_path / "j.db"),
+                            **{**_COMMON, **override}), warmup=False)
+
+
+def test_native_host_ops_config_starts(tmp_path):
+    """``server_hostOps: "native"`` serves on the port's own native
+    runtime (tests/test_torch_native.py holds it to the cv2 server)."""
+    cfg = FaceKitConfig(database_path=str(tmp_path / "x.db"),
+                        extras={"server_hostOps": "native"}, **_COMMON)
+    server = FaceServer(cfg, warmup=True, device="cpu")
+    try:
+        assert server.pixels.name == "native"
+        crop = cv2.imencode(".jpg", np.full((112, 112, 3), 77, np.uint8))[1]
+        assert server.pixels.decode(crop.tobytes()).shape == (112, 112, 3)
+    finally:
+        server.close()
+
+
+def test_int8_residual_server_serves(tmp_path):
+    """``rec_quantize`` + ``rec_calibrationDir`` + ``rec_int8Residual``:
+    the server calibrates into the residual embedder and recognizes an
+    enrolled crop; a calibration folder with no image refuses to start
+    instead of degrading to dynamic scales, as facekit's does."""
+    rng = np.random.default_rng(12)
+    folder = tmp_path / "crops"
+    folder.mkdir()
+    crops = rng.integers(0, 256, (4, 112, 112, 3), dtype=np.uint8)
+    for i, c in enumerate(crops):
+        _jpg(folder / f"c{i}.jpg", c)
+    cfg = FaceKitConfig(database_path=str(tmp_path / "r.db"),
+                        **dict(_INT8, extras={
+                            "rec_calibrationDir": str(folder),
+                            "rec_int8Residual": True}))
+    server = FaceServer(cfg, rec_params=random_arcface_params("ir_tiny",
+                                                              seed=7),
+                        warmup=True, device="cpu")
+    try:
+        assert server.calibrated and server.pipeline.rec_net.int8 == \
+            "residual"
+        for i, c in enumerate(crops):
+            server.db.insert_user(f"u{i}", f"U{i}")
+            server.db.insert_face(f"u{i}", f"c{i}.jpg",
+                                  server.pipeline.embed_cropped(c))
+        server.reload_gallery()
+        out = server.recognize_batch([crops[2], crops[0]])
+        assert [o["userId"] for o in out] == ["u2", "u0"]
+        assert min(o["similarity"] for o in out) > 0.99
+    finally:
+        server.close()
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    bad = dataclasses.replace(cfg, extras={"rec_calibrationDir": str(empty),
+                                           "rec_int8Residual": True})
+    with pytest.raises(ValueError, match="no readable calibration images"):
+        FaceServer(bad, warmup=False, device="cpu")
 
 
 @pytest.mark.parametrize("override", [{"rec_quantize": True},
