@@ -46,7 +46,15 @@ build's message); configs/throughput.json calibrated with
 conv, its drift from the f32 embedder against calibrated int8's, device
 ms and operations per forward and ``/recognize`` latency of both, and a
 residual engine pair served at bucket 1, bit-equal to eager; and
-``warp_align_frames(slice_win=320)`` bit-identical to the full path.
+``warp_align_frames(slice_win=320)`` bit-identical to the full path;
+then ``train``: IR-50 trained at batch 64 on synthetic identities by the
+port's ``train_state_init`` / ``make_train_step`` in bf16 and in f32
+(TF32 off), each with and without ``remat`` (losses, step ms by CUDA
+events, peak memory, every leaf with a gradient, no kernel launched by a
+step), the trained state through ``save_checkpoint`` and ``python -m
+facekit_torch.weights train-checkpoint`` into a configs/default.json
+server that recognizes held-out samples, and a server with
+``rec_outputDim: 256`` (the searches at D = 256).
 Each path runs with every kernel's launch
 count set to 0 just before it and read just after. Prints one
 JSON line per phase, the ``kernels`` line, the card's name and power
@@ -62,7 +70,8 @@ call); ``--gen`` the build of the two kernels it runs and
 ``weights_gen`` alone; ``--detectors`` the build of the three kernels
 it runs, the conv's ``ptxas`` line and ``server_detectors`` alone;
 ``--engines`` the build and ``server_engines`` alone; ``--remainder``
-the build and ``server_remainder`` alone. ``weights_gen``,
+the build and ``server_remainder`` alone; ``--train`` the build of the
+two kernels it serves with and ``train`` alone. ``weights_gen``,
 ``server_detectors`` and ``server_remainder`` serve through aiohttp.
 """
 
@@ -130,6 +139,17 @@ IR_BLOCK_F32_ATOL = 1e-4     # f32 sums over 9*C terms in another order
 IR_BLOCK_BF16_PAST = 1e-5    # share of bf16 outputs allowed past two steps
 DET_ATOL = {"loc": 1e-2, "conf": 2e-3, "ldm": 1e-2}  # bf16 vs f32 detector
 CROP_ATOL = 2.0              # aligned crops, 0..255 scale (bf16 passes)
+
+
+# the train phase: IR-50 at batch 64, one synthetic identity a sample
+TRAIN_BATCH = 64
+TRAIN_STEPS = 6          # steps on one fixed batch, the first a warm-up
+TRAIN_REMAT_STEPS = 3
+# facekit's round-trip test trains ir_tiny at 3e-3; IR-50 (BN in
+# inference form, a trained leaf like any other) rose from its first step
+# there, and at 1e-4 fell at each of 5 steps (the port on the CPU, batch 8)
+TRAIN_LR = 1e-4
+TRAIN_QUERIES = 2        # held-out samples per identity, recognized
 
 
 def _wrappers():
@@ -512,6 +532,252 @@ def f64_err(g, q, vals, idx):
     ``q`` with the rows ``idx`` of ``g`` that they claim."""
     exact = (q.double()[:, None, :] * g[idx.long()].double()).sum(-1)
     return float((vals.double() - exact).abs().max())
+
+
+def synthetic_faces(rng, n_ids, hw):
+    """``sample(k)``: identity k's base face (uniform in [40, 215)) plus
+    N(0, 12) noise, as uint8 BGR crops (tests/test_train_to_serve.py)."""
+    base = rng.uniform(40, 215, size=(n_ids, *hw, 3))
+
+    def sample(k):
+        return np.clip(base[k] + rng.normal(0, 12, base[k].shape), 0,
+                       255).astype(np.uint8)
+    return sample
+
+
+def _train_run(state0, x, labels, network, dtype, remat, steps):
+    """``steps`` steps of ``make_train_step`` from ``state0`` on one batch:
+    (record, final state, state after the first step)."""
+    import torch
+
+    from facekit_torch.train import make_train_step
+    step = make_train_step(network, lr=TRAIN_LR, remat=remat,
+                           compute_dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, first, losses, events, host = state0, None, [], [], []
+    for i in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        state, loss = step(state, x, labels)
+        ev[1].record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        events.append(ev)
+        if i == 0:
+            first = state
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    # step 0 is the warm-up (cuDNN's algorithm search, first allocations)
+    ms = [a.elapsed_time(b) for a, b in events[1:]]
+    rec = {"dtype": str(dtype).split(".")[-1], "remat": remat,
+           "losses": losses, "step_ms": statistics.median(ms),
+           "step_ms_all": ms, "host_issue_ms": statistics.median(host[1:]),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "peak_mem_above_state_bytes":
+               torch.cuda.max_memory_allocated() - base}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train {rec['dtype']} remat={remat}: "
+                             f"losses {losses}")
+    if not remat:
+        # one more step under torch.profiler: the card's busy ms against
+        # the host's, and where the host's time goes
+        trace = call_trace(lambda s: step(s, x, labels), state)
+        trace["idle_share"] = 1 - trace["device_busy_ms"] / trace["host_ms"]
+        rec["trace"] = trace
+    return rec, state, first
+
+
+def phase_train(device, repo_dir, power, seed=16, network="ir_50",
+                batch=TRAIN_BATCH, steps=TRAIN_STEPS):
+    """The port's training on the card at the full width of IR-50
+    (112x112, 512-d): ``train_state_init`` and ``make_train_step`` on one
+    fixed batch of ``batch`` synthetic identities, ``steps`` steps in bf16
+    and in f32 (TF32 off), each again with ``remat=True``: losses, step
+    ms by CUDA events after one warm-up step, peak memory; every leaf's
+    gradient non-zero, the masters f32, no kernel launched by a step.
+    Then the round trip: ``save_checkpoint`` -> ``python -m
+    facekit_torch.weights train-checkpoint`` -> a configs/default.json
+    server with that ``rec_weights`` enrolls one sample per identity and
+    recognizes held-out ones (accuracy, launches). Last, a server with
+    ``rec_outputDim: 256`` (searches at D = 256 through zero padding)."""
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.train import train_state_init
+    from facekit_torch.train.checkpoint import (latest_step_dir,
+                                                save_checkpoint)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    cfg = load_config(os.path.join(repo_dir, "configs", "default.json"))
+    cfg = dataclasses.replace(cfg, rec_network=network)
+    hw = tuple(cfg.rec_hw)
+    sample = synthetic_faces(rng, batch, hw)
+    crops = np.stack([sample(k) for k in range(batch)])
+    labels = np.arange(batch, dtype=np.int32)
+    # the serving path's normalization (BGR -> RGB, (x - 127.5) / 128)
+    x = (crops[..., ::-1].astype(np.float32) - 127.5) * 0.0078125
+    t0 = time.perf_counter()
+    state0 = train_state_init(batch, network, lr=TRAIN_LR, seed=seed,
+                              device=device)
+    init_s = time.perf_counter() - t0
+    runs, trained = [], None
+    reset_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        for remat in (False, True):
+            rec, state, first = _train_run(
+                state0, x, labels, network, dtype, remat,
+                TRAIN_REMAT_STEPS if remat else steps)
+            if not remat:
+                zero = [k for k, g in first.momentum["params"].items()
+                        if not bool(g.any())]
+                if zero or not bool(first.momentum["head"]["w"].any()):
+                    raise AssertionError(f"train {rec['dtype']}: leaves "
+                                         f"without a gradient: {zero[:8]}")
+                if any(v.dtype != torch.float32
+                       for v in state.params.values()):
+                    raise AssertionError("train: master weights not f32")
+                if not rec["losses"][-1] < rec["losses"][0]:
+                    raise AssertionError(f"train {rec['dtype']}: loss did "
+                                         f"not fall: {rec['losses']}")
+                rec["leaves"] = len(first.momentum["params"])
+            if dtype == torch.bfloat16 and not remat:
+                trained = state
+            runs.append(rec)
+            del state, first
+    counts = launches()
+    if any(counts.values()):
+        raise AssertionError(f"train steps launched kernels: {counts}")
+    by = {(r["dtype"], r["remat"]): r for r in runs}
+    bf, f32 = by[("bfloat16", False)], by[("float32", False)]
+    rec = {"phase": "train", "network": network, "batch": batch,
+           "classes": batch, "lr": TRAIN_LR, "card": power,
+           "init_s": init_s, "runs": runs, "launches": counts,
+           "bf16_vs_f32_loss": [b - f for b, f in zip(bf["losses"],
+                                                      f32["losses"])],
+           "bf16_vs_f32_last_loss_rel":
+               abs(bf["losses"][-1] - f32["losses"][-1]) /
+               abs(f32["losses"][-1]),
+           "remat_first_loss_equal": {
+               d: by[(d, True)]["losses"][0] == by[(d, False)]["losses"][0]
+               for d in ("bfloat16", "float32")}}
+    del state0
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(root, f"step_{trained.step}"), trained)
+        rec["save_checkpoint_s"] = time.perf_counter() - t0
+        out = os.path.join(tmp, "trained.msgpack")
+        cli_s, verify = _convert_cli(
+            repo_dir, device, "train-checkpoint", latest_step_dir(root), out,
+            ("--network", network, "--num-classes", str(batch)))
+        rec["train_checkpoint_cli"] = {"seconds": cli_s, "verify": verify}
+        del trained
+        rec["round_trip"] = _served_accuracy(
+            dataclasses.replace(cfg, rec_weights=out), tmp, sample, batch,
+            device)
+    rec["server_dim256"] = _server_dim256(cfg, device, seed)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def _served_accuracy(cfg, tmp, sample, n_ids, device):
+    """A server of ``cfg`` enrolls a fresh sample of each identity and
+    recognizes TRAIN_QUERIES more of each through ``recognize_batch`` at
+    the top bucket: accuracy, similarity and each kernel's launches."""
+    import torch
+
+    from facekit_torch.server import FaceServer
+    cfg = dataclasses.replace(cfg, database_path=os.path.join(tmp, "t.db"))
+    server = FaceServer(cfg, device=device)
+    try:
+        reset_launches()
+        for k in range(n_ids):
+            uid = f"id{k:03d}"
+            server.db.insert_user(uid, uid)
+            emb = server.pipeline.embed_cropped(sample(k))
+            if server.db.insert_face(uid, f"{uid}.jpg", emb) != 1:
+                raise AssertionError(f"insert_face failed for {uid}")
+        server.reload_gallery()
+        queries = [sample(k) for k in range(n_ids)
+                   for _ in range(TRAIN_QUERIES)]
+        top = max(server.batch_buckets)
+        answers = []
+        for i in range(0, len(queries), top):
+            answers += server.recognize_batch(queries[i:i + top])
+        torch.cuda.synchronize()
+        counts = launches()
+    finally:
+        server.close()
+    want = [f"id{k:03d}" for k in range(n_ids) for _ in range(TRAIN_QUERIES)]
+    acc = float(np.mean([a["userId"] == w for a, w in zip(answers, want)]))
+    batches = -(-len(queries) // top)
+    forwards = n_ids + batches
+    if counts["ir_block"] != IR_BLOCKS_PER_FORWARD * forwards or \
+            counts["cosine_topk"] != batches or acc < 0.75:
+        raise AssertionError(f"round trip: accuracy {acc}, launches "
+                             f"{counts} ({forwards} forwards, {batches} "
+                             "searches)")
+    return {"identities": n_ids, "queries": len(queries), "accuracy": acc,
+            "median_similarity": statistics.median(
+                a["similarity"] for a in answers),
+            "forwards": forwards, "launches": counts}
+
+
+def _server_dim256(cfg, device, seed, n_users=6):
+    """configs/default.json with ``rec_outputDim: 256`` and a 256-wide
+    IR-50: enrolls ``n_users`` crops and answers ``recognize_batch`` as
+    the plain search on the unpadded rows does."""
+    import torch
+
+    from facekit_torch.ops.similarity import cosine_topk_reference
+    from facekit_torch.server import FaceServer
+    from facekit_torch.weights import random_arcface_params
+
+    rng = np.random.default_rng(seed + 1)
+    rh, rw = cfg.rec_hw
+    # the enrolled crops and two fresh ones: one batch of the top bucket
+    crops = rng.integers(0, 256, (n_users + 2, rh, rw, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dataclasses.replace(cfg, rec_outputDim=256, database_path=(
+            os.path.join(tmp, "d256.db")))
+        server = FaceServer(cfg, rec_params=random_arcface_params(
+            cfg.rec_network, seed=seed, embed_dim=256), device=device)
+        try:
+            reset_launches()
+            for u in range(n_users):
+                server.db.insert_user(f"u{u}", f"u{u}")
+                server.db.insert_face(f"u{u}", f"u{u}.jpg",
+                                      server.pipeline.embed_cropped(crops[u]))
+            server.reload_gallery()
+            answers = server.recognize_batch(list(crops))
+            torch.cuda.synchronize()
+            counts = launches()
+            snap = server.gallery.snapshot()
+            emb, vals, idx = server.serving_embed(
+                server.pad_batch(list(crops)), snap)
+            plain_v, plain_i = cosine_topk_reference(
+                snap.arr[:, :256].contiguous(), emb.to(snap.arr.dtype),
+                snap.count, 1)
+        finally:
+            server.close()
+    names = [a["userId"] for a in answers]
+    err = float((vals[:, 0] - plain_v[:, 0]).abs().max())
+    if tuple(snap.arr.shape[1:]) != (DIM,) or emb.shape[1] != 256 or \
+            not torch.equal(idx[:, 0], plain_i[:, 0]) or err > SCORE_ATOL or \
+            names[:n_users] != [f"u{u}" for u in range(n_users)] or \
+            counts["cosine_topk"] != 1:
+        raise AssertionError(f"rec_outputDim 256 server: {names}, "
+                             f"launches {counts}, err {err}")
+    return {"embed_dim": 256, "device_row_width": int(snap.arr.shape[1]),
+            "users": n_users, "requests": len(crops), "launches": counts,
+            "max_abs_err": err,
+            "min_enrolled_similarity": float(vals[:n_users, 0].min())}
 
 
 def phase_kernels(device, n=N_TOP, seed=0):
@@ -3127,8 +3393,9 @@ def main(argv) -> int:
     (``server_engines``, ``dispatch_cost``); ``--remainder``: the native
     pixel backend, the int8-residual embedder and the windowed alignment
     alone (``server_remainder``); ``--align``: the served alignment's and
-    crop's ms alone (``align_times``), which runs on older checkouts too.
-    None of the eight prints an ``ok`` line."""
+    crop's ms alone (``align_times``), which runs on older checkouts too;
+    ``--train``: training, its round trip to a server, and the 256-wide
+    server alone (``train``). None of the nine prints an ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3150,7 +3417,8 @@ def main(argv) -> int:
              "--throughput": ["conv_s8", "cosine_topk_int8"],
              "--gen": ["cosine_topk", "ir_block"],
              "--detectors": ["conv_s8", "cosine_topk", "ir_block"],
-             "--engines": None, "--remainder": None, "--align": []}
+             "--engines": None, "--remainder": None, "--align": [],
+             "--train": ["cosine_topk", "ir_block"]}
     mode = argv[0] if len(argv) == 1 and argv[0] in modes else None
     if argv and mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -3167,6 +3435,10 @@ def main(argv) -> int:
         return 0
     if mode == "--engines":
         phase_server_engines("cuda", repo_dir)
+        print(power, flush=True)
+        return 0
+    if mode == "--train":
+        phase_train("cuda", repo_dir, power)
         print(power, flush=True)
         return 0
     if mode == "--align":
@@ -3220,6 +3492,7 @@ def main(argv) -> int:
     phase_weights_gen("cuda", repo_dir, power)
     engines, dispatch = phase_server_engines("cuda", repo_dir)
     native_path, residual_path, _ = phase_server_remainder("cuda", repo_dir)
+    phase_train("cuda", repo_dir, power)
     # each kernel's launches on the engine-served paths, per config, and
     # on server_remainder's native-pixels (both servers) and residual paths
     engine_launches = {e["config"]: e["launches"] for e in engines}

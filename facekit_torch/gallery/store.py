@@ -16,7 +16,13 @@ padding rows, and a float32 host mirror:
   * ``dtype="int8"`` keeps int8 rows with per-row f32 scales on the device
     (``quantize_rows_int8`` of the f32 mirror on every rebuild; one row and
     its scale on ``add``) and searches them with ``cosine_topk_int8``
-    (``facekit/gallery/store.py:89-92``, ``:161-165``, ``:219-225``).
+    (``facekit/gallery/store.py:89-92``, ``:161-165``, ``:219-225``);
+  * on the card the device rows are ``similarity.DIM`` (512) wide whatever
+    ``embed_dim`` is, zeros past it, since the search kernels are built for
+    that width; ``embed_dim`` stays the width ``load``, ``add``, the host
+    mirror and the queries have. Zero columns change no score, no row
+    maximum and so no int8 scale. On the CPU the rows are ``embed_dim``
+    wide. Wider than 512 is refused.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from facekit_torch.ops.similarity import (cosine_topk, cosine_topk_int8,
+from facekit_torch.ops.similarity import (DIM, cosine_topk,
+                                          cosine_topk_int8, pad_width,
                                           quantize_rows_int8)
 from facekit_torch.utils.device import resolve_device
 
@@ -62,12 +69,17 @@ class GalleryStore:
         if dtype not in _DTYPES:
             raise ValueError(f"gallery_dtype {dtype!r}: one of "
                              f"{sorted(_DTYPES)}")
+        if embed_dim > DIM:
+            raise ValueError(f"embed_dim {embed_dim}: the gallery searches "
+                             f"take widths up to {DIM}")
         self.embed_dim = embed_dim
         self.buckets = tuple(buckets)
         self.dtype = _DTYPES[dtype]
         self.quantized = dtype == "int8"
         self._scales: Optional[torch.Tensor] = None
         self.device = resolve_device(device)
+        # width of the device rows (see the module docstring)
+        self._width = DIM if self.device.type == "cuda" else embed_dim
         self._lock = threading.Lock()
         self._names: List[str] = []
         # host mirror, preallocated at device capacity (amortized appends)
@@ -96,12 +108,12 @@ class GalleryStore:
             buf = np.zeros((cap, self.embed_dim), np.float32)
             buf[:n] = self._host_buf[:n]
             self._host_buf = buf
+        rows = pad_width(torch.from_numpy(self._host_buf).to(
+            self.device, copy=True), self._width)
         if self.quantized:
-            self._device_arr, self._scales = quantize_rows_int8(
-                torch.from_numpy(self._host_buf).to(self.device, copy=True))
+            self._device_arr, self._scales = quantize_rows_int8(rows)
         else:
-            self._device_arr = torch.from_numpy(self._host_buf).to(
-                device=self.device, dtype=self.dtype, copy=True)
+            self._device_arr = rows.to(self.dtype)
 
     # -- mutation (mirrors addEmbedding/resetEmbeddings/initMatMul) ----------
 
@@ -138,7 +150,8 @@ class GalleryStore:
                 return
             self._host_buf[i] = emb
             # in place: row i is padding to every outstanding snapshot
-            row = torch.tensor(emb, device=self.device)
+            row = pad_width(torch.tensor(emb, device=self.device)[None],
+                            self._width)[0]
             if self.quantized:
                 q, scale = quantize_rows_int8(row[None])
                 self._device_arr[i] = q[0]

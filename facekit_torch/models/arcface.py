@@ -8,7 +8,9 @@ L2-normalized in f32 with the norm clamped at 1e-12.
 
 A float block with stride 1, an identity shortcut and no SE (20 of
 IR-50's 24) runs as one ``ops.ir_block`` call, the fused kernel on the
-card; the other blocks, and the calibration forward, run the composition.
+card; the other blocks, the calibration forward, and any block whose
+output needs a gradient (training: the fused block has no backward, and
+facekit trains op by op) run the composition.
 
 Parameter names follow facekit's pytree paths (``input.conv``,
 ``blocks.3.shortcut.bn.scale``, ``output.linear.w``), so
@@ -41,7 +43,7 @@ import torch
 from torch import nn
 
 from facekit_torch.models import layers as L
-from facekit_torch.ops.ir_block import ir_block
+from facekit_torch.ops.ir_block import ir_block, needs_grad
 
 ARCFACE_STAGE_UNITS = {
     "ir_50": (3, 4, 14, 3),
@@ -172,8 +174,9 @@ class IRBlock(nn.Module):
 
     def forward(self, x, stats=None, prefix: str = ""):
         # the calibration forward records the inner conv inputs, which a
-        # fused block never holds, so it keeps the composition below
-        if stats is None and self.fusable():
+        # fused block never holds, so it keeps the composition below, as
+        # does a forward that autograd records (the kernel has no backward)
+        if stats is None and self.fusable() and not needs_grad(x, self):
             return ir_block(x, self)
         return self.composed(x, stats, prefix)
 

@@ -24,7 +24,11 @@ output channel) and ``par`` is (5, C) f32: s1, b1, alpha, s2, b2.
   * ``ir_block(x, block)`` is the wrapper ``IRBlock.forward`` calls: CPU
     tensors run the plain version; CUDA tensors launch the hand-written
     Hopper kernel ``ops/csrc/ir_block.cu`` on the current stream, one
-    launch per block, or raise. ``ir_block.launches`` counts the launches;
+    launch per block, or raise. ``ir_block.launches`` counts the launches.
+    Neither has a backward (nor has facekit's kernel, and facekit trains
+    through the composed block): where the block's output would need a
+    gradient (``needs_grad``), ``IRBlock.forward`` runs the composition
+    and ``ir_block`` raises, so no autograd graph is cut;
   * ``facekit_torch::ir_block`` is the block as a ``torch.library`` op
     on (x, w1, w2, par): the plain version on the CPU, the kernel on CUDA;
     ``ir_block`` calls it while ``torch.export`` traces;
@@ -54,16 +58,27 @@ def fused_affine(scale, bias, mean, var, eps: float = BN_EPS):
     return s, bias.float() - mean.float() * s
 
 
+def _sources(block):
+    """The block's tensors that the kernel's operands come from."""
+    return (block.conv1, block.conv2, block.prelu, block.bn1.scale,
+            block.bn1.bias, block.bn1.mean, block.bn1.var, block.bn2.scale,
+            block.bn2.bias, block.bn2.mean, block.bn2.var)
+
+
+def needs_grad(x: torch.Tensor, block) -> bool:
+    """Whether the block's output on ``x`` would need a gradient: grad
+    mode is on and x or any of the block's tensors requires grad."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in _sources(block)))
+
+
 def block_operands(block, dtype: torch.dtype):
     """(w1, w2, par) of an ``IRBlock`` for the kernel: weights (O, 3, 3, C)
     in ``dtype``, par (5, C) f32. Cached on the block, keyed by the
     identity and version of every tensor they come from, so a block whose
     weights are replaced or edited in place recomputes them."""
-    srcs = (block.conv1, block.conv2, block.prelu, block.bn1.scale,
-            block.bn1.bias, block.bn1.mean, block.bn1.var, block.bn2.scale,
-            block.bn2.bias, block.bn2.mean, block.bn2.var)
     key = (dtype,) + tuple((t.data_ptr(), t._version, t.dtype, t.device)
-                           for t in srcs)
+                           for t in _sources(block))
     cached = getattr(block, "_fused_operands", None)
     if cached is not None and cached[0] == key:
         return cached[1]
@@ -136,7 +151,14 @@ def ir_block(x: torch.Tensor, block) -> torch.Tensor:
     launch the kernel on the current stream, without synchronizing, or
     raise. Under ``torch.export`` the operands are computed in the graph
     and the block is the registered op ``facekit_torch::ir_block``, which
-    runs the same two functions."""
+    runs the same two functions. Raises where the output would need a
+    gradient (``needs_grad``): neither version has a backward."""
+    if needs_grad(x, block):
+        raise RuntimeError(
+            "ir_block: grad mode is on and x or the block's tensors require "
+            "grad, but the fused block has no backward; run IRBlock.composed "
+            "(IRBlock.forward does), or call under torch.no_grad() or "
+            "torch.inference_mode()")
     if torch.compiler.is_exporting():
         return torch.ops.facekit_torch.ir_block(x, *_operands(block, x.dtype))
     w1, w2, par = block_operands(block, x.dtype)

@@ -39,6 +39,14 @@ exceeds the live rows, the padding rows follow in ascending order, as
 gallery^T`` in f32 from the upcast operands; the int8 search quantizes the
 queries per row and scores ``(f32(s8 . s8) * q_scale) * g_scale``, which
 the kernel reproduces bit for bit.
+
+Width: the kernels are built for D = 512 (``DIM``). The wrappers take any
+width up to 512 and zero-pad queries (and a narrower gallery) to 512
+before a launch. That is exact: zeros add nothing to an f32 sum or an s8
+dot, and they change neither the gallery's stored row maxima nor
+``quantize_rows_int8``'s per-query maximum, so the scores are those of the
+unpadded search. ``GalleryStore`` keeps its rows 512 wide on the card for
+that reason. Wider than 512 raises on every device (``check_width``).
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ from typing import Tuple
 import torch
 
 NEG_INF = -1e30
-DIM = 512           # embedding width the kernel is built for
+DIM = 512           # embedding width the kernel is built for; narrower
+#                     widths are zero-padded to it (see the module docstring)
 MAX_K = 64          # the server caps /search at k <= 64
 # batches from MMA_MIN_B on take the tensor-core pass 1 (topk_mma.cuh
 # topk_partial_mma_kernel): MMA_QUERIES queries (MMA_QUERIES_F32 in f32,
@@ -84,16 +93,22 @@ def cosine_topk(gallery: torch.Tensor, queries: torch.Tensor, count: int,
 
     CPU tensors run ``cosine_topk_reference``. CUDA tensors launch the
     kernel, on the current stream and without synchronizing; anything the
-    kernel does not take raises. ``cosine_topk.launches`` counts the
-    launches.
-    Under ``torch.export`` it is the registered op
+    kernel does not take raises. Queries narrower than the gallery are
+    zero-padded to its width (the store's padded rows); a gallery narrower
+    than 512 is padded too, into a copy: N * 512 elements of its dtype
+    allocated and written on every call, which a caller that searches one
+    gallery often avoids by keeping it 512 wide (``pad_width``), as
+    ``GalleryStore`` does. Wider than 512 raises. ``cosine_topk.launches``
+    counts the launches. Under ``torch.export`` it is the registered op
     ``facekit_torch::cosine_topk``, which runs the same two functions.
     """
+    check_width("cosine_topk", gallery, queries)
     if torch.compiler.is_exporting():
         return torch.ops.facekit_torch.cosine_topk(gallery, queries,
                                                    int(count), int(k))
     if gallery.device.type == "cpu" and queries.device.type == "cpu":
-        return cosine_topk_reference(gallery, queries, count, k)
+        return cosine_topk_reference(
+            gallery, pad_width(queries, gallery.shape[1]), count, k)
     return _cosine_topk_cuda(gallery, queries, int(count), int(k))
 
 
@@ -148,22 +163,52 @@ def cosine_topk_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
     the f32 queries with plain torch ops (as facekit does outside its
     ``pallas_call``, ``similarity.py:198``) and launch the kernel, on the
     current stream and without synchronizing; anything the kernel does not
-    take raises. ``cosine_topk_int8.launches`` counts the launches. Under
+    take raises. Widths as in ``cosine_topk``: the padded copy of a
+    narrower gallery writes N * 512 bytes per call.
+    ``cosine_topk_int8.launches`` counts the launches. Under
     ``torch.export`` it is the registered op
     ``facekit_torch::cosine_topk_int8``.
     """
+    check_width("cosine_topk_int8", gallery_q, queries)
     if torch.compiler.is_exporting():
         return torch.ops.facekit_torch.cosine_topk_int8(
             gallery_q, gallery_scale, queries, int(count), int(k))
     if all(t.device.type == "cpu" for t in (gallery_q, gallery_scale,
                                              queries)):
-        return cosine_topk_int8_reference(gallery_q, gallery_scale, queries,
-                                          count, k)
+        return cosine_topk_int8_reference(
+            gallery_q, gallery_scale, pad_width(queries, gallery_q.shape[1]),
+            count, k)
     return _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries,
                                   int(count), int(k))
 
 
 cosine_topk_int8.launches = 0
+
+
+def check_width(name: str, gallery: torch.Tensor,
+                queries: torch.Tensor) -> None:
+    """Raise unless the widths are ones the kernels take: 2-D, each at most
+    ``DIM`` wide, the queries no wider than the gallery."""
+    if gallery.dim() != 2 or queries.dim() != 2:
+        raise ValueError(f"{name}: gallery and queries must be 2-D")
+    d, dq = gallery.shape[1], queries.shape[1]
+    if d > DIM or dq > d:
+        raise ValueError(f"{name}: gallery width {d}, queries {dq}; the "
+                         f"searches take widths up to {DIM}, the queries no "
+                         "wider than the gallery")
+
+
+def pad_width(x: torch.Tensor, width: int = DIM) -> torch.Tensor:
+    """(R, D) with D <= ``width`` -> (R, width), zeros past column D:
+    ``x`` itself when it is that wide, else a new contiguous tensor."""
+    d = x.shape[1]
+    if d > width:
+        raise ValueError(f"width {d}: at most {width} expected")
+    if d == width:
+        return x
+    out = x.new_zeros((x.shape[0], width))
+    out[:, :d] = x
+    return out
 
 
 def _check(gallery: torch.Tensor, queries: torch.Tensor, count: int, k: int):
@@ -177,11 +222,6 @@ def _check(gallery: torch.Tensor, queries: torch.Tensor, count: int, k: int):
     if queries.dtype != gallery.dtype:
         raise TypeError(f"cosine_topk: queries {queries.dtype} != gallery "
                         f"{gallery.dtype}; cast queries to the gallery dtype")
-    if gallery.dim() != 2 or queries.dim() != 2:
-        raise ValueError("cosine_topk: gallery and queries must be 2-D")
-    if gallery.shape[1] != DIM or queries.shape[1] != DIM:
-        raise ValueError(f"cosine_topk: width {gallery.shape[1]}/"
-                         f"{queries.shape[1]}; the kernel takes D={DIM}")
     if not (gallery.is_contiguous() and queries.is_contiguous()):
         raise ValueError("cosine_topk: gallery and queries must be contiguous")
     if gallery.data_ptr() % 16 or queries.data_ptr() % 16:
@@ -212,13 +252,9 @@ def _check_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
     if queries.dtype != torch.float32:
         raise TypeError(f"cosine_topk_int8: queries {queries.dtype}; the "
                         "kernel takes float32 queries")
-    if gallery_q.dim() != 2 or queries.dim() != 2 or \
-            gallery_scale.shape != gallery_q.shape[:1]:
+    if gallery_scale.shape != gallery_q.shape[:1]:
         raise ValueError("cosine_topk_int8: gallery (N, D), scales (N,) and "
                          "queries (B, D) expected")
-    if gallery_q.shape[1] != DIM or queries.shape[1] != DIM:
-        raise ValueError(f"cosine_topk_int8: width {gallery_q.shape[1]}/"
-                         f"{queries.shape[1]}; the kernel takes D={DIM}")
     if not (gallery_q.is_contiguous() and gallery_scale.is_contiguous()):
         raise ValueError("cosine_topk_int8: gallery and scales must be "
                          "contiguous")
@@ -297,6 +333,8 @@ def _library_int8():
 
 
 def _cosine_topk_cuda(gallery, queries, count, k):
+    check_width("cosine_topk", gallery, queries)
+    gallery, queries = pad_width(gallery), pad_width(queries)
     _check(gallery, queries, count, k)
     n, b = gallery.shape[0], queries.shape[0]
     # rows count..count+k-1 (score -1e30, ascending index) outrank every
@@ -324,6 +362,8 @@ def _cosine_topk_cuda(gallery, queries, count, k):
 
 
 def _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries, count, k):
+    check_width("cosine_topk_int8", gallery_q, queries)
+    gallery_q, queries = pad_width(gallery_q), pad_width(queries)
     _check_int8(gallery_q, gallery_scale, queries, count, k)
     qq, qs = quantize_rows_int8(queries)      # plain torch ops, new tensors
     n, b = gallery_q.shape[0], queries.shape[0]

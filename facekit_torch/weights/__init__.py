@@ -3,6 +3,7 @@ from facekit_torch.weights.bridge import (  # noqa: F401
     random_arcface_params,
     random_lightdet_params,
     random_retinaface_params,
+    to_jax,
 )
 from facekit_torch.weights.convert import (  # noqa: F401
     ConversionError,

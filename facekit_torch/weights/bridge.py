@@ -1,4 +1,4 @@
-"""Parameter carry-over from facekit's layout to the port's modules.
+"""Parameter carry-over between facekit's layout and the port's modules.
 
 facekit keeps parameters as a pytree of nested dicts and lists (NHWC
 layers, HWIO conv weights, ``facekit/models/layers.py:7``), saved as msgpack
@@ -20,6 +20,10 @@ flatten plus one layout change:
     tree (``input.oscale``, ``blocks.<i>.oscale``);
   * a ``None`` leaf (RFB's ``dw[6]``, where its block sits) has no
     parameters and is skipped.
+
+``to_jax`` is the way back, for what the port trains: the flat dict (or a
+module's ``state_dict``) nested into facekit's tree again, conv weights
+OIHW -> HWIO, a map whose keys are all positions a list again.
 """
 
 from __future__ import annotations
@@ -78,6 +82,37 @@ def from_jax(params, network: torch.nn.Module) -> Dict[str, torch.Tensor]:
                              f"{ref.dtype}")
         out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out
+
+
+def _nest(node):
+    """Maps keyed "0", "1", ... (every key a position) -> lists, with
+    ``None`` at a missing position."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _nest(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out.get(str(i)) for i in range(max(map(int, out)) + 1)]
+    return out
+
+
+def to_jax(leaves) -> Dict[str, Any]:
+    """The port's parameters -> facekit's param tree of numpy arrays, the
+    inverse of ``from_jax``: ``leaves`` a module or a flat dict of tensors
+    keyed by tree paths. Floats come back as f32, int8 as int8."""
+    if isinstance(leaves, torch.nn.Module):
+        leaves = leaves.state_dict()
+    tree: Dict[str, Any] = {}
+    for key, t in leaves.items():
+        t = t.detach().cpu()
+        arr = (t if t.dtype == torch.int8 else t.float()).numpy()
+        if arr.ndim == 4:                      # OIHW -> HWIO
+            arr = arr.transpose(2, 3, 1, 0)
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(arr, order="C")     # a copy
+    return _nest(tree)
 
 
 # -- random parameters, drawn with numpy -------------------------------------

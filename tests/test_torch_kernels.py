@@ -20,7 +20,7 @@ from facekit_torch.ops.similarity import (_cosine_topk_cuda,
                                           _cosine_topk_int8_cuda, cosine_topk,
                                           cosine_topk_int8,
                                           cosine_topk_int8_reference,
-                                          cosine_topk_reference,
+                                          cosine_topk_reference, pad_width,
                                           quantize_rows_int8)
 
 N = 1000
@@ -115,7 +115,8 @@ def test_ir_block_wrapper_runs_plain_version_on_cpu():
             p.copy_(torch.tensor(rng.uniform(0.1, 0.3, p.shape)))
     x = torch.tensor(rng.normal(size=(2, 7, 5, 64)), dtype=torch.float32)
     before = ir_block.launches
-    got = ir_block(x, blk)
+    with torch.no_grad():
+        got = ir_block(x, blk)
     assert torch.equal(got, ir_block_reference(
         x, *block_operands(blk, torch.float32)))
     assert ir_block.launches == before
@@ -257,6 +258,44 @@ def test_int8_kernel_ties_and_checks(cuda_device, b):
     with pytest.raises(TypeError):
         cosine_topk_int8(gq, gs, torch.tensor(q, device=cuda_device)
                          .to(torch.bfloat16), N, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("k", [1, 64])
+def test_kernels_at_narrow_widths(cuda_device, d, b, k):
+    """Both searches at D < 512: a gallery of that width (the wrapper pads
+    a copy) and a 512-wide padded one with narrow queries (what
+    ``GalleryStore`` holds on the card) against the plain version at D.
+    Indices equal; int8 scores bit for bit, float scores within 1e-5."""
+    rng = np.random.default_rng(d + b + k)
+    g = rng.normal(size=(N, d))
+    g = (g / np.linalg.norm(g, axis=1, keepdims=True)).astype(np.float32)
+    q = rng.normal(size=(b, d))
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    gt, qt = (torch.tensor(a, device=cuda_device) for a in (g, q))
+    for td in (torch.float32, torch.bfloat16):
+        gd, qd = gt.to(td), qt.to(td)
+        ref_v, ref_i = cosine_topk_reference(gd, qd, 777, k)
+        for gallery in (gd, pad_width(gd)):
+            before = cosine_topk.launches
+            vals, idx = cosine_topk(gallery, qd, 777, k)
+            torch.cuda.synchronize()
+            assert cosine_topk.launches == before + 1
+            np.testing.assert_array_equal(idx.cpu().numpy(),
+                                          ref_i.cpu().numpy())
+            np.testing.assert_allclose(vals.cpu().numpy(),
+                                       ref_v.cpu().numpy(), rtol=0, atol=1e-5)
+    gq, gs = quantize_rows_int8(gt)
+    ref_v, ref_i = cosine_topk_int8_reference(gq, gs, qt, 777, k)
+    for gallery in (gq, pad_width(gq)):
+        before = cosine_topk_int8.launches
+        vals, idx = cosine_topk_int8(gallery, gs, qt, 777, k)
+        torch.cuda.synchronize()
+        assert cosine_topk_int8.launches == before + 1
+        np.testing.assert_array_equal(idx.cpu().numpy(), ref_i.cpu().numpy())
+        np.testing.assert_array_equal(vals.cpu().numpy(), ref_v.cpu().numpy())
 
 
 # a gallery the B <= 8 plan cuts into 256 chunks of 256 rows: at k = 64

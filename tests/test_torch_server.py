@@ -457,7 +457,8 @@ def test_default_device_without_cuda_raises(tmp_path):
 def test_import_loads_no_jax_and_no_facekit(tmp_path):
     """In a fresh interpreter (this one has imported jax), importing every
     module of facekit_torch (the CLIs' ``__main__`` modules too, which run
-    nothing on import; ``facekit_torch.engine`` among them), then exporting,
+    nothing on import; ``facekit_torch.engine`` and ``facekit_torch.train``
+    among them), then exporting,
     saving, loading and calling an engine, leaves jax and facekit out of
     sys.modules."""
     code = (
@@ -467,6 +468,7 @@ def test_import_loads_no_jax_and_no_facekit(tmp_path):
         "'facekit_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'facekit_torch.engine' in sys.modules\n"
+        "assert 'facekit_torch.train.checkpoint' in sys.modules\n"
         "import torch\n"
         "from facekit_torch.config import FaceKitConfig\n"
         "from facekit_torch.engine import (engine_states, "

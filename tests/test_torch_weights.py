@@ -246,8 +246,9 @@ def test_cli_end_to_end_on_cpu(model, tmp_path, capsys):
 
 
 def test_cli_refusals(tmp_path, capsys):
-    """The mode facekit has and the port lacks exits non-zero naming the
-    ROADMAP item; a light-detector mode refuses a checkpoint of another
+    """``train-checkpoint`` without ``--num-classes`` exits non-zero
+    naming the flag, as facekit's CLI does, and with it refuses a path
+    that is not a train checkpoint; a light-detector mode refuses a checkpoint of another
     model, naming the missing key; ``--verify`` defaults to the card and,
     without one, raises before anything is written; unconsumed keys need
     ``--no-strict``."""
@@ -258,7 +259,11 @@ def test_cli_refusals(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         cli_main(["train-checkpoint", ckpt, out])
     assert e.value.code != 0
-    assert "train/" in capsys.readouterr().err
+    assert "--num-classes" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="is a file"):
+        cli_main(["train-checkpoint", ckpt, out, "--network", "ir_tiny",
+                  "--num-classes", "3"])
+    assert not os.path.exists(out)
     for mode in ("slim", "rfb"):
         with pytest.raises(ConversionError, match=r"missing key `conv1\.0"):
             cli_main([mode, ckpt, out])
