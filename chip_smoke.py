@@ -54,7 +54,15 @@ events, peak memory, every leaf with a gradient, no kernel launched by a
 step), the trained state through ``save_checkpoint`` and ``python -m
 facekit_torch.weights train-checkpoint`` into a configs/default.json
 server that recognizes held-out samples, and a server with
-``rec_outputDim: 256`` (the searches at D = 256).
+``rec_outputDim: 256`` (the searches at D = 256); then ``server_mesh``:
+``sharded_cosine_topk`` at N = 1,048,576 (bf16 and int8, 1 to 8 shards
+of a ``{"gallery": S}`` mesh, counts at and inside the shard boundaries)
+index for index and score for score against the unsharded kernel,
+configs/default.json's IR-50 pipeline on a ``{"data": 2, "gallery": 2}``
+mesh against the single-device program, a ``{"gallery": 1}`` server of
+each shipped config against the same server without its mesh, and the
+refusal of a mesh one GPU too large (mesh positions share the card when
+there are fewer GPUs than positions).
 Each path runs with every kernel's launch
 count set to 0 just before it and read just after. Prints one
 JSON line per phase, the ``kernels`` line, the card's name and power
@@ -71,7 +79,8 @@ call); ``--gen`` the build of the two kernels it runs and
 it runs, the conv's ``ptxas`` line and ``server_detectors`` alone;
 ``--engines`` the build and ``server_engines`` alone; ``--remainder``
 the build and ``server_remainder`` alone; ``--train`` the build of the
-two kernels it serves with and ``train`` alone. ``weights_gen``,
+two kernels it serves with and ``train`` alone; ``--mesh`` the build and
+``server_mesh`` alone. ``weights_gen``,
 ``server_detectors`` and ``server_remainder`` serve through aiohttp.
 """
 
@@ -3352,6 +3361,401 @@ def _remainder_windowed(device, seed):
     return rec
 
 
+# -- server_mesh: the row-sharded search, the pipeline and servers on a mesh ---
+
+MESH_SHARDS = (1, 2, 4, 8)
+MESH_BATCHES = (1, 8, 64)
+MESH_KS = (1, 64)
+MESH_REPS = 10               # timed searches per case; latency samples a turn
+MESH_USERS = 8
+
+
+def mesh_devices(device, n):
+    """The devices of an n-position mesh: every local GPU where there are
+    n of them (``make_mesh``'s default), else ``device`` at every
+    position."""
+    import torch
+    return None if torch.cuda.device_count() >= n else [device] * n
+
+
+def mesh_search_cases(device, n=N_TOP, seed=17):
+    """``sharded_cosine_topk`` at N rows, bf16 and int8, over S shards of a
+    ``{"gallery": S}`` mesh, B queries, top k, at counts inside and at the
+    shard boundaries (7: every shard but the first holds 0 live rows and
+    the first fewer than 64; n_local; n_local + 5: the second shard holds
+    5 live rows; N): indices equal to the unsharded kernel's, scores too;
+    indices equal to the plain version's where its scores are clear of
+    their neighbours (int8: everywhere, with the scores bit-equal).
+    Timed at count = N beside the unsharded kernel."""
+    import torch
+
+    from facekit_torch.ops.similarity import (cosine_topk, cosine_topk_int8,
+                                              cosine_topk_int8_reference,
+                                              cosine_topk_reference,
+                                              quantize_rows_int8)
+    from facekit_torch.parallel import (make_mesh, shard_gallery, shard_rows,
+                                        sharded_cosine_topk)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def unit_rows(rows):
+        x = torch.randn((rows, DIM), generator=gen, device=device)
+        return x / x.norm(dim=1, keepdim=True)
+    g32 = unit_rows(n)
+    galleries = {"bfloat16": (g32.to(torch.bfloat16), None),
+                 "int8": quantize_rows_int8(g32)}
+    del g32
+    cases = []
+    for dname, (g, scales) in galleries.items():
+        int8 = scales is not None
+        queries = {b: [unit_rows(b).to(torch.float32 if int8 else g.dtype)
+                       for _ in range(2)] for b in MESH_BATCHES}
+
+        def unsharded(q, count, k):
+            return (cosine_topk_int8(g, scales, q, count, k) if int8
+                    else cosine_topk(g, q, count, k))
+        plain, whole, whole_ms = {}, {}, {}
+        for b in MESH_BATCHES:
+            for k in MESH_KS:
+                bound = (int8_search_bound(n, b, k) if int8
+                         else search_bound(n, b, k, dname))
+                whole_ms[(b, k)] = (cuda_ms(unsharded, [
+                    (q, n, k) for q in queries[b]], MESH_REPS), *bound)
+        for s in MESH_SHARDS:
+            mesh = make_mesh({"gallery": s}, devices=mesh_devices(device, s))
+            sg = shard_gallery(g, mesh)
+            ss = shard_rows(scales, mesh) if int8 else None
+            n_local = n // s
+
+            def sharded(q, count, k):
+                return sharded_cosine_topk(sg, q, count, k, mesh=mesh,
+                                           scales=ss)
+            counts = sorted({7, n_local, min(n, n_local + 5), n})
+            worst = 0.0
+            for b in MESH_BATCHES:
+                q = queries[b][0]
+                for count in counts:
+                    if (b, count) not in plain:
+                        plain[(b, count)] = (
+                            cosine_topk_int8_reference(g, scales, q, count,
+                                                       65)
+                            if int8 else
+                            cosine_topk_reference(g, q, count, 65))
+                    for k in MESH_KS:
+                        tag = f"{dname} S={s} B={b} k={k} count={count}"
+                        got = sharded(q, count, k)
+                        if (b, k, count) not in whole:
+                            whole[(b, k, count)] = unsharded(q, count, k)
+                        ref = whole[(b, k, count)]
+                        if not (torch.equal(got[1], ref[1])
+                                and torch.equal(got[0], ref[0])):
+                            raise AssertionError(
+                                f"{tag}: sharded != unsharded kernel")
+                        pv, pi = plain[(b, count)]
+                        if int8:
+                            if not (torch.equal(got[1], pi[:, :k])
+                                    and torch.equal(got[0], pv[:, :k])):
+                                raise AssertionError(f"{tag}: != plain")
+                        else:
+                            worst = max(worst, check_search(
+                                tag, got, (pv[:, :k + 1], pi[:, :k + 1]),
+                                k))
+            for b in MESH_BATCHES:
+                for k in MESH_KS:
+                    ms, bound, by = whole_ms[(b, k)]
+                    # where a search's time goes: host ms to its sync,
+                    # device busy ms and operations (one traced call)
+                    trace = (call_trace(lambda q: sharded(q, n, k),
+                                        queries[b][1])
+                             if b == 8 and k == 1 else None)
+                    rec = {"phase": "mesh_search_case", "dtype": dname,
+                           "N": n, "shards": s, "B": b, "k": k,
+                           "devices": len({str(d) for d in mesh.devices.flat}),
+                           "counts_checked": counts,
+                           "max_abs_err_vs_plain": worst,
+                           "ms": cuda_ms(sharded, [(q, n, k) for q in
+                                                   queries[b]], MESH_REPS),
+                           "unsharded_ms": ms, "bound_ms": bound,
+                           "bound_by": by, "trace": trace}
+                    emit(rec)
+                    cases.append(rec)
+            del sg, ss
+        plain.clear()
+        whole.clear()
+    torch.cuda.synchronize()
+    return cases
+
+
+def mesh_pipeline_case(device, repo_dir, seed=18):
+    """configs/default.json's full IR-50 pipeline (RetinaFace at 288x320,
+    bf16, threshold 0.5 as ``server_inference``) on a {"data": 2,
+    "gallery": 2} mesh: 8 frames through ``recognize_and_match`` and 8
+    crops through ``embed_and_match``, each half on its data position,
+    the gallery in two shards, against the single-device program on the
+    same inputs: detections and indices equal, embeddings within
+    COS_DIST_MAX, similarities within SCORE_ATOL, launches per data
+    position and shard."""
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.parallel import make_mesh, shard_gallery
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.server.app import model_params
+
+    rng = np.random.default_rng(seed)
+    cfg = dataclasses.replace(load_config(os.path.join(
+        repo_dir, "configs", "default.json")), det_threshold_bbox=DET_THRESHOLD)
+    pipe = FacePipeline(cfg, *model_params(cfg), device=device)
+    mesh = make_mesh({"data": 2, "gallery": 2},
+                     devices=mesh_devices(device, 4))
+    fh, fw = cfg.frame_hw
+    rh, rw = cfg.rec_hw
+    frames = rng.integers(0, 256, (8, fh, fw, 3), dtype=np.uint8)
+    crops = rng.integers(0, 256, (8, rh, rw, 3), dtype=np.uint8)
+    # the gallery: every distinct face of the frames and every crop, then
+    # random rows; each query's top row is its own by a wide margin
+    res = pipe.recognize_frames(frames)
+    rows = [e for e in res.embeddings[res.valid].float()]
+    rows += list(torch.as_tensor(pipe.embed_cropped_batch(crops),
+                                 device=device))
+    keep = []
+    for r in rows:
+        if all(float(r @ e) < 0.99 for e in keep):
+            keep.append(r)
+    g = torch.randn((1024, DIM), device=device)
+    g = g / g.norm(dim=1, keepdim=True)
+    g[:len(keep)] = torch.stack(keep)
+    g = g.to(torch.bfloat16)
+    count = 1000
+    runs = {}
+    for mode in ("mesh", "single"):
+        kw = ({"mesh": mesh, "gallery_arr": shard_gallery(g, mesh)}
+              if mode == "mesh" else {"gallery_arr": g})
+        reset_launches()
+        out = (pipe.recognize_and_match(frames, count=count,
+                                        return_crops=True, **kw),
+               pipe.embed_and_match(crops, count=count, **kw))
+        torch.cuda.synchronize()
+        runs[mode] = (out, launches())
+    ((res_m, v_m, i_m), (e_m, ev_m, ei_m)), n_mesh = runs["mesh"]
+    ((res_s, v_s, i_s), (e_s, ev_s, ei_s)), n_single = runs["single"]
+    want = {"cosine_topk": 8, "ir_block": 4 * IR_BLOCKS_PER_FORWARD,
+            "cosine_topk_int8": 0, "conv_s8": 0}
+    if n_mesh != want or n_single["cosine_topk"] != 2:
+        raise AssertionError(f"mesh pipeline launches {n_mesh} (single "
+                             f"{n_single}), want {want}")
+    valid = res_s.valid
+    if not torch.equal(res_m.valid, valid) or \
+            not torch.equal(i_m[valid], i_s[valid]) or \
+            not torch.equal(ei_m, ei_s):
+        raise AssertionError("mesh pipeline: detections or indices differ "
+                             "from the single-device program")
+
+    def cos_dist(a, b):
+        a, b = a.float(), b.float()
+        return float((1 - (a * b).sum(-1) / (a.norm(dim=-1)
+                                             * b.norm(dim=-1))).max())
+    out = {"phase": "mesh_pipeline", "config": "configs/default.json",
+           "mesh": mesh.shape,
+           "devices": len({str(d) for d in mesh.devices.flat}),
+           "frames": len(frames), "crops": len(crops),
+           "faces": int(valid.sum()), "gallery_rows": len(keep),
+           "launches": n_mesh, "single_launches": n_single,
+           "bit_equal": all(torch.equal(a, b) for a, b in
+                            [(res_m.embeddings, res_s.embeddings),
+                             (v_m, v_s), (e_m, e_s), (ev_m, ev_s),
+                             (res_m.boxes, res_s.boxes),
+                             (res_m.crops, res_s.crops)]),
+           "box_max_err": float((res_m.boxes - res_s.boxes).abs().max()),
+           "crop_max_err": float((res_m.crops - res_s.crops).abs().max()),
+           "emb_cos_dist": max(cos_dist(res_m.embeddings[valid],
+                                        res_s.embeddings[valid]),
+                               cos_dist(e_m, e_s)),
+           "sim_max_err": max(float((v_m - v_s)[valid].abs().max()),
+                              float((ev_m - ev_s).abs().max())),
+           "min_top_similarity": min(float(v_s[valid][:, 0].min()),
+                                     float(ev_s[:, 0].min()))}
+    if out["emb_cos_dist"] > COS_DIST_MAX or out["sim_max_err"] > 2e-3 or \
+            out["min_top_similarity"] < 0.99:
+        raise AssertionError(f"mesh pipeline against single-device: {out}")
+    emit(out)
+    return out
+
+
+@contextlib.contextmanager
+def without_mesh(server):
+    """``server`` serving as a single-device server: no mesh and a gallery
+    store of its own, loaded from the same database; the same pipeline,
+    so replies compare one to one."""
+    from facekit_torch.gallery import GalleryStore
+    mesh, gallery = server.mesh, server.gallery
+    server.mesh = None
+    server.gallery = GalleryStore(
+        embed_dim=gallery.embed_dim, buckets=gallery.buckets,
+        dtype=server.config.gallery_dtype, device=server.device)
+    server.reload_gallery()
+    try:
+        yield server
+    finally:
+        server.mesh, server.gallery = mesh, gallery
+
+
+def mesh_server_case(device, repo_dir, name, tmp, crops_dir, rng):
+    """A ``{"gallery": 1}`` server of configs/<name>.json: MESH_USERS
+    faces of frames and crops enrolled, WS /inference's and /recognize's
+    batch functions at every bucket, held reply for reply (crops pixel for
+    pixel) and launch for launch to the same server without its mesh."""
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.server import FaceServer
+
+    with open(os.path.join(repo_dir, "configs", f"{name}.json")) as f:
+        raw = json.load(f)
+    raw["det_threshold_bbox"] = DET_THRESHOLD
+    if "rec_calibrationDir" in raw:
+        raw["rec_calibrationDir"] = crops_dir
+    raw["mesh_shape"] = {"gallery": 1}
+    raw["database_path"] = os.path.join(tmp, f"{name}_mesh.db")
+    path = os.path.join(tmp, f"{name}_mesh.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    cfg = load_config(path)
+    server = FaceServer(cfg, device=device)
+    try:
+        if server.mesh.shape != {"gallery": 1} or \
+                len(server.gallery.snapshot().arr.blocks) != 1:
+            raise AssertionError(f"{name}: mesh {server.mesh}")
+        fh, fw = cfg.frame_hw
+        rh, rw = cfg.rec_hw
+        frames = rng.integers(0, 256, (MESH_USERS, fh, fw, 3), np.uint8)
+        crops = rng.integers(0, 256, (MESH_USERS, rh, rw, 3), np.uint8)
+        res = server.pipeline.recognize_frames(frames, return_crops=True)
+        spread = res.crops.std(dim=(2, 3, 4)).masked_fill(~res.valid, -1.0)
+        slot = spread.argmax(1).cpu()
+        for u in range(MESH_USERS):
+            for kind, emb in (("f", res.embeddings[u, slot[u]].cpu()
+                               .numpy()),
+                              ("c", server.pipeline.embed_cropped(crops[u]))):
+                uid = f"{kind}{u:02d}"
+                server.db.insert_user(uid, uid.upper())
+                if server.db.insert_face(uid, f"{uid}.png", emb) != 1:
+                    raise AssertionError(f"insert_face failed for {uid}")
+        server.reload_gallery()
+
+        def batch(b, pool):
+            m = min(b, 4)
+            return list(pool[:m]) + list(rng.integers(
+                0, 256, (b - m, *pool.shape[1:]), np.uint8))
+        queries = {b: (batch(b, frames), batch(b, crops))
+                   for b in server.batch_buckets}
+        runs = {}
+        for mode in ("mesh", "single"):
+            with (without_mesh(server) if mode == "single"
+                  else contextlib.nullcontext()):
+                reset_launches()
+                replies = {b: (server.inference_batch(fq),
+                               server.recognize_batch(cq))
+                           for b, (fq, cq) in queries.items()}
+                torch.cuda.synchronize()
+                runs[mode] = (replies, launches())
+        # latency of both batch functions at every bucket, mesh and
+        # single in turns (M, s, s, M), MESH_REPS a bucket and turn
+        lat = collections.defaultdict(list)
+        for mode in ("mesh", "single", "single", "mesh"):
+            with (without_mesh(server) if mode == "single"
+                  else contextlib.nullcontext()):
+                for b, (fq, cq) in queries.items():
+                    for kind, fn, arg in (("inference",
+                                           server.inference_batch, fq),
+                                          ("recognize",
+                                           server.recognize_batch, cq)):
+                        for _ in range(MESH_REPS):
+                            t0 = time.perf_counter()
+                            fn(arg)
+                            lat[f"{kind}_ms_b{b}_{mode}"].append(
+                                (time.perf_counter() - t0) * 1e3)
+        if runs["mesh"][1] != runs["single"][1]:
+            raise AssertionError(f"{name}: launches on the mesh "
+                                 f"{runs['mesh'][1]} against "
+                                 f"{runs['single'][1]}")
+        for b in server.batch_buckets:
+            (ws, rec), (sws, srec) = runs["mesh"][0][b], runs["single"][0][b]
+            _same_replies(ws, sws, f"{name} mesh WS bucket {b}")
+            _same_replies(rec, srec, f"{name} mesh /recognize bucket {b}")
+            for j in range(min(b, 4)):
+                for kind, reply in (("f", ws[j]), ("c", rec[j])):
+                    if reply is None or reply["userId"] != f"{kind}{j:02d}":
+                        raise AssertionError(f"{name} bucket {b}: enrolled "
+                                             f"{kind}{j:02d} got {reply}")
+        int8 = bool(cfg.rec_quantize)
+        counts = runs["mesh"][1]
+        forwards = 2 * len(server.batch_buckets)
+        if counts["cosine_topk_int8" if int8 else "cosine_topk"] != \
+                forwards or counts["conv_s8" if int8 else "ir_block"] != \
+                (52 if int8 else IR_BLOCKS_PER_FORWARD) * forwards:
+            raise AssertionError(f"{name}: launches {counts}")
+        rec = {"phase": "mesh_server", "config": f"configs/{name}.json",
+               "mesh": server.mesh.shape, "buckets": server.batch_buckets,
+               "users": 2 * MESH_USERS, "launches": counts,
+               "replies_equal": True,
+               **{k: statistics.median(v) for k, v in sorted(lat.items())}}
+        emit(rec)
+        return rec
+    finally:
+        server.close()
+
+
+def phase_server_mesh(device, repo_dir, seed=19):
+    """The mesh paths on the card (``server_mesh``): the row-sharded search
+    (``mesh_search_cases``), configs/default.json's pipeline on a
+    {"data": 2, "gallery": 2} mesh (``mesh_pipeline_case``), a
+    {"gallery": 1} server of each shipped config against the same server
+    without its mesh (``mesh_server_case``), and the refusal of a mesh
+    that needs one GPU more than the machine has. Positions share the
+    card where it has fewer GPUs than the mesh has positions. Returns
+    each kernel's launches on the mesh paths."""
+    import cv2
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.server import FaceServer
+
+    cases = mesh_search_cases(device)
+    pipeline = mesh_pipeline_case(device, repo_dir)
+    rng = np.random.default_rng(seed)
+    servers = []
+    with tempfile.TemporaryDirectory() as tmp:
+        crops_dir = os.path.join(tmp, "calibration")
+        os.mkdir(crops_dir)
+        for i in range(16):
+            cv2.imwrite(os.path.join(crops_dir, f"c{i:02d}.png"),
+                        rng.integers(0, 256, (112, 112, 3), dtype=np.uint8))
+        for name in ENGINE_CONFIGS:
+            servers.append(mesh_server_case(device, repo_dir, name, tmp,
+                                            crops_dir, rng))
+        n = torch.cuda.device_count() + 1
+        cfg = dataclasses.replace(
+            load_config(os.path.join(repo_dir, "configs", "default.json")),
+            mesh_shape={"gallery": n},
+            database_path=os.path.join(tmp, "refused.db"))
+        try:
+            FaceServer(cfg, device=device, warmup=False)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError(f"a {n}-GPU mesh started on "
+                                 f"{n - 1} GPU(s)")
+        if f"mesh needs {n} devices, have {n - 1}" not in refusal:
+            raise AssertionError(f"refusal: {refusal}")
+    paths = {"pipeline_data2_gallery2": pipeline["launches"],
+             **{f"server_gallery1_{r['config'][8:-5]}": r["launches"]
+                for r in servers}}
+    emit({"phase": "server_mesh", "refusal": refusal,
+          "search_cases": len(cases), "launches": paths})
+    return {name: {p: c[name] for p, c in paths.items()}
+            for name in _wrappers()}, cases
+
+
 def call_trace(fn, arg, top=8):
     """One call ``fn(arg)`` (after one untimed) under ``torch.profiler``:
     host ms to its device sync, the device's busy ms (kernels and
@@ -3395,7 +3799,8 @@ def main(argv) -> int:
     alone (``server_remainder``); ``--align``: the served alignment's and
     crop's ms alone (``align_times``), which runs on older checkouts too;
     ``--train``: training, its round trip to a server, and the 256-wide
-    server alone (``train``). None of the nine prints an ``ok`` line."""
+    server alone (``train``); ``--mesh``: the mesh paths alone
+    (``server_mesh``). None of the ten prints an ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3418,7 +3823,7 @@ def main(argv) -> int:
              "--gen": ["cosine_topk", "ir_block"],
              "--detectors": ["conv_s8", "cosine_topk", "ir_block"],
              "--engines": None, "--remainder": None, "--align": [],
-             "--train": ["cosine_topk", "ir_block"]}
+             "--train": ["cosine_topk", "ir_block"], "--mesh": None}
     mode = argv[0] if len(argv) == 1 and argv[0] in modes else None
     if argv and mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -3439,6 +3844,10 @@ def main(argv) -> int:
         return 0
     if mode == "--train":
         phase_train("cuda", repo_dir, power)
+        print(power, flush=True)
+        return 0
+    if mode == "--mesh":
+        phase_server_mesh("cuda", repo_dir)
         print(power, flush=True)
         return 0
     if mode == "--align":
@@ -3493,6 +3902,7 @@ def main(argv) -> int:
     engines, dispatch = phase_server_engines("cuda", repo_dir)
     native_path, residual_path, _ = phase_server_remainder("cuda", repo_dir)
     phase_train("cuda", repo_dir, power)
+    mesh_launches, _ = phase_server_mesh("cuda", repo_dir)
     # each kernel's launches on the engine-served paths, per config, and
     # on server_remainder's native-pixels (both servers) and residual paths
     engine_launches = {e["config"]: e["launches"] for e in engines}
@@ -3500,7 +3910,8 @@ def main(argv) -> int:
 
     def on_engines(name):
         out = {"engine_launches": {c: n[name]
-                                   for c, n in engine_launches.items()}}
+                                   for c, n in engine_launches.items()},
+               "mesh_launches": mesh_launches[name]}
         if name in ("cosine_topk", "ir_block"):
             out["native_pixels_launches"] = (
                 None if native_launches is None else

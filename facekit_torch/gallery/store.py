@@ -22,7 +22,14 @@ padding rows, and a float32 host mirror:
     that width; ``embed_dim`` stays the width ``load``, ``add``, the host
     mirror and the queries have. Zero columns change no score, no row
     maximum and so no int8 scale. On the CPU the rows are ``embed_dim``
-    wide. Wider than 512 is refused.
+    wide. Wider than 512 is refused;
+  * with ``mesh`` the device rows are row-sharded over ``mesh_axis``
+    (``parallel.shard_gallery``: block s on every device at coordinate s,
+    the int8 scales sharded with them) and searched with
+    ``parallel.sharded_cosine_topk`` (``facekit/gallery/store.py:76-160,
+    249-283``); every bucket must be a multiple of the shard count, which
+    is checked at construction, and ``add`` writes the row into each copy
+    of its block only. The host mirror and ``load`` stay as they are.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import torch
 from facekit_torch.ops.similarity import (DIM, cosine_topk,
                                           cosine_topk_int8, pad_width,
                                           quantize_rows_int8)
+from facekit_torch.parallel import ShardedRows, shard_gallery, \
+    sharded_cosine_topk
 from facekit_torch.utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -52,8 +61,9 @@ def _bucket_capacity(n: int, buckets: Sequence[int]) -> int:
 
 
 class GallerySnapshot(NamedTuple):
-    """Consistent view: the tensor, its live count, the matching names and,
-    for an int8 gallery, its per-row scales (None otherwise)."""
+    """Consistent view: the tensor (a ``ShardedRows`` on a mesh), its live
+    count, the matching names and, for an int8 gallery, its per-row scales
+    (None otherwise)."""
     arr: torch.Tensor
     count: int
     names: List[str]
@@ -65,7 +75,11 @@ class GalleryStore:
 
     def __init__(self, embed_dim: int = 512,
                  buckets: Sequence[int] = (1024, 8192, 65536, 1 << 20),
-                 dtype: str = "bfloat16", device=None):
+                 dtype: str = "bfloat16", device=None, mesh=None,
+                 mesh_axis: str = "gallery"):
+        """``device`` defaults to ``"cuda"``; with ``mesh`` (a
+        ``parallel.Mesh``) the rows shard over ``mesh_axis`` and the
+        store's own device is the mesh's home."""
         if dtype not in _DTYPES:
             raise ValueError(f"gallery_dtype {dtype!r}: one of "
                              f"{sorted(_DTYPES)}")
@@ -77,6 +91,19 @@ class GalleryStore:
         self.dtype = _DTYPES[dtype]
         self.quantized = dtype == "int8"
         self._scales: Optional[torch.Tensor] = None
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is not None:
+            if mesh_axis not in mesh.shape:
+                raise ValueError(f"mesh {mesh.shape} has no axis "
+                                 f"{mesh_axis!r}")
+            shards = mesh.shape[mesh_axis]
+            bad = [b for b in self.buckets if b % shards]
+            if bad:
+                raise ValueError(
+                    f"gallery_bucket_sizes {bad} are not multiples of the "
+                    f"{shards} shards of mesh axis {mesh_axis!r}")
+            device = mesh.home
         self.device = resolve_device(device)
         # width of the device rows (see the module docstring)
         self._width = DIM if self.device.type == "cuda" else embed_dim
@@ -111,9 +138,17 @@ class GalleryStore:
         rows = pad_width(torch.from_numpy(self._host_buf).to(
             self.device, copy=True), self._width)
         if self.quantized:
-            self._device_arr, self._scales = quantize_rows_int8(rows)
+            arr, scales = quantize_rows_int8(rows)
+            self._scales = self._place(scales)
         else:
-            self._device_arr = rows.to(self.dtype)
+            arr = rows.to(self.dtype)
+        self._device_arr = self._place(arr)
+
+    def _place(self, x: torch.Tensor):
+        """``x`` itself, or on a mesh ``x`` row-sharded (copied)."""
+        if self.mesh is None:
+            return x
+        return shard_gallery(x, self.mesh, self.mesh_axis)
 
     # -- mutation (mirrors addEmbedding/resetEmbeddings/initMatMul) ----------
 
@@ -154,10 +189,10 @@ class GalleryStore:
                             self._width)[0]
             if self.quantized:
                 q, scale = quantize_rows_int8(row[None])
-                self._device_arr[i] = q[0]
-                self._scales[i] = scale[0]
+                _write(self._device_arr, i, q[0])
+                _write(self._scales, i, scale[0])
             else:
-                self._device_arr[i] = row.to(self.dtype)
+                _write(self._device_arr, i, row.to(self.dtype))
 
     def reset(self) -> None:
         """Clear (reference resetEmbeddings, src/arcface.cpp:233-236)."""
@@ -190,10 +225,21 @@ class GalleryStore:
             raise ValueError(
                 "Feature matching: No faces in database")  # reference msg
         q = torch.as_tensor(queries).to(self.device)
-        if self.quantized:
-            vals, idx = cosine_topk_int8(arr, scales, q.float().contiguous(),
-                                         count, min(k, count))
+        q = (q.float() if self.quantized else q.to(self.dtype)).contiguous()
+        kk = min(k, count)
+        if self.mesh is not None:
+            vals, idx = sharded_cosine_topk(arr, q, count, kk, mesh=self.mesh,
+                                            axis=self.mesh_axis, scales=scales)
+        elif self.quantized:
+            vals, idx = cosine_topk_int8(arr, scales, q, count, kk)
         else:
-            vals, idx = cosine_topk(arr, q.to(self.dtype).contiguous(), count,
-                                    min(k, count))
+            vals, idx = cosine_topk(arr, q, count, kk)
         return vals.cpu().numpy(), idx.cpu().numpy(), names
+
+
+def _write(arr, i: int, value: torch.Tensor) -> None:
+    """Row (or scale) i of a device tensor or of a ``ShardedRows``."""
+    if isinstance(arr, ShardedRows):
+        arr.write(i, value)
+    else:
+        arr[i] = value

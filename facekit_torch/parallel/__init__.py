@@ -1,0 +1,7 @@
+from facekit_torch.parallel.mesh import Mesh, canonical, make_mesh  # noqa: F401
+from facekit_torch.parallel.sharded_search import (  # noqa: F401
+    ShardedRows,
+    shard_gallery,
+    shard_rows,
+    sharded_cosine_topk,
+)

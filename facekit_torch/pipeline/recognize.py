@@ -28,6 +28,17 @@ fixes its activation scales; the float weights stay on the host for that
 (``:373-416``). An int8 gallery is searched with the f32 embeddings
 (``_match_queries``, ``:208-225``).
 
+On a device mesh (``parallel.Mesh``; ``mesh=`` of ``recognize_and_match``,
+``embed_and_match`` and ``match_flat``, ``:192-252``) the batch splits
+over the mesh's ``"data"`` axis where its size divides the batch
+(``_mesh_data_axis``, one predicate for frames and queries): each data
+position runs detect -> align -> embed on its own replica of the
+networks (made once per device from the served ones; a device that
+stands at several positions reuses its replica), and the outputs are
+concatenated in frame order on the pipeline's device. The match goes to
+``parallel.sharded_cosine_topk`` over the gallery's shards, the queries
+split over ``"data"`` where it divides them (``_match_queries``).
+
 The bodies of the two serving programs are module functions of the
 networks and the frames, ``recognize_program`` and ``embed_program``
 (with ``detector_program``): the eager methods call them under
@@ -54,6 +65,7 @@ from facekit_torch.ops.boxes import Detections, select_faces_batch
 from facekit_torch.ops.preprocess import det_normalize, rec_normalize
 from facekit_torch.ops.resize import crop_resize, letterbox, resize_image
 from facekit_torch.ops.similarity import cosine_topk, cosine_topk_int8
+from facekit_torch.parallel import canonical, sharded_cosine_topk
 from facekit_torch.utils.device import resolve_device
 from facekit_torch.weights.bridge import from_jax
 
@@ -140,6 +152,27 @@ class FacePipeline:
 
     def _serve(self, net: ArcFace) -> None:
         self.rec_net = net.set_compute_dtype(self.dtype).to(self.device).eval()
+        # the other devices' replicas, made from the served networks
+        self._replicas: Dict[torch.device, tuple] = {}
+
+    def _replica(self, device):
+        """(det_net, rec_net, anchors) on ``device``: the served ones on
+        the pipeline's device, else copies made at first use."""
+        dev = canonical(device)
+        if dev == canonical(self.device):
+            return self.det_net, self.rec_net, getattr(self, "anchors", None)
+        if dev not in self._replicas:
+            # made outside inference mode (the first use is inside it):
+            # inference tensors carry no version counter, which the fused
+            # blocks' operand cache keys on
+            with torch.inference_mode(False):
+                det = (None if self.det_net is None
+                       else copy.deepcopy(self.det_net).to(dev))
+                anchors = (None if self.det_net is None
+                           else self.anchors.to(dev))
+                self._replicas[dev] = (
+                    det, copy.deepcopy(self.rec_net).to(dev), anchors)
+        return self._replicas[dev]
 
     def calibrate_embedder(self, crop_batches: Iterable,
                            headroom: float = CALIBRATION_HEADROOM) -> None:
@@ -177,8 +210,10 @@ class FacePipeline:
         """Detector outputs -> Detections with max_faces slots per frame,
         on the device the outputs lie on."""
         cfg = self.config
+        anchors = (self.anchors if loc.device == self.anchors.device
+                   else self._replica(loc.device)[2])
         return select_faces_batch(
-            loc, conf, self.anchors, cfg.frame_hw, cfg.det_hw,
+            loc, conf, anchors, cfg.frame_hw, cfg.det_hw,
             max_faces=cfg.det_maxFacesPerScene,
             score_threshold=cfg.det_threshold_bbox,
             iou_threshold=cfg.det_threshold_nms, nms_top_k=cfg.det_nmsTopK,
@@ -216,17 +251,51 @@ class FacePipeline:
             _own_frames(frame_bgr, self.device)[None], return_crops)
         return FrameResult(*(None if t is None else t[0] for t in res))
 
+    @torch.inference_mode()
+    def _split(self, program, host, mesh, data_axis):
+        """``program(det_net, rec_net, x)`` over a batch: on the
+        pipeline's device, or, where ``_mesh_data_axis`` allows, one slice
+        per data position on its device and replica, the outputs (a
+        tensor or a tuple of tensors and Nones) concatenated in batch
+        order on the pipeline's device (facekit's ``_constrain_batch``)."""
+        axis = _mesh_data_axis(mesh, data_axis, len(host))
+        if axis is None:
+            return program(self.det_net, self.rec_net,
+                           _own_frames(host, self.device))
+        d = mesh.shape[axis]
+        m = len(host) // d
+        outs = []
+        for j in range(d):
+            dev = canonical(mesh.device_at(**{axis: j}))
+            det, rec, _ = self._replica(dev)
+            outs.append(program(det, rec,
+                                _own_frames(host[j * m:(j + 1) * m], dev)))
+        home = canonical(self.device)
+
+        def cat(parts):
+            return torch.cat([p.to(home) for p in parts])
+        if isinstance(outs[0], torch.Tensor):
+            return cat(outs)
+        return type(outs[0])(*(None if parts[0] is None else cat(parts)
+                               for parts in zip(*outs)))
+
     def recognize_and_match(self, frames_bgr, gallery_arr: torch.Tensor,
                             count: int, k: int = 1,
                             return_crops: bool = False,
-                            gallery_scale: Optional[torch.Tensor] = None):
+                            gallery_scale: Optional[torch.Tensor] = None,
+                            mesh=None, gallery_axis: str = "gallery",
+                            data_axis: str = "data"):
         """Frames -> (FrameResult, sims (N, F, k), gallery idx (N, F, k)):
         the WS ``/inference`` batch. Pass the fields of a
-        ``GalleryStore.snapshot()``; an int8 gallery needs its scales."""
-        res = self._recognize_frames(_own_frames(frames_bgr, self.device),
-                                     return_crops)
+        ``GalleryStore.snapshot()`` (and the store's mesh for a sharded
+        one); an int8 gallery needs its scales."""
+        res = self._split(
+            lambda det, rec, x: recognize_program(self, det, rec, x,
+                                                  return_crops),
+            frames_bgr, mesh, data_axis)
         vals, idx = self.match_flat(res.embeddings, gallery_arr, count, k,
-                                    gallery_scale)
+                                    gallery_scale, mesh, gallery_axis,
+                                    data_axis)
         return res, vals, idx
 
     # -- pre-cropped faces ----------------------------------------------------
@@ -239,28 +308,29 @@ class FacePipeline:
     @torch.inference_mode()
     def match_flat(self, flat_embeddings, gallery_arr: torch.Tensor,
                    count: int, k: int = 1,
-                   gallery_scale: Optional[torch.Tensor] = None):
-        """Gallery match only: (..., D) embeddings -> (sims (..., k), idx).
-        An int8 gallery (with its per-row ``gallery_scale``) takes the f32
-        embeddings; a float one takes them cast to its dtype."""
+                   gallery_scale: Optional[torch.Tensor] = None,
+                   mesh=None, gallery_axis: str = "gallery",
+                   data_axis: str = "data"):
+        """Gallery match only: (..., D) embeddings -> (sims (..., k), idx)
+        (``_match_queries``)."""
         flat = torch.as_tensor(flat_embeddings, device=self.device)
         lead = flat.shape[:-1]
-        q = flat.reshape(-1, flat.shape[-1])
-        if gallery_arr.dtype == torch.int8:
-            vals, idx = cosine_topk_int8(gallery_arr, gallery_scale,
-                                         q.float().contiguous(), count, k)
-        else:
-            vals, idx = cosine_topk(gallery_arr,
-                                    q.to(gallery_arr.dtype).contiguous(),
-                                    count, k)
+        vals, idx = _match_queries(gallery_arr, gallery_scale,
+                                   flat.reshape(-1, flat.shape[-1]), count,
+                                   k, mesh, gallery_axis, data_axis)
         return vals.reshape(*lead, -1), idx.reshape(*lead, -1)
 
     def embed_and_match(self, imgs_bgr, gallery_arr: torch.Tensor,
                         count: int, k: int = 1,
-                        gallery_scale: Optional[torch.Tensor] = None):
-        """(N, rec_h, rec_w, 3) crops -> (emb (N, D), sims (N, k), idx)."""
-        emb = self._embed(_own_frames(imgs_bgr, self.device))
-        vals, idx = self.match_flat(emb, gallery_arr, count, k, gallery_scale)
+                        gallery_scale: Optional[torch.Tensor] = None,
+                        mesh=None, gallery_axis: str = "gallery",
+                        data_axis: str = "data"):
+        """(N, rec_h, rec_w, 3) crops -> (emb (N, D), sims (N, k), idx);
+        ``mesh`` as in ``recognize_and_match``."""
+        emb = self._split(lambda det, rec, x: embed_program(rec, x),
+                          imgs_bgr, mesh, data_axis)
+        vals, idx = self.match_flat(emb, gallery_arr, count, k, gallery_scale,
+                                    mesh, gallery_axis, data_axis)
         return emb, vals, idx
 
     @torch.inference_mode()
@@ -276,6 +346,40 @@ class FacePipeline:
     def embed_cropped_batch(self, imgs_bgr) -> np.ndarray:
         """(N, rec_h, rec_w, 3) BGR pre-resized crops -> (N, D)."""
         return self._embed(_own_frames(imgs_bgr, self.device)).cpu().numpy()
+
+
+def _mesh_data_axis(mesh, data_axis, batch: int):
+    """The mesh axis a leading dim of ``batch`` splits over, or None when
+    the mesh or the axis is absent, of size 1, or does not divide it
+    (``facekit/pipeline/recognize.py:228-242``). One predicate for the
+    frame batch and the query batch, which differ (N frames, N * F
+    queries): queries can split where a small frame batch cannot."""
+    if (mesh is None or data_axis is None or data_axis not in mesh.shape
+            or mesh.shape[data_axis] <= 1
+            or batch % mesh.shape[data_axis] != 0):
+        return None
+    return data_axis
+
+
+def _match_queries(gallery, gallery_scale, flat: torch.Tensor, count: int,
+                   k: int, mesh=None, gallery_axis: str = "gallery",
+                   data_axis: str = "data"):
+    """A (B, D) query batch to the search of its gallery
+    (``facekit/pipeline/recognize.py:192-225``), {one device, mesh} x
+    {float, int8}: an int8 gallery (with its per-row ``gallery_scale``)
+    takes the f32 queries, a float one the queries cast to its dtype; a
+    mesh's sharded gallery goes to ``sharded_cosine_topk``, the queries
+    split over ``data_axis`` where it divides them."""
+    quantized = gallery.dtype == torch.int8
+    q = (flat.float() if quantized else flat.to(gallery.dtype)).contiguous()
+    if mesh is not None:
+        return sharded_cosine_topk(
+            gallery, q, count, k, mesh=mesh, axis=gallery_axis,
+            query_axis=_mesh_data_axis(mesh, data_axis, q.shape[0]),
+            scales=gallery_scale)
+    if quantized:
+        return cosine_topk_int8(gallery, gallery_scale, q, count, k)
+    return cosine_topk(gallery, q, count, k)
 
 
 # -- the serving programs, shared by the eager methods above and the

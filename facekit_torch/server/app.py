@@ -28,6 +28,15 @@ With ``--engines DIR`` (``extras.server_enginesDir``) WS ``/inference``
 and ``/recognize`` run the exported engines of ``facekit_torch.engine``
 and then the gallery match; enrollment stays eager.
 
+With ``mesh_shape`` (``{"data": D, "gallery": G}``, either axis optional,
+``"gallery"`` 1 when absent) one process serves on a mesh of every local
+GPU (``facekit/server/app.py:246-273``): the gallery rows shard over
+``"gallery"``, each batch splits over ``"data"`` (the batch buckets are
+rounded up to multiples of D), and results gather on the mesh's first
+device, where enrollment runs. A mesh that needs more GPUs than there are
+is refused at start; with ``device="cpu"`` the CPU stands at every
+position.
+
 Host pixel work (decode, resize, the reply's JPEG) uses OpenCV, or the
 port's native C++ runtime (``facekit_torch.native``) when cv2 is missing
 or ``extras.server_hostOps`` is "native" (``host_pixels``). A config that
@@ -47,6 +56,7 @@ import base64
 import concurrent.futures
 import json
 import logging
+import math
 import os
 import time
 from typing import Any, Dict, List, Optional
@@ -57,6 +67,7 @@ import torch
 from facekit_torch.db import Database
 from facekit_torch.engine import engine_states, load_serving_engines
 from facekit_torch.gallery import GalleryStore
+from facekit_torch.parallel import make_mesh
 from facekit_torch.pipeline import FacePipeline
 from facekit_torch.pipeline.recognize import (CALIBRATION_HEADROOM,
                                               FrameResult, _own_frames)
@@ -159,16 +170,19 @@ def host_pixels(config):
     return _NativePixels()
 
 
-def refuse_unported(config) -> None:
+def refuse_unported(config, engines_dir=None) -> None:
     """Raise for a config that needs a part the port does not have: a
-    mesh (multi-GPU serving, not ported yet) or a live profiler server
-    (none in torch: ``facekit_torch.utils.profile_trace`` writes a
-    trace instead)."""
+    mesh served from engines (``engines_dir`` or
+    ``extras.server_enginesDir``), which takes identify engines, not
+    ported yet, or a live profiler server (none in torch:
+    ``facekit_torch.utils.profile_trace`` writes a trace instead)."""
     reasons = []
-    if config.mesh_shape:
-        reasons.append("mesh_shape needs multi-GPU serving, with or without "
-                       "server_enginesDir (identify engines; ROADMAP.md "
-                       "Queue 1, parallel)")
+    if config.mesh_shape and (engines_dir
+                              or config.extras.get("server_enginesDir")):
+        reasons.append("mesh_shape with server_enginesDir serves from "
+                       "identify engines, which are not ported yet (the "
+                       "next slice: ROADMAP.md Queue 1); a mesh serves "
+                       "eagerly without engines")
     if config.extras.get("profiler_port"):
         reasons.append("profiler_port (a live profiler server) is not ported: "
                        "torch has no attachable profiler server; "
@@ -290,14 +304,26 @@ class FaceServer:
                  device=None, det_params=None, engines_dir=None):
         """``rec_params`` / ``det_params``: embedder and detector params in
         facekit's layout; None loads them as ``model_params`` does.
-        ``device`` defaults to ``"cuda"``. ``engines_dir`` (or
+        ``device`` defaults to ``"cuda"``; with ``config.mesh_shape`` the
+        server's device becomes the mesh's first (see the module
+        docstring). ``engines_dir`` (or
         ``extras.server_enginesDir``): serve WS /inference and /recognize
         from the engines exported there (``python -m facekit_torch.engine
         export``), one recognize / embed pair per batch bucket; the
         enrollment paths stay eager."""
-        refuse_unported(config)
+        refuse_unported(config, engines_dir)
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = None
+        if config.mesh_shape:
+            # the gallery rows shard over "gallery", the batch over
+            # "data"; a missing gallery axis is size 1 (pure data)
+            shape = dict(config.mesh_shape)
+            shape.setdefault("gallery", 1)
+            self.mesh = make_mesh(shape, devices=(
+                [self.device] * math.prod(shape.values())
+                if self.device.type == "cpu" else None))
+            self.device = self.mesh.home
         self.pixels = host_pixels(config)
         rec_params, det_params = model_params(config, rec_params, det_params)
         self.pipeline = FacePipeline(config, rec_params, det_params,
@@ -314,6 +340,10 @@ class FaceServer:
         raw_buckets = config.extras.get("server_batchBuckets")
         buckets = ([int(b) for b in raw_buckets] if raw_buckets
                    else [self.batch_size])
+        if self.mesh is not None and "data" in self.mesh.shape:
+            # padded batches split over the data axis: keep them divisible
+            d = self.mesh.shape["data"]
+            buckets = [-(-b // d) * d for b in buckets]
         self.batch_buckets = sorted(set(buckets))
         self.batch_size = self.batch_buckets[-1]
         self.batch_wait_ms = float(config.extras.get("server_batchWaitMs", 3.0))
@@ -332,7 +362,7 @@ class FaceServer:
         self.gallery = GalleryStore(embed_dim=config.rec_outputDim,
                                     buckets=config.gallery_bucket_sizes,
                                     dtype=config.gallery_dtype,
-                                    device=self.device)
+                                    device=self.device, mesh=self.mesh)
         self.user_dict: Dict[str, str] = self.db.get_user_dict()
         self.reload_gallery()
         # one worker: device work serializes on the card anyway
@@ -382,7 +412,8 @@ class FaceServer:
         batch B and the match, or the eager pipeline."""
         if self.engines is None:
             return self.pipeline.embed_and_match(crops, snap.arr, snap.count,
-                                                 gallery_scale=snap.scales)
+                                                 gallery_scale=snap.scales,
+                                                 mesh=self.mesh)
         fn = self.engines["embed"][crops.shape[0]]
         with torch.inference_mode():
             emb = fn(self._rec_state, _own_frames(crops, self.device))
@@ -415,7 +446,7 @@ class FaceServer:
         if self.engines is None:
             return self.pipeline.recognize_and_match(
                 frames, snap.arr, snap.count, return_crops=True,
-                gallery_scale=snap.scales)
+                gallery_scale=snap.scales, mesh=self.mesh)
         fn = self.engines["recognize"][frames.shape[0]]
         with torch.inference_mode():
             boxes, scores, valid, emb, crops = fn(

@@ -199,10 +199,8 @@ def test_recognize_batch_pads_to_buckets(servers):
 
 
 @pytest.mark.parametrize("override", [
-    {"mesh_shape": {"gallery": 4}},
-    {"mesh_shape": {"data": 2}},
-    # engines alone serve since they were ported; with a mesh (identify
-    # engines) they are still refused
+    # engines alone serve since they were ported, and a mesh alone too;
+    # a mesh served from engines needs identify engines, still refused
     {"mesh_shape": {"gallery": 4},
      "extras": {"server_enginesDir": "/tmp/engines"}},
     {"extras": {"profiler_port": 9999}}])
@@ -211,6 +209,28 @@ def test_unported_configs_are_refused(override, tmp_path):
     cfg = dataclasses.replace(cfg, **override)
     with pytest.raises(ValueError, match="not ported"):
         FaceServer(cfg, warmup=False, device="cpu")
+    if cfg.mesh_shape:
+        with pytest.raises(ValueError, match="identify engines"):
+            FaceServer(dataclasses.replace(cfg, extras={}), warmup=False,
+                       device="cpu", engines_dir="/tmp/engines")
+
+
+@pytest.mark.parametrize("mesh_shape", [{"gallery": 4}, {"data": 2}])
+def test_mesh_configs_start(mesh_shape, tmp_path):
+    """A mesh alone serves eagerly (tests/test_torch_mesh_server.py holds
+    it to facekit's mesh server): on the CPU every position is the CPU."""
+    cfg = FaceKitConfig(database_path=str(tmp_path / "x.db"),
+                        mesh_shape=mesh_shape, **_COMMON)
+    server = FaceServer(cfg, warmup=False, device="cpu")
+    try:
+        assert server.mesh.shape == {"gallery": 1, **mesh_shape}
+        assert server.gallery.mesh is server.mesh
+        assert len(server.gallery.snapshot().arr.blocks) == \
+            server.mesh.shape["gallery"]
+        assert all(b % mesh_shape.get("data", 1) == 0
+                   for b in server.batch_buckets)
+    finally:
+        server.close()
 
 
 # facekit's refusal (facekit/server/app.py:177-188): the residual flag is
@@ -457,8 +477,8 @@ def test_default_device_without_cuda_raises(tmp_path):
 def test_import_loads_no_jax_and_no_facekit(tmp_path):
     """In a fresh interpreter (this one has imported jax), importing every
     module of facekit_torch (the CLIs' ``__main__`` modules too, which run
-    nothing on import; ``facekit_torch.engine`` and ``facekit_torch.train``
-    among them), then exporting,
+    nothing on import; ``facekit_torch.engine``, ``facekit_torch.train``
+    and ``facekit_torch.parallel`` among them), then exporting,
     saving, loading and calling an engine, leaves jax and facekit out of
     sys.modules."""
     code = (
@@ -469,6 +489,7 @@ def test_import_loads_no_jax_and_no_facekit(tmp_path):
         "    importlib.import_module(m.name)\n"
         "assert 'facekit_torch.engine' in sys.modules\n"
         "assert 'facekit_torch.train.checkpoint' in sys.modules\n"
+        "assert 'facekit_torch.parallel.sharded_search' in sys.modules\n"
         "import torch\n"
         "from facekit_torch.config import FaceKitConfig\n"
         "from facekit_torch.engine import (engine_states, "
