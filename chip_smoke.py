@@ -62,7 +62,18 @@ configs/default.json's IR-50 pipeline on a ``{"data": 2, "gallery": 2}``
 mesh against the single-device program, a ``{"gallery": 1}`` server of
 each shipped config against the same server without its mesh, and the
 refusal of a mesh one GPU too large (mesh positions share the card when
-there are fewer GPUs than positions).
+there are fewer GPUs than positions); then ``server_identify``:
+configs/default.json's identify engine (the whole detect -> align ->
+embed -> match transaction as one exported program) on a ``{"data": 2,
+"gallery": 2}`` mesh at 1,048,576 rows, bit for bit and launch for
+launch against the eager mesh pipeline at two live counts, and a
+``{"gallery": 1}`` server of each shipped config booted from its
+identify engines, its WS /inference replies and launches against the
+same server's eager mesh path, latency of both, a reload past the
+frozen capacity and an engine on a mesh of another shape refused; then
+``train_dp``: IR-50 at batch 64, f32 and bf16, three data-parallel
+steps with the class-split head on a ``{"data": 2, "model": 2}`` mesh
+against the single-device step from the same state.
 Each path runs with every kernel's launch
 count set to 0 just before it and read just after. Prints one
 JSON line per phase, the ``kernels`` line, the card's name and power
@@ -80,7 +91,8 @@ it runs, the conv's ``ptxas`` line and ``server_detectors`` alone;
 ``--engines`` the build and ``server_engines`` alone; ``--remainder``
 the build and ``server_remainder`` alone; ``--train`` the build of the
 two kernels it serves with and ``train`` alone; ``--mesh`` the build and
-``server_mesh`` alone. ``weights_gen``,
+``server_mesh``, ``server_identify`` and ``train_dp`` alone;
+``--parallel`` the build and the last two alone. ``weights_gen``,
 ``server_detectors`` and ``server_remainder`` serve through aiohttp.
 """
 
@@ -2513,22 +2525,84 @@ ENGINE_CONFIGS = ("default", "throughput")
 ENGINE_REPS = 8              # latency samples per bucket, mode and turn
 
 
-def _engine_export_cli(repo_dir, device, cfg_path, out):
-    """``python -m facekit_torch.engine export -c CFG -o OUT`` on
-    ``device`` in its own process: (seconds, one record per file)."""
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "facekit_torch.engine", "export", "-c",
-         cfg_path, "-o", out, "--device", device], cwd=repo_dir,
-        capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    records = [json.loads(ln) for ln in res.stdout.splitlines()
-               if ln.startswith("{")]
-    if res.returncode != 0 or not records:
-        raise AssertionError(f"engine export CLI failed (rc "
-                             f"{res.returncode}): {res.stdout[-2000:]}"
-                             f"{res.stderr[-4000:]}")
-    return seconds, records
+class Exports:
+    """Export processes started together and waited for one by one: the
+    exports are host-bound (tracing), so processes beside each other
+    share the machine's cores. Each process is killed on the way out if
+    it has not ended."""
+
+    def __init__(self):
+        self.procs = {}
+
+    def start(self, key, argv, repo_dir):
+        # stderr into a file: a pipe nobody reads yet could fill and
+        # stall the process
+        err = tempfile.TemporaryFile(mode="w+")
+        self.procs[key] = (subprocess.Popen(
+            argv, cwd=repo_dir, stdout=subprocess.PIPE, stderr=err,
+            text=True), time.perf_counter(), err)
+
+    def cli(self, key, repo_dir, device, cfg_path, out, extra=()):
+        """``python -m facekit_torch.engine export -c CFG -o OUT`` on
+        ``device``."""
+        self.start(key, [sys.executable, "-m", "facekit_torch.engine",
+                         "export", "-c", cfg_path, "-o", out, "--device",
+                         device, *extra], repo_dir)
+
+    def identify(self, key, device, cfg_path, out, batches, rows, shape):
+        """Identify engines of ``cfg_path`` alone (``_export_identify``),
+        over a ``shape`` mesh at ``rows`` rows, one per batch; run from
+        this script's directory, which holds it and the package."""
+        self.start(key, [sys.executable, "-c",
+                         "import sys, chip_smoke; "
+                         "chip_smoke._export_identify(*sys.argv[1:])",
+                         device, cfg_path, out,
+                         ",".join(map(str, batches)), str(rows),
+                         json.dumps(shape)],
+                   os.path.dirname(os.path.abspath(__file__)))
+
+    def wait(self, key):
+        """(seconds from its start to its end, one record per file)."""
+        proc, t0, err = self.procs.pop(key)
+        out, _ = proc.communicate(timeout=900)
+        seconds = time.perf_counter() - t0
+        err.seek(0)
+        log = err.read()
+        err.close()
+        records = [json.loads(ln) for ln in out.splitlines()
+                   if ln.startswith("{")]
+        if proc.returncode != 0 or not records:
+            raise AssertionError(f"export {key} failed (rc "
+                                 f"{proc.returncode}): {out[-2000:]}"
+                                 f"{log[-4000:]}")
+        return seconds, records
+
+    def close(self):
+        for proc, _, err in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+            err.close()
+        self.procs.clear()
+
+
+def _export_identify(device, cfg_path, out, batches, rows, shape):
+    """The body of ``Exports.identify``'s process: the pipeline a server
+    of ``cfg_path`` serves with (``engine.export_pipeline``) on a mesh of
+    ``shape`` (``mesh_devices``), its identify engines exported into
+    ``out``, one JSON record per file on stdout."""
+    from facekit_torch.config import load_config
+    from facekit_torch.engine import export_identify_engines, export_pipeline
+    from facekit_torch.parallel import make_mesh
+
+    shape = json.loads(shape)
+    mesh = make_mesh(shape, devices=mesh_devices(
+        device, int(np.prod(list(shape.values())))))
+    pipe = export_pipeline(load_config(cfg_path), mesh.home)
+    for rec in export_identify_engines(
+            pipe, out, [int(b) for b in batches.split(",")], int(rows),
+            mesh):
+        print(json.dumps(rec), flush=True)
 
 
 @contextlib.contextmanager
@@ -2612,54 +2686,75 @@ def phase_server_engines(device, repo_dir, seed=10, n_users=8):
     embedding for embedding to the same server's eager pipeline, with
     the same kernel launches; then both latencies in turns. Random
     detector weights: threshold 0.5, as ``server_inference``. Last, the
-    dispatcher's cost per call (``dispatch_cost``)."""
+    dispatcher's cost per call (``dispatch_cost``). Both configs' CLIs
+    run side by side, so each export's seconds are those of two exports
+    sharing the host."""
     import cv2
-    import torch
-
-    from facekit_torch.config import load_config
-    from facekit_torch.server import FaceServer
 
     rng = np.random.default_rng(seed)
     results = []
+    exports = Exports()
     with tempfile.TemporaryDirectory() as tmp:
         crops_dir = os.path.join(tmp, "calibration")
         os.mkdir(crops_dir)
         for i in range(16):
             cv2.imwrite(os.path.join(crops_dir, f"c{i:02d}.png"),
                         rng.integers(0, 256, (112, 112, 3), dtype=np.uint8))
+        paths = {}
         for name in ENGINE_CONFIGS:
             with open(os.path.join(repo_dir, "configs", f"{name}.json")) as f:
                 raw = json.load(f)
             raw["det_threshold_bbox"] = DET_THRESHOLD
             if "rec_calibrationDir" in raw:
                 raw["rec_calibrationDir"] = crops_dir
-            cfg_path = os.path.join(tmp, f"{name}.json")
-            with open(cfg_path, "w") as f:
+            paths[name] = os.path.join(tmp, f"{name}.json")
+            with open(paths[name], "w") as f:
                 json.dump(raw, f)
-            eng_dir = os.path.join(tmp, f"{name}_engines")
-            export_s, files = _engine_export_cli(repo_dir, device, cfg_path,
-                                                 eng_dir)
-            cfg = load_config(cfg_path)
-            boot = {}
-            for mode in ("eager", "engines"):
-                run_cfg = dataclasses.replace(cfg, database_path=os.path.join(
-                    tmp, f"{name}_{mode}.db"))
-                t0 = time.perf_counter()
-                server = FaceServer(run_cfg, device=device, engines_dir=(
-                    eng_dir if mode == "engines" else None))
-                torch.cuda.synchronize()
-                boot[mode] = time.perf_counter() - t0
-                if mode == "eager":
-                    server.close()
-                    del server
-            try:
-                results.append(_engines_run(server, name, rng, n_users,
-                                            export_s, files, boot))
-            finally:
-                server.close()
+            # both configs' CLIs run side by side
+            exports.cli(name, repo_dir, device, paths[name],
+                        os.path.join(tmp, f"{name}_engines"))
+        try:
+            for name in ENGINE_CONFIGS:
+                cfg_path = paths[name]
+                eng_dir = os.path.join(tmp, f"{name}_engines")
+                export_s, files = exports.wait(name)
+                results.append(_engines_boot_run(
+                    device, tmp, name, cfg_path, eng_dir, rng, n_users,
+                    export_s, files))
+        finally:
+            exports.close()
     cost = dispatch_cost(device)
     emit({"phase": "dispatch_cost", **cost})
     return results, cost
+
+
+def _engines_boot_run(device, tmp, name, cfg_path, eng_dir, rng, n_users,
+                      export_s, files):
+    """Boot a server of ``cfg_path`` eagerly and from ``eng_dir``
+    (seconds each), then ``_engines_run`` on the engine-served one."""
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.server import FaceServer
+
+    cfg = load_config(cfg_path)
+    boot = {}
+    for mode in ("eager", "engines"):
+        run_cfg = dataclasses.replace(cfg, database_path=os.path.join(
+            tmp, f"{name}_{mode}.db"))
+        t0 = time.perf_counter()
+        server = FaceServer(run_cfg, device=device, engines_dir=(
+            eng_dir if mode == "engines" else None))
+        torch.cuda.synchronize()
+        boot[mode] = time.perf_counter() - t0
+        if mode == "eager":
+            server.close()
+            del server
+    try:
+        return _engines_run(server, name, rng, n_users, export_s, files,
+                            boot)
+    finally:
+        server.close()
 
 
 def _engines_run(server, name, rng, n_users, export_s, files, boot):
@@ -3756,6 +3851,586 @@ def phase_server_mesh(device, repo_dir, seed=19):
             for name in _wrappers()}, cases
 
 
+# -- server_identify: identify engines on a mesh; train_dp ---------------------
+
+IDENTIFY_ROWS = N_TOP            # the {"data": 2, "gallery": 2} engine's rows
+IDENTIFY_SERVER_ROWS = 65536     # the {"gallery": 1} servers' frozen capacity
+IDENTIFY_REPS = 5                # latency samples a bucket, mode and turn
+TRAIN_DP_STEPS = 3
+TRAIN_DP_TIMED = 8               # more steps of each, timed alone
+
+
+@contextlib.contextmanager
+def eager_identify(server):
+    """``server`` with its identify engines set aside: WS /inference runs
+    the eager mesh pipeline on the same params, mesh and gallery."""
+    engines, server.identify_engines = server.identify_engines, None
+    try:
+        yield server
+    finally:
+        server.identify_engines = engines
+
+
+def _max_errs(a, b):
+    return [float((x.float() - y.float()).abs().max()) for x, y in zip(a, b)]
+
+
+def identify_engine_case(device, cfg_path, out, export, seed=20):
+    """configs/default.json (RetinaFace-MobileNet0.25 at 288x320, bf16
+    IR-50, threshold DET_THRESHOLD) exported as an identify engine at
+    batch 8 on a {"data": 2, "gallery": 2} mesh at IDENTIFY_ROWS rows,
+    read back, and called at two live counts (1,000: the second shard
+    holds none; n_local + 5,000: both) against the eager mesh pipeline on
+    the same mesh, gallery and frames: every output bit for bit, the
+    launches equal (4 ``cosine_topk`` and 40 ``ir_block`` a call). The
+    engine comes from ``Exports.identify`` (``export``: its seconds and
+    files) into ``out``; load seconds; the engine refused on a mesh of
+    another shape. With four GPUs the engine exported on them is served
+    again on them in another order and on one of them at every position,
+    bit for bit against eager on each."""
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.engine import IdentifyEngine
+    from facekit_torch.parallel import make_mesh, shard_gallery
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.server.app import model_params
+
+    rng = np.random.default_rng(seed)
+    cfg = load_config(cfg_path)
+    pipe = FacePipeline(cfg, *model_params(cfg), device=device)
+    mesh = make_mesh({"data": 2, "gallery": 2},
+                     devices=mesh_devices(device, 4))
+    export_s, files = export
+    path = os.path.join(out, "identify.fke")
+    t0 = time.perf_counter()
+    eng = IdentifyEngine(path, mesh)
+    load_s = time.perf_counter() - t0
+    fh, fw = cfg.frame_hw
+    frames = rng.integers(0, 256, (8, fh, fw, 3), dtype=np.uint8)
+    # the gallery: random rows, the frames' faces in both shards
+    res = pipe.recognize_frames(frames)
+    faces = res.embeddings[res.valid].float()
+    n_local = IDENTIFY_ROWS // 2
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn((IDENTIFY_ROWS, DIM), generator=gen, device=device)
+    g = g / g.norm(dim=1, keepdim=True)
+    half = len(faces) // 2
+    g[:half] = faces[:half]
+    g[n_local + 10:n_local + 10 + len(faces) - half] = faces[half:]
+    gal = shard_gallery(g.to(torch.bfloat16), mesh)
+    del g
+    states = eng.states(pipe)
+    cases, total = [], collections.Counter()
+    for count in (1000, n_local + 5000):
+        runs = {}
+        for mode in ("engine", "eager"):
+            reset_launches()
+            if mode == "engine":
+                got = eng(*states, gal, count, frames)
+            else:
+                r, v, i = pipe.recognize_and_match(
+                    frames, gal, count, k=cfg.gallery_topk,
+                    return_crops=True, mesh=mesh)
+                got = (r.boxes, r.scores, r.valid, r.embeddings, v, i,
+                       r.crops)
+            torch.cuda.synchronize()
+            runs[mode] = (got, launches())
+        (got, n_eng), (want, n_eager) = runs["engine"], runs["eager"]
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"identify engine at count {count}: "
+                                 f"outputs differ from eager, max errors "
+                                 f"{_max_errs(got, want)}")
+        if n_eng != n_eager or n_eng["cosine_topk"] != 4 or \
+                n_eng["ir_block"] != 2 * IR_BLOCKS_PER_FORWARD:
+            raise AssertionError(f"identify engine launches {n_eng}, eager "
+                                 f"{n_eager}")
+        total.update(n_eng)
+        idx = got[5][got[2]]
+        cases.append({"count": count, "bit_equal": True, "launches": n_eng,
+                      "faces": int(got[2].sum()),
+                      "hits_second_shard": int((idx >= n_local).sum())})
+    try:
+        IdentifyEngine(path, make_mesh({"data": 1, "gallery": 4},
+                                       devices=mesh_devices(device, 4)))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("an engine of {data: 2, gallery: 2} loaded on "
+                             "a {data: 1, gallery: 4} mesh")
+    if "--identify-mesh data=1,gallery=4" not in refusal:
+        raise AssertionError(f"refusal: {refusal}")
+    del gal, eng
+    torch.cuda.empty_cache()
+    # with four GPUs, the engine exported on them is also served on them
+    # in another order and on one of them at every position: its graph's
+    # devices mapped position by position (``engine.device_map``)
+    moved = {}
+    if mesh_devices(device, 4) is None:
+        n_local = IDENTIFY_ROWS // 2
+        g = torch.randn((IDENTIFY_ROWS, DIM), generator=gen, device=device)
+        g = (g / g.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        for name, devs in (("permuted", ["cuda:1", "cuda:0", "cuda:3",
+                                         "cuda:2"]),
+                           ("one_card", ["cuda:0"] * 4)):
+            m = make_mesh({"data": 2, "gallery": 2}, devices=devs)
+            eng = IdentifyEngine(path, m)
+            gal = shard_gallery(g, m)
+            for count in (1000, n_local + 5000):
+                reset_launches()
+                got = eng(*eng.states(pipe), gal, count, frames)
+                torch.cuda.synchronize()
+                n_eng = launches()
+                reset_launches()
+                r, v, i = pipe.recognize_and_match(
+                    frames, gal, count, k=cfg.gallery_topk,
+                    return_crops=True, mesh=m)
+                torch.cuda.synchronize()
+                # the engine gathers on its mesh's first device, the
+                # pipeline on its own: compared on the host
+                got = [t.cpu() for t in got]
+                want = [t.cpu() for t in (r.boxes, r.scores, r.valid,
+                                          r.embeddings, v, i, r.crops)]
+                if n_eng != launches() or not all(
+                        torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"identify engine on the {name} mesh at count "
+                        f"{count}: max errors {_max_errs(got, want)}")
+            moved[name] = [str(d) for d in m.devices.flat]
+            del eng, gal
+        del g
+        torch.cuda.empty_cache()
+    return {"config": "configs/default.json", "mesh": mesh.shape,
+            "devices": len({str(d) for d in mesh.devices.flat}),
+            "gallery_rows": IDENTIFY_ROWS, "batch": 8,
+            "export_process_s": export_s, "files": files,
+            "load_s": load_s, "counts": cases, "launches": dict(total),
+            "wrong_mesh_refusal": refusal,
+            "served_on_other_devices_bit_equal": moved or None}
+
+
+def _identify_config(repo_dir, name, tmp, crops_dir, mesh_shape, tag):
+    """configs/<name>.json with the phase's threshold, calibration crops,
+    ``mesh_shape`` and a database of its own, written into ``tmp``."""
+    with open(os.path.join(repo_dir, "configs", f"{name}.json")) as f:
+        raw = json.load(f)
+    raw["det_threshold_bbox"] = DET_THRESHOLD
+    if "rec_calibrationDir" in raw:
+        raw["rec_calibrationDir"] = crops_dir
+    if mesh_shape:
+        raw["mesh_shape"] = mesh_shape
+    raw["database_path"] = os.path.join(tmp, f"{name}_{tag}.db")
+    path = os.path.join(tmp, f"{name}_{tag}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def _ladder(cfg_path):
+    """The batch buckets a server of ``cfg_path`` serves on a mesh
+    without a data axis (``FaceServer``)."""
+    from facekit_torch.config import load_config
+    cfg = load_config(cfg_path)
+    return sorted({int(b) for b in (cfg.extras.get("server_batchBuckets")
+                                    or [cfg.extras.get("server_batchSize",
+                                                       8)])})
+
+
+def identify_server_case(device, name, cfg_path, eng_dir, export, rng):
+    """A ``{"gallery": 1}`` server of configs/<name>.json booted from
+    identify engines: exported at every bucket (``Exports.identify``:
+    its server's weights and calibration) at IDENTIFY_SERVER_ROWS rows,
+    then ``FaceServer(..., engines_dir=)`` (boot seconds, warmed).
+    MESH_USERS faces enrolled; WS /inference's batch function at every
+    bucket held reply for reply (crops pixel for pixel) and launch for
+    launch to the same server with its engines set aside (the eager mesh
+    path); latency of both in turns, medians of 20; a reload past the
+    frozen capacity refused while the old gallery keeps serving."""
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.server import FaceServer
+
+    cfg = load_config(cfg_path)
+    export_s, files = export
+    t0 = time.perf_counter()
+    server = FaceServer(cfg, device=device, engines_dir=eng_dir)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    try:
+        if sorted(server.identify_engines) != server.batch_buckets or \
+                server.gallery.capacity != IDENTIFY_SERVER_ROWS:
+            raise AssertionError(f"{name}: engines "
+                                 f"{sorted(server.identify_engines)}, "
+                                 f"capacity {server.gallery.capacity}")
+        fh, fw = cfg.frame_hw
+        frames = rng.integers(0, 256, (MESH_USERS, fh, fw, 3), np.uint8)
+        res = server.pipeline.recognize_frames(frames, return_crops=True)
+        spread = res.crops.std(dim=(2, 3, 4)).masked_fill(~res.valid, -1.0)
+        slot = spread.argmax(1).cpu()
+        for u in range(MESH_USERS):
+            uid = f"f{u:02d}"
+            server.db.insert_user(uid, uid.upper())
+            if server.db.insert_face(uid, f"{uid}.png", res.embeddings[
+                    u, slot[u]].cpu().numpy()) != 1:
+                raise AssertionError(f"insert_face failed for {uid}")
+        server.reload_gallery()
+
+        def batch(b):
+            m = min(b, 4)
+            return list(frames[:m]) + list(rng.integers(
+                0, 256, (b - m, fh, fw, 3), np.uint8))
+        queries = {b: batch(b) for b in server.batch_buckets}
+        runs = {}
+        for mode in ("engines", "eager"):
+            with (eager_identify(server) if mode == "eager"
+                  else contextlib.nullcontext()):
+                reset_launches()
+                replies = {b: server.inference_batch(q)
+                           for b, q in queries.items()}
+                torch.cuda.synchronize()
+                runs[mode] = (replies, launches())
+        if runs["engines"][1] != runs["eager"][1]:
+            raise AssertionError(f"{name}: launches from the identify "
+                                 f"engines {runs['engines'][1]} against "
+                                 f"eager {runs['eager'][1]}")
+        for b in server.batch_buckets:
+            ws, ews = runs["engines"][0][b], runs["eager"][0][b]
+            _same_replies(ws, ews, f"{name} identify WS bucket {b}")
+            for j in range(min(b, 4)):
+                if ws[j] is None or ws[j]["userId"] != f"f{j:02d}":
+                    raise AssertionError(f"{name} bucket {b}: enrolled "
+                                         f"f{j:02d} answered {ws[j]}")
+        counts = runs["engines"][1]
+        int8 = bool(cfg.rec_quantize)
+        n = len(server.batch_buckets)
+        if counts["cosine_topk_int8" if int8 else "cosine_topk"] != n or \
+                counts["conv_s8" if int8 else "ir_block"] != \
+                (SITES_PER_FORWARD if int8 else IR_BLOCKS_PER_FORWARD) * n:
+            raise AssertionError(f"{name}: launches {counts}")
+        lat = collections.defaultdict(list)
+        for mode in ("engines", "eager", "eager", "engines"):
+            with (eager_identify(server) if mode == "eager"
+                  else contextlib.nullcontext()):
+                for b, q in queries.items():
+                    for _ in range(IDENTIFY_REPS):
+                        t0 = time.perf_counter()
+                        server.inference_batch(q)
+                        lat[f"inference_ms_b{b}_{mode}"].append(
+                            (time.perf_counter() - t0) * 1e3)
+        # a reload that needs more rows than the engines froze: refused
+        # before the swap, the old gallery serving on
+        before = server.gallery.snapshot()
+        names, embs = server.db.get_embeddings()
+        extra = IDENTIFY_SERVER_ROWS + 1 - len(names)
+        more = rng.normal(size=(extra, embs.shape[1])).astype(np.float32)
+        grown = (names + [f"x{i}" for i in range(extra)],
+                 np.concatenate([embs, more]))
+        real, server.db.get_embeddings = server.db.get_embeddings, \
+            lambda: grown
+        try:
+            server.reload_gallery()
+        except ValueError as e:
+            reload_refusal = str(e)
+        else:
+            raise AssertionError(f"{name}: a reload past the frozen "
+                                 "capacity was taken")
+        finally:
+            server.db.get_embeddings = real
+        if "frozen at capacity" not in reload_refusal or \
+                server.gallery.snapshot().arr is not before.arr:
+            raise AssertionError(f"{name}: reload refusal "
+                                 f"{reload_refusal!r}")
+        after = server.inference_batch(queries[server.batch_buckets[0]])
+        _same_replies(after, runs["engines"][0][server.batch_buckets[0]],
+                      f"{name} after the refused reload")
+        return {"config": f"configs/{name}.json", "mesh": server.mesh.shape,
+                "buckets": server.batch_buckets,
+                "gallery_rows": IDENTIFY_SERVER_ROWS,
+                "export_process_s": export_s, "files": files,
+                "boot_s": boot_s, "users": MESH_USERS, "launches": counts,
+                "replies_equal": True, "reload_refusal": reload_refusal,
+                **{k: statistics.median(v) for k, v in sorted(lat.items())}}
+    finally:
+        server.close()
+
+
+def phase_server_identify(device, repo_dir, power, seed=20):
+    """Identify engines on the card (``server_identify``): the
+    ``{"data": 2, "gallery": 2}`` engine against the eager mesh pipeline
+    (``identify_engine_case``), then a ``{"gallery": 1}`` server of each
+    shipped config booted from its identify engines
+    (``identify_server_case``). Mesh positions share the card where it
+    has fewer GPUs. Returns each kernel's launches on these paths."""
+    import cv2
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    exports = Exports()
+    with tempfile.TemporaryDirectory() as tmp:
+        crops_dir = os.path.join(tmp, "calibration")
+        os.mkdir(crops_dir)
+        for i in range(16):
+            cv2.imwrite(os.path.join(crops_dir, f"c{i:02d}.png"),
+                        rng.integers(0, 256, (112, 112, 3), dtype=np.uint8))
+        # every engine of the phase exported side by side, each in a
+        # process of its own
+        data2 = _identify_config(repo_dir, "default", tmp, crops_dir, None,
+                                 "data2")
+        exports.identify("data2", device, data2,
+                         os.path.join(tmp, "data2_engines"), [8],
+                         IDENTIFY_ROWS, {"data": 2, "gallery": 2})
+        cfgs = {}
+        for name in ENGINE_CONFIGS:
+            cfgs[name] = _identify_config(repo_dir, name, tmp, crops_dir,
+                                          {"gallery": 1}, "identify")
+            exports.identify(name, device, cfgs[name],
+                             os.path.join(tmp, f"{name}_engines"),
+                             _ladder(cfgs[name]), IDENTIFY_SERVER_ROWS,
+                             {"gallery": 1})
+        try:
+            engine = identify_engine_case(
+                device, data2, os.path.join(tmp, "data2_engines"),
+                exports.wait("data2"), seed)
+            servers = [identify_server_case(
+                device, name, cfgs[name],
+                os.path.join(tmp, f"{name}_engines"), exports.wait(name),
+                rng) for name in ENGINE_CONFIGS]
+        finally:
+            exports.close()
+    paths = {"engine_data2_gallery2": engine["launches"],
+             **{f"server_gallery1_{r['config'][8:-5]}": r["launches"]
+                for r in servers}}
+    emit({"phase": "server_identify", "card": power, "engine": engine,
+          "servers": servers, "launches": paths,
+          "seconds": time.perf_counter() - t_phase})
+    return {name: {p: c.get(name, 0) for p, c in paths.items()}
+            for name in _wrappers()}
+
+
+def _dp_rel(a, b):
+    return float((a.double() - b.double()).norm()
+                 / max(float(b.double().norm()), 1e-30))
+
+
+def _timed_steps(step, state, x, labels, steps):
+    """``steps`` steps from ``state``: (states, losses, event ms, host ms
+    to issue, peak memory above the start, wall ms). The events are on
+    the current device; the wall ms run from the step's issue to the end
+    of its work on every device (each step synchronized), which is what
+    a mesh step over several cards takes."""
+    import torch
+    sync_all(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    states, losses, events, host, wall = [], [], [], [], []
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        state, loss = step(state, x, labels)
+        ev[1].record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        sync_all(torch)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        events.append(ev)
+        states.append(state)
+        losses.append(loss)
+    return (states, [float(v) for v in losses],
+            [a.elapsed_time(b) for a, b in events], host,
+            torch.cuda.max_memory_allocated() - base, wall)
+
+
+def sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _cast_state(state, dtype):
+    """A one-device train state with every tensor in ``dtype``."""
+    from facekit_torch.train import TrainState
+
+    def cast(d):
+        return {k: v.to(dtype) for k, v in d.items()}
+    return TrainState(cast(state.params), cast(state.head),
+                      {k: cast(v) for k, v in state.momentum.items()},
+                      state.step)
+
+
+def _update_rels(state0, a, b):
+    """Each leaf's update from ``state0`` in ``a`` (a placed or one-device
+    state) against its update in ``b``, norm-relative: ({leaf: distance},
+    the head as "head.w"; the distance over all backbone leaves at
+    once)."""
+    import torch
+
+    from facekit_torch.parallel import gather
+
+    def upd(st, k):
+        if k == "head.w":
+            return gather(st.head["w"]).double() - state0.head["w"].double()
+        return gather(st.params[k]).double() - state0.params[k].double()
+    leaves = list(state0.params)
+    rels = {k: _dp_rel(upd(a, k), upd(b, k)) for k in leaves + ["head.w"]}
+    whole = _dp_rel(torch.cat([upd(a, k).flatten() for k in leaves]),
+                    torch.cat([upd(b, k).flatten() for k in leaves]))
+    return rels, whole
+
+
+def _worst(rels):
+    """(distance, leaf) of the farthest leaf."""
+    return max((v, k) for k, v in rels.items())
+
+
+# train_dp's gates. float64: the mesh step is the single-device step to
+# rounding. f32 and bf16: the mesh step lies no farther from the float64
+# step than DP_F64_RATIO times the single-device step in its dtype does
+# (worst leaf and all leaves), and its loss within DP_LOSS_BAR of the
+# single-device step's
+DP_F64_BARS = (1e-12, 1e-8)      # loss, worst leaf (both steps float64)
+DP_F64_RATIO = 3.0
+DP_LOSS_BAR = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def phase_train_dp(device, repo_dir, power, seed=21, network="ir_50",
+                   batch=TRAIN_BATCH, steps=TRAIN_DP_STEPS):
+    """The data-parallel step with the class-split head on the card
+    (``train_dp``): IR-50 at batch ``batch`` (synthetic identities, as
+    ``train``) on a ``{"data": 2, "model": 2}`` mesh from a state placed
+    by ``train_shardings``, and the single-device step from the same
+    state, ``steps`` steps each in float64, f32 and bf16. Per step: in
+    float64 the mesh step against the single-device step (loss, worst
+    leaf); in f32 and bf16 the same, and each step against the float64
+    single-device step (worst leaf and all leaves; for the f32 mesh
+    step's worst leaf, that leaf's distance in the f32 single-device
+    step), gated by ``DP_F64_BARS``, ``DP_F64_RATIO`` and
+    ``DP_LOSS_BAR``. Step ms (medians of ``TRAIN_DP_TIMED`` more steps of
+    each) by CUDA events and by the wall clock to the end of the work on
+    every device, host ms to issue, peak memory, and
+    a traced mesh step's device operations and idle share; the head
+    split over "model" after every step; no kernel launched. The record
+    is printed before a gate fails."""
+    import torch
+
+    from facekit_torch.parallel import ShardedRows, make_mesh
+    from facekit_torch.train import (make_train_step, place_state,
+                                     train_shardings, train_state_init)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    sample = synthetic_faces(rng, batch, (112, 112))
+    crops = np.stack([sample(k) for k in range(batch)])
+    labels = np.arange(batch, dtype=np.int32)
+    x = (crops[..., ::-1].astype(np.float32) - 127.5) * 0.0078125
+    state0 = train_state_init(batch, network, lr=TRAIN_LR, seed=seed,
+                              device=device)
+    mesh = make_mesh({"data": 2, "model": 2},
+                     devices=mesh_devices(device, 4))
+    shardings = train_shardings(state0, mesh)[0]
+    failures = []
+    reset_launches()
+    # the float64 reference: both steps with no f32 rounding
+    state64 = _cast_state(state0, torch.float64)
+    step64 = make_train_step(network, lr=TRAIN_LR,
+                             compute_dtype=torch.float64)
+    single64 = _timed_steps(step64, state64, x, labels, steps)
+    meshed64 = _timed_steps(step64, place_state(state64, shardings), x,
+                            labels, steps)
+    f64_steps = []
+    for i in range(steps):
+        a, b = single64[0][i], meshed64[0][i]
+        rels, whole = _update_rels(state64, b, a)
+        worst = _worst(rels)
+        rec64 = {"loss_single": single64[1][i], "loss_mesh": meshed64[1][i],
+                 "loss_rel": abs(meshed64[1][i] - single64[1][i])
+                 / abs(single64[1][i]),
+                 "worst_update_rel": worst[0], "worst_leaf": worst[1],
+                 "all_updates_rel": whole}
+        f64_steps.append(rec64)
+        if not (rec64["loss_rel"] <= DP_F64_BARS[0]
+                and worst[0] <= DP_F64_BARS[1]):
+            failures.append(f"float64 step {i + 1}: {rec64}")
+    ref = [_cast_state(st, torch.float64) for st in single64[0]]
+    del meshed64
+    runs = [{"dtype": "float64", "steps": f64_steps,
+             "single_step_ms": statistics.median(single64[2][1:])}]
+    del single64
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        step = make_train_step(network, lr=TRAIN_LR, compute_dtype=dtype)
+        single = _timed_steps(step, state0, x, labels, steps)
+        meshed = _timed_steps(step, place_state(state0, shardings), x,
+                              labels, steps)
+        per_step = []
+        for i in range(steps):
+            a, b = single[0][i], meshed[0][i]
+            if not isinstance(b.head["w"], ShardedRows) or \
+                    b.head["w"].axis != "model":
+                failures.append(f"train_dp {dname}: the head left 'model'")
+            rels, whole = _update_rels(state0, b, a)
+            worst = _worst(rels)
+            s_rels, s_f64_all = _update_rels(state0, a, ref[i])
+            s_f64 = _worst(s_rels)
+            m_rels, m_f64_all = _update_rels(state0, b, ref[i])
+            m_f64 = _worst(m_rels)
+            rec = {
+                "loss_single": single[1][i], "loss_mesh": meshed[1][i],
+                "loss_rel": abs(meshed[1][i] - single[1][i])
+                / abs(single[1][i]),
+                "all_updates_rel": whole,
+                "worst_update_rel": worst[0], "worst_leaf": worst[1],
+                "worst_leaf_single_vs_f64": s_rels[worst[1]],
+                "single_vs_f64": {"worst": s_f64[0], "leaf": s_f64[1],
+                                  "all": s_f64_all},
+                "mesh_vs_f64": {"worst": m_f64[0], "leaf": m_f64[1],
+                                "all": m_f64_all}}
+            per_step.append(rec)
+            if not (np.isfinite(rec["loss_mesh"])
+                    and rec["loss_rel"] <= DP_LOSS_BAR[dname]
+                    and m_f64[0] <= DP_F64_RATIO * s_f64[0]
+                    and m_f64_all <= DP_F64_RATIO * s_f64_all):
+                failures.append(f"train_dp {dname} step {i + 1}: {rec}")
+        trace = call_trace(lambda s: step(s, x, labels), meshed[0][-1])
+        trace["idle_share"] = 1 - trace["device_busy_ms"] / trace["host_ms"]
+        # the times: TRAIN_DP_TIMED more steps of each, after the first
+        # ones (allocations on every device made), in turns
+        t_single = _timed_steps(step, single[0][-1], x, labels,
+                                TRAIN_DP_TIMED)
+        del single
+        t_mesh = _timed_steps(step, meshed[0][-1], x, labels,
+                              TRAIN_DP_TIMED)
+        del meshed
+        runs.append({
+            "dtype": dname, "steps": per_step,
+            "mesh_step_ms": statistics.median(t_mesh[2]),
+            "mesh_step_ms_all": t_mesh[2],
+            "mesh_wall_ms": statistics.median(t_mesh[5]),
+            "mesh_wall_ms_all": t_mesh[5],
+            "mesh_host_issue_ms": statistics.median(t_mesh[3]),
+            "mesh_peak_mem_above_state_bytes": t_mesh[4],
+            "single_step_ms": statistics.median(t_single[2]),
+            "single_step_ms_all": t_single[2],
+            "single_wall_ms": statistics.median(t_single[5]),
+            "single_host_issue_ms": statistics.median(t_single[3]),
+            "single_peak_mem_above_state_bytes": t_single[4],
+            "mesh_trace": trace})
+        del t_single, t_mesh
+        torch.cuda.empty_cache()
+    counts = launches()
+    if any(counts.values()):
+        failures.append(f"train_dp steps launched kernels: {counts}")
+    rec = {"phase": "train_dp", "network": network, "batch": batch,
+           "classes": batch, "lr": TRAIN_LR, "mesh": mesh.shape,
+           "devices": len({str(d) for d in mesh.devices.flat}),
+           "card": power, "runs": runs, "launches": counts,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rec
+
+
 def call_trace(fn, arg, top=8):
     """One call ``fn(arg)`` (after one untimed) under ``torch.profiler``:
     host ms to its device sync, the device's busy ms (kernels and
@@ -3800,7 +4475,10 @@ def main(argv) -> int:
     crop's ms alone (``align_times``), which runs on older checkouts too;
     ``--train``: training, its round trip to a server, and the 256-wide
     server alone (``train``); ``--mesh``: the mesh paths alone
-    (``server_mesh``). None of the ten prints an ``ok`` line."""
+    (``server_mesh``, ``server_identify``, ``train_dp``); ``--parallel``:
+    the identify engines and the data-parallel step alone
+    (``server_identify``, ``train_dp``). None of the eleven prints an
+    ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3823,7 +4501,8 @@ def main(argv) -> int:
              "--gen": ["cosine_topk", "ir_block"],
              "--detectors": ["conv_s8", "cosine_topk", "ir_block"],
              "--engines": None, "--remainder": None, "--align": [],
-             "--train": ["cosine_topk", "ir_block"], "--mesh": None}
+             "--train": ["cosine_topk", "ir_block"], "--mesh": None,
+             "--parallel": None}
     mode = argv[0] if len(argv) == 1 and argv[0] in modes else None
     if argv and mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -3846,8 +4525,11 @@ def main(argv) -> int:
         phase_train("cuda", repo_dir, power)
         print(power, flush=True)
         return 0
-    if mode == "--mesh":
-        phase_server_mesh("cuda", repo_dir)
+    if mode in ("--mesh", "--parallel"):
+        if mode == "--mesh":
+            phase_server_mesh("cuda", repo_dir)
+        phase_server_identify("cuda", repo_dir, power)
+        phase_train_dp("cuda", repo_dir, power)
         print(power, flush=True)
         return 0
     if mode == "--align":
@@ -3903,6 +4585,8 @@ def main(argv) -> int:
     native_path, residual_path, _ = phase_server_remainder("cuda", repo_dir)
     phase_train("cuda", repo_dir, power)
     mesh_launches, _ = phase_server_mesh("cuda", repo_dir)
+    identify_launches = phase_server_identify("cuda", repo_dir, power)
+    train_dp = phase_train_dp("cuda", repo_dir, power)
     # each kernel's launches on the engine-served paths, per config, and
     # on server_remainder's native-pixels (both servers) and residual paths
     engine_launches = {e["config"]: e["launches"] for e in engines}
@@ -3911,7 +4595,9 @@ def main(argv) -> int:
     def on_engines(name):
         out = {"engine_launches": {c: n[name]
                                    for c, n in engine_launches.items()},
-               "mesh_launches": mesh_launches[name]}
+               "mesh_launches": mesh_launches[name],
+               "identify_launches": identify_launches[name],
+               "train_dp_launches": train_dp["launches"][name]}
         if name in ("cosine_topk", "ir_block"):
             out["native_pixels_launches"] = (
                 None if native_launches is None else

@@ -1,9 +1,10 @@
 """Typed configuration, schema-compatible with the reference config JSON.
 
 The port's own copy of ``facekit.config``: the same fields, defaults and
-loading rules, so one config file drives either package. Keys the port
-does not use yet (the detector's, the mesh's) are still parsed, and the
-server refuses a config that needs a part not ported yet.
+loading rules, so one config file drives either package. Keys that
+describe XLA or TPUs (``use_pallas_search``) are parsed
+and change nothing; the server refuses ``profiler_port``, which needs a
+live profiler server torch does not have.
 """
 
 from __future__ import annotations

@@ -128,6 +128,10 @@ class GalleryStore:
     def capacity(self) -> int:
         return self._device_arr.shape[0]
 
+    def capacity_for(self, n: int) -> int:
+        """The capacity a gallery of ``n`` rows takes on this ladder."""
+        return _bucket_capacity(max(n, 1), self.buckets)
+
     def _rebuild(self) -> None:
         n = len(self._names)
         cap = _bucket_capacity(max(n, 1), self.buckets)

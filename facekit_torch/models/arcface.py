@@ -229,7 +229,8 @@ class _Head(nn.Module):
         # torch flattens NCHW; permute so torch-layout Linear weights apply
         x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
         x = L.linear(x, self.linear.w, self.linear.b)
-        x = self.bn1d(x).float()
+        x = self.bn1d(x)
+        x = x.to(L.acc_dtype(x))
         # torch F.normalize clamps the denominator at eps=1e-12
         norm = torch.linalg.vector_norm(x, dim=1, keepdim=True)
         return x / torch.clamp_min(norm, 1e-12)

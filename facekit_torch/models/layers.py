@@ -42,6 +42,12 @@ from facekit_torch.ops.conv_s8 import conv_s8
 BN_EPS = 1e-5
 
 
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the f32 steps of a layer take for ``x``: f32, or float64
+    for a float64 ``x`` (a check of f32 rounding runs the step in it)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
            padding: int = 0, groups: int = 1,
            bias: Optional[torch.Tensor] = None,
@@ -52,9 +58,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
         out = F.conv2d(xc, w.to(x.dtype), stride=stride, padding=padding,
                        groups=groups, dilation=dilation)
     else:
-        out = F.conv2d(xc.float(), w.to(x.dtype).float(), stride=stride,
+        acc = acc_dtype(x)
+        out = F.conv2d(xc.to(acc), w.to(x.dtype).to(acc), stride=stride,
                        padding=padding, groups=groups, dilation=dilation)
-        out = (out + bias.float()[None, :, None, None]).to(x.dtype)
+        out = (out + bias.to(acc)[None, :, None, None]).to(x.dtype)
     return out.permute(0, 2, 3, 1)
 
 
@@ -126,9 +133,10 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, var: torch.Tensor,
                eps: float = BN_EPS) -> torch.Tensor:
     """Inference batch-norm over the last axis (channels)."""
-    inv = torch.rsqrt(var.float() + eps)
-    s = (scale.float() * inv).to(x.dtype)
-    shift = (bias.float() - mean.float() * scale.float() * inv).to(x.dtype)
+    acc = acc_dtype(x)
+    inv = torch.rsqrt(var.to(acc) + eps)
+    s = (scale.to(acc) * inv).to(x.dtype)
+    shift = (bias.to(acc) - mean.to(acc) * scale.to(acc) * inv).to(x.dtype)
     return x * s + shift
 
 
@@ -143,8 +151,9 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """w is (out, in) torch layout."""
-    out = x.float() @ w.to(x.dtype).float().T
-    return (out + b.float()).to(x.dtype)
+    acc = acc_dtype(x)
+    out = x.to(acc) @ w.to(x.dtype).to(acc).T
+    return (out + b.to(acc)).to(x.dtype)
 
 
 def strided_identity(x: torch.Tensor, stride: int) -> torch.Tensor:

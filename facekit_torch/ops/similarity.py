@@ -104,8 +104,10 @@ def cosine_topk(gallery: torch.Tensor, queries: torch.Tensor, count: int,
     """
     check_width("cosine_topk", gallery, queries)
     if torch.compiler.is_exporting():
+        # ``count`` as given: an exported program's live count is a
+        # runtime value (a SymInt), which ``int`` would freeze
         return torch.ops.facekit_torch.cosine_topk(gallery, queries,
-                                                   int(count), int(k))
+                                                   count, int(k))
     if gallery.device.type == "cpu" and queries.device.type == "cpu":
         return cosine_topk_reference(
             gallery, pad_width(queries, gallery.shape[1]), count, k)
@@ -172,7 +174,7 @@ def cosine_topk_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
     check_width("cosine_topk_int8", gallery_q, queries)
     if torch.compiler.is_exporting():
         return torch.ops.facekit_torch.cosine_topk_int8(
-            gallery_q, gallery_scale, queries, int(count), int(k))
+            gallery_q, gallery_scale, queries, count, int(k))
     if all(t.device.type == "cpu" for t in (gallery_q, gallery_scale,
                                              queries)):
         return cosine_topk_int8_reference(

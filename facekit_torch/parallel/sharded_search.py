@@ -91,6 +91,18 @@ def shard_rows(x: torch.Tensor, mesh: Mesh, axis: str = "gallery"
     return shard_gallery(x, mesh, axis)
 
 
+def search_positions(mesh: Mesh, axis: str = "gallery",
+                     query_axis: Optional[str] = None
+                     ) -> List[Tuple[int, int, torch.device]]:
+    """(query row r, shard s, device) of every search
+    ``sharded_cosine_topk`` launches, in its order: query row major, then
+    shard. An exported program's gallery blocks line up with it."""
+    rows = 1 if query_axis is None else mesh.shape[query_axis]
+    return [(r, s, canonical(mesh.device_at(
+        **({} if query_axis is None else {query_axis: r}), **{axis: s})))
+        for r in range(rows) for s in range(mesh.shape[axis])]
+
+
 def sharded_cosine_topk(gallery: ShardedRows, queries: torch.Tensor,
                         count: int, k: int = 1, *, mesh: Mesh,
                         axis: str = "gallery",
@@ -100,7 +112,10 @@ def sharded_cosine_topk(gallery: ShardedRows, queries: torch.Tensor,
     """Global top-k over a row-sharded gallery: (B, k) f32 scores and
     int32 indices on ``mesh.home``, the unsharded search's answer.
 
-    ``count`` is the global live-row count. ``queries`` are in the
+    ``count`` is the global live-row count: an int, or in a traced
+    program (``engine.export_identify_engine``) a SymInt that stays a
+    runtime value, each shard's live rows computed from it in the
+    graph. ``queries`` are in the
     gallery's dtype (f32 for an int8 gallery, which passes its ``scales``
     sharded with the rows). With ``query_axis`` the batch splits over
     that axis (B a multiple of its size). k may not exceed a block's rows,
@@ -127,14 +142,14 @@ def sharded_cosine_topk(gallery: ShardedRows, queries: torch.Tensor,
     # first, then every launch, then the partials to the merging devices:
     # a copy between two devices orders both devices' streams, so a copy
     # issued between two launches would run the shards one after another
-    where = [(r, s, canonical(mesh.device_at(
-        **({} if query_axis is None else {query_axis: r}), **{axis: s})))
-        for r in range(rows) for s in range(shards)]
+    where = search_positions(mesh, axis, query_axis)
     qs = [queries[r * b_local:(r + 1) * b_local].to(dev)
           for r, _, dev in where]
     parts = []
     for (r, s, dev), q in zip(where, qs):
-        local = min(max(count - s * n_local, 0), n_local)
+        # sym_min / sym_max: inside a traced program ``count`` is a
+        # SymInt, which Python's min and max would freeze to its value
+        local = torch.sym_min(torch.sym_max(count - s * n_local, 0), n_local)
         if scales is None:
             v, i = cosine_topk(gallery.block(s, dev), q, local, k)
         else:

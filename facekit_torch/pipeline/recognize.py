@@ -39,11 +39,13 @@ concatenated in frame order on the pipeline's device. The match goes to
 ``parallel.sharded_cosine_topk`` over the gallery's shards, the queries
 split over ``"data"`` where it divides them (``_match_queries``).
 
-The bodies of the two serving programs are module functions of the
+The bodies of the serving programs are module functions of the
 networks and the frames, ``recognize_program`` and ``embed_program``
-(with ``detector_program``): the eager methods call them under
-inference mode, and ``facekit_torch.engine`` traces the same functions
-into its exported engines, the networks run on a state given as input.
+(with ``detector_program``), and ``identify_program``, the whole
+``recognize_and_match`` transaction on one device or a mesh: the eager
+methods call them under inference mode, and ``facekit_torch.engine``
+traces the same functions into its exported engines, the networks run
+on a state given as input.
 """
 
 from __future__ import annotations
@@ -253,31 +255,14 @@ class FacePipeline:
 
     @torch.inference_mode()
     def _split(self, program, host, mesh, data_axis):
-        """``program(det_net, rec_net, x)`` over a batch: on the
-        pipeline's device, or, where ``_mesh_data_axis`` allows, one slice
-        per data position on its device and replica, the outputs (a
-        tensor or a tuple of tensors and Nones) concatenated in batch
-        order on the pipeline's device (facekit's ``_constrain_batch``)."""
-        axis = _mesh_data_axis(mesh, data_axis, len(host))
-        if axis is None:
-            return program(self.det_net, self.rec_net,
-                           _own_frames(host, self.device))
-        d = mesh.shape[axis]
-        m = len(host) // d
-        outs = []
-        for j in range(d):
-            dev = canonical(mesh.device_at(**{axis: j}))
-            det, rec, _ = self._replica(dev)
-            outs.append(program(det, rec,
-                                _own_frames(host[j * m:(j + 1) * m], dev)))
-        home = canonical(self.device)
-
-        def cat(parts):
-            return torch.cat([p.to(home) for p in parts])
-        if isinstance(outs[0], torch.Tensor):
-            return cat(outs)
-        return type(outs[0])(*(None if parts[0] is None else cat(parts)
-                               for parts in zip(*outs)))
+        """``program(det_net, rec_net, x)`` over a batch (``_over_data``):
+        each slice on its data position's device and replica of the
+        networks, the host slice copied there (facekit's
+        ``_constrain_batch``)."""
+        return _over_data(
+            lambda j, dev, lo, hi: program(*self._replica(dev)[:2],
+                                           _own_frames(host[lo:hi], dev)),
+            len(host), mesh, data_axis, canonical(self.device))
 
     def recognize_and_match(self, frames_bgr, gallery_arr: torch.Tensor,
                             count: int, k: int = 1,
@@ -286,17 +271,15 @@ class FacePipeline:
                             mesh=None, gallery_axis: str = "gallery",
                             data_axis: str = "data"):
         """Frames -> (FrameResult, sims (N, F, k), gallery idx (N, F, k)):
-        the WS ``/inference`` batch. Pass the fields of a
+        the WS ``/inference`` batch, ``identify_program`` on the served
+        networks (and their replicas on a mesh). Pass the fields of a
         ``GalleryStore.snapshot()`` (and the store's mesh for a sharded
         one); an int8 gallery needs its scales."""
-        res = self._split(
-            lambda det, rec, x: recognize_program(self, det, rec, x,
-                                                  return_crops),
-            frames_bgr, mesh, data_axis)
-        vals, idx = self.match_flat(res.embeddings, gallery_arr, count, k,
-                                    gallery_scale, mesh, gallery_axis,
-                                    data_axis)
-        return res, vals, idx
+        with torch.inference_mode():
+            return identify_program(
+                self, lambda j, dev: self._replica(dev)[:2], gallery_arr,
+                count, _own_frames(frames_bgr, self.device), return_crops,
+                k, gallery_scale, mesh, gallery_axis, data_axis)
 
     # -- pre-cropped faces ----------------------------------------------------
 
@@ -346,6 +329,37 @@ class FacePipeline:
     def embed_cropped_batch(self, imgs_bgr) -> np.ndarray:
         """(N, rec_h, rec_w, 3) BGR pre-resized crops -> (N, D)."""
         return self._embed(_own_frames(imgs_bgr, self.device)).cpu().numpy()
+
+
+def _over_data(run, n: int, mesh, data_axis, home: torch.device):
+    """``run(j, dev, lo, hi)`` over a batch of ``n``: once on ``home`` for
+    all of it (j = 0), or, where ``_mesh_data_axis`` allows, once per data
+    position j for its slice [lo, hi) on the position's device. The
+    outputs (a tensor or a tuple of tensors and Nones) are concatenated
+    in batch order on ``home``."""
+    devs = data_devices(mesh, data_axis, n, home)
+    if len(devs) == 1:
+        return run(0, home, 0, n)
+    m = n // len(devs)
+    outs = [run(j, dev, j * m, (j + 1) * m) for j, dev in enumerate(devs)]
+
+    def cat(parts):
+        return torch.cat([p.to(home) for p in parts])
+    if isinstance(outs[0], torch.Tensor):
+        return cat(outs)
+    return type(outs[0])(*(None if parts[0] is None else cat(parts)
+                           for parts in zip(*outs)))
+
+
+def data_devices(mesh, data_axis, n: int, home: torch.device):
+    """The device of each position ``_over_data`` runs a batch of ``n``
+    on, in its order: ``home`` alone where ``_mesh_data_axis`` does not
+    split the batch. An exported program's states line up with it."""
+    axis = _mesh_data_axis(mesh, data_axis, n)
+    if axis is None:
+        return [home]
+    return [canonical(mesh.device_at(**{axis: j}))
+            for j in range(mesh.shape[axis])]
 
 
 def _mesh_data_axis(mesh, data_axis, batch: int):
@@ -420,3 +434,31 @@ def recognize_program(pipe: FacePipeline, det_net, rec_net,
 def embed_program(rec_net, imgs: torch.Tensor) -> torch.Tensor:
     """(N, rec_h, rec_w, 3) BGR crops -> (N, D) f32 embeddings."""
     return rec_net(rec_normalize(imgs.float()))
+
+
+def identify_program(pipe: FacePipeline, nets, gallery, count,
+                     frames: torch.Tensor, return_crops: bool, k: int = 1,
+                     gallery_scale=None, mesh=None,
+                     gallery_axis: str = "gallery", data_axis: str = "data"):
+    """The whole WS ``/inference`` transaction, facekit's
+    ``_recognize_and_match`` (``:262-297``): (N, fh, fw, 3) frames on the
+    pipeline's device -> (FrameResult, sims (N, F, k), idx (N, F, k)).
+
+    ``nets(j, dev)`` gives data position j's (det_net, rec_net) on
+    ``dev``. Without ``mesh`` this is ``recognize_program`` and the
+    single-device search; with one, the frames split over ``data_axis``
+    as ``_over_data`` splits them, and the match goes to the row-sharded
+    search over ``gallery`` (a ``ShardedRows``; ``gallery_scale`` too for
+    an int8 gallery). ``count`` is an int, or in an exported identify
+    engine a SymInt the program computes each shard's live rows from.
+    The eager ``recognize_and_match`` runs this function and
+    ``engine.export_identify_engine`` traces it."""
+    res = _over_data(
+        lambda j, dev, lo, hi: recognize_program(
+            pipe, *nets(j, dev), frames[lo:hi].to(dev), return_crops),
+        frames.shape[0], mesh, data_axis, frames.device)
+    n, f, d = res.embeddings.shape
+    vals, idx = _match_queries(gallery, gallery_scale,
+                               res.embeddings.reshape(n * f, d), count, k,
+                               mesh, gallery_axis, data_axis)
+    return res, vals.reshape(n, f, -1), idx.reshape(n, f, -1)

@@ -26,7 +26,12 @@ batches (``FaceServer.enroll_folder``) and exits instead of serving.
 
 With ``--engines DIR`` (``extras.server_enginesDir``) WS ``/inference``
 and ``/recognize`` run the exported engines of ``facekit_torch.engine``
-and then the gallery match; enrollment stays eager.
+and then the gallery match; enrollment stays eager. On a mesh the
+directory's identify engines serve WS ``/inference``, the whole
+transaction with the match in one program (``facekit/server/app.py:
+286-315``): the gallery's capacity is pinned to the engines' frozen rows
+and a ``/reload`` past it is refused while the old gallery keeps
+serving; ``/recognize`` stays eager on the mesh, as in facekit.
 
 With ``mesh_shape`` (``{"data": D, "gallery": G}``, either axis optional,
 ``"gallery"`` 1 when absent) one process serves on a mesh of every local
@@ -40,7 +45,8 @@ position.
 Host pixel work (decode, resize, the reply's JPEG) uses OpenCV, or the
 port's native C++ runtime (``facekit_torch.native``) when cv2 is missing
 or ``extras.server_hostOps`` is "native" (``host_pixels``). A config that
-needs a part not ported yet is refused at startup (``refuse_unported``).
+asks for a live profiler server is refused at startup
+(``refuse_unported``).
 With ``rec_quantize`` the server calibrates the int8 embedder from
 ``extras.rec_calibrationDir`` at startup (``calibrate_from_config``),
 with ``extras.rec_int8Residual`` into the int8-residual embedder. Device
@@ -65,7 +71,8 @@ import numpy as np
 import torch
 
 from facekit_torch.db import Database
-from facekit_torch.engine import engine_states, load_serving_engines
+from facekit_torch.engine import (engine_states, load_identify_engines,
+                                  load_serving_engines)
 from facekit_torch.gallery import GalleryStore
 from facekit_torch.parallel import make_mesh
 from facekit_torch.pipeline import FacePipeline
@@ -170,26 +177,16 @@ def host_pixels(config):
     return _NativePixels()
 
 
-def refuse_unported(config, engines_dir=None) -> None:
-    """Raise for a config that needs a part the port does not have: a
-    mesh served from engines (``engines_dir`` or
-    ``extras.server_enginesDir``), which takes identify engines, not
-    ported yet, or a live profiler server (none in torch:
-    ``facekit_torch.utils.profile_trace`` writes a trace instead)."""
-    reasons = []
-    if config.mesh_shape and (engines_dir
-                              or config.extras.get("server_enginesDir")):
-        reasons.append("mesh_shape with server_enginesDir serves from "
-                       "identify engines, which are not ported yet (the "
-                       "next slice: ROADMAP.md Queue 1); a mesh serves "
-                       "eagerly without engines")
+def refuse_unported(config) -> None:
+    """Raise for a config that asks for a live profiler server: torch has
+    none to attach to (``facekit_torch.utils.profile_trace`` writes a
+    trace instead)."""
     if config.extras.get("profiler_port"):
-        reasons.append("profiler_port (a live profiler server) is not ported: "
-                       "torch has no attachable profiler server; "
-                       "facekit_torch.utils.profile_trace writes a trace")
-    if reasons:
-        raise ValueError("config needs parts facekit_torch has not ported "
-                         "yet: " + "; ".join(reasons))
+        raise ValueError(
+            "config needs parts facekit_torch has not ported: "
+            "profiler_port (a live profiler server) is not ported: torch "
+            "has no attachable profiler server; "
+            "facekit_torch.utils.profile_trace writes a trace")
 
 
 def load_detector_params(config):
@@ -309,9 +306,10 @@ class FaceServer:
         docstring). ``engines_dir`` (or
         ``extras.server_enginesDir``): serve WS /inference and /recognize
         from the engines exported there (``python -m facekit_torch.engine
-        export``), one recognize / embed pair per batch bucket; the
-        enrollment paths stay eager."""
-        refuse_unported(config, engines_dir)
+        export``), one recognize / embed pair per batch bucket, or with
+        ``mesh_shape`` one identify engine per bucket; the enrollment
+        paths stay eager."""
+        refuse_unported(config)
         self.config = config
         self.device = resolve_device(device)
         self.mesh = None
@@ -353,14 +351,30 @@ class FaceServer:
         # freeze no gallery and /reload works as in eager mode
         engines_dir = engines_dir or config.extras.get("server_enginesDir")
         self.engines = None
-        if engines_dir:
+        self.identify_engines = None
+        gallery_buckets = config.gallery_bucket_sizes
+        if engines_dir and self.mesh is not None:
+            # identify engines: the whole sharded transaction, frozen at
+            # one gallery capacity, which the bucket ladder is pinned to
+            self.identify_engines = load_identify_engines(
+                engines_dir, config, self.pipeline, self.mesh,
+                self.batch_buckets)
+            self._identify_states = {
+                b: self.identify_engines[b].states(self.pipeline)
+                for b in self.batch_buckets}
+            frozen = next(iter(self.identify_engines.values())).gallery_rows
+            gallery_buckets = (frozen,)
+            log.info("serving identify from engines in %s (batch buckets "
+                     "%s, gallery capacity %d)", engines_dir,
+                     sorted(self.identify_engines), frozen)
+        elif engines_dir:
             self.engines = load_serving_engines(
                 engines_dir, config, self.pipeline, self.batch_buckets)
             self._det_state, self._rec_state = engine_states(self.pipeline)
             log.info("serving from engines in %s (batch buckets %s)",
                      engines_dir, self.batch_buckets)
         self.gallery = GalleryStore(embed_dim=config.rec_outputDim,
-                                    buckets=config.gallery_bucket_sizes,
+                                    buckets=gallery_buckets,
                                     dtype=config.gallery_dtype,
                                     device=self.device, mesh=self.mesh)
         self.user_dict: Dict[str, str] = self.db.get_user_dict()
@@ -441,8 +455,18 @@ class FaceServer:
     def serving_recognize(self, frames: np.ndarray, snap):
         """Padded (B, fh, fw, 3) u8 frames -> (FrameResult with crops,
         sims (B, F, k), idx (B, F, k)) against a gallery snapshot, as
-        device tensors: the recognize engine of batch B and the match
-        (``facekit/server/app.py:571-586``), or the eager pipeline."""
+        device tensors: on a mesh served from engines the identify
+        engine of batch B, the match inside it (``facekit/server/app.py:
+        563-569``); else the recognize engine of batch B and the match
+        (``:571-586``), or the eager pipeline."""
+        if self.identify_engines is not None:
+            b = frames.shape[0]
+            boxes, scores, valid, emb, vals, idx, crops = \
+                self.identify_engines[b](
+                    *self._identify_states[b], snap.arr, snap.count, frames,
+                    gallery_scale=snap.scales)
+            return FrameResult(boxes, scores, valid, emb, None, crops), \
+                vals, idx
         if self.engines is None:
             return self.pipeline.recognize_and_match(
                 frames, snap.arr, snap.count, return_crops=True,
@@ -497,6 +521,15 @@ class FaceServer:
 
     def reload_gallery(self) -> int:
         names, embs = self.db.get_embeddings()
+        if self.identify_engines is not None:
+            # the identify engines froze the capacity: refuse here, before
+            # the swap, so the old gallery keeps serving
+            frozen = next(iter(self.identify_engines.values())).gallery_rows
+            if self.gallery.capacity_for(len(names)) != frozen:
+                raise ValueError(
+                    f"gallery has {len(names)} rows but the identify "
+                    f"engines are frozen at capacity {frozen}; re-export "
+                    f"with --gallery-rows >= {len(names)}")
         self.gallery.load(names, embs)
         self.user_dict = self.db.get_user_dict()
         log.info("gallery reloaded: %d embeddings", len(names))

@@ -9,6 +9,8 @@ from facekit_torch.train.step import (  # noqa: F401
     TrainState,
     make_optimizer,
     make_train_step,
+    place_state,
+    train_shardings,
     train_state_init,
     warmup_cosine_decay_schedule,
 )

@@ -7,6 +7,11 @@ msgpack writer: the format tag, the update count and every tensor of the
 state (backbone leaves, head, momentum) as an array with its dtype and
 shape.
 
+A state placed on a mesh (``train.step.place_state``) is saved whole:
+its head put back together from its blocks, one copy of each replicated
+leaf. Restored into a placed template, each tensor is placed as the
+template's is (the head back on its blocks over ``"model"``).
+
 A save writes into a new directory beside ``path`` and then renames:
 the directory itself into place when ``path`` is new, or its file over
 the old one (``os.replace``) when ``path`` is a checkpoint already. Either
@@ -23,6 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from facekit_torch.parallel import device_put, gather, sharding_of
 from facekit_torch.train.step import TrainState
 from facekit_torch.weights.io import load_params, save_params
 
@@ -34,7 +40,7 @@ _ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt",
 
 
 def _numpy(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: t.detach().cpu().numpy() for k, t in tensors.items()}
+    return {k: gather(t).detach().cpu().numpy() for k, t in tensors.items()}
 
 
 def save_checkpoint(path: str, state: TrainState) -> None:
@@ -81,8 +87,8 @@ def _refuse_others(path: str) -> None:
 
 def _tensors(saved: Dict, template: Dict[str, torch.Tensor],
              what: str) -> Dict[str, torch.Tensor]:
-    """``saved``'s arrays as tensors on the template's devices; refuses
-    other keys, shapes or dtypes."""
+    """``saved``'s arrays as tensors on the template's devices, placed as
+    its tensors are; refuses other keys, shapes or dtypes."""
     if set(saved) != set(template):
         missing = sorted(set(template) - set(saved))[:5]
         extra = sorted(set(saved) - set(template))[:5]
@@ -96,7 +102,9 @@ def _tensors(saved: Dict, template: Dict[str, torch.Tensor],
             raise ValueError(f"checkpoint {what} {key}: {t.dtype} "
                              f"{tuple(t.shape)} does not fit the template's "
                              f"{ref.dtype} {tuple(ref.shape)}")
-        out[key] = t.to(ref.device)
+        sharding = sharding_of(ref)
+        out[key] = (t.to(ref.device) if sharding is None
+                    else device_put(t, sharding))
     return out
 
 

@@ -404,12 +404,52 @@ def test_cli_refuses_unusable_calibration(tmp_path):
     assert not os.path.exists(tmp_path / "e")
 
 
+_IDENTIFY_ARGS = ["--identify-mesh", "gallery=2", "--gallery-rows", "1024"]
+
+
+@pytest.fixture(scope="module")
+def identify_cli(tmp_path_factory):
+    """One CLI export with both identify options, ``_IDENTIFY_ARGS``:
+    the config's pair at batch 2 and one identify engine beside it,
+    over a 2-position mesh (the CPU at both)."""
+    tmp = tmp_path_factory.mktemp("identify_cli")
+    cfg = _config_file(tmp, **dict(_CFG, extras=dict(
+        _CFG["extras"], server_batchSize=2)))
+    out = str(tmp / "e")
+    main(["export", "-c", cfg, "-o", out, "--device", "cpu",
+          *_IDENTIFY_ARGS])
+    return out
+
+
 @pytest.mark.parametrize("flag", [["--platforms", "cpu"],
-                                  ["--identify-mesh", "data=2,gallery=4"],
+                                  ["--identify-mesh", "gallery=2"],
                                   ["--topology", "v5e:2x4"],
                                   ["--gallery-rows", "1024"]])
-def test_cli_refuses_parallel_options(tmp_path, flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        main(["export", "-o", str(tmp_path / "e"), "--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "parallel" in capsys.readouterr().err
+def test_cli_refuses_parallel_options(request, tmp_path, flag, capsys):
+    """facekit's multi-device export options. ``--platforms`` and
+    ``--topology`` name XLA backends and TPU slices: refused by design,
+    exit 2, with that reason. ``--identify-mesh`` and ``--gallery-rows``
+    export (one export given both, ``identify_cli``): one identify
+    engine beside the pair, over the mesh at the frozen capacity."""
+    if flag[0] in ("--platforms", "--topology"):
+        with pytest.raises(SystemExit) as e:
+            main(["export", "-o", str(tmp_path / "e"), "--device", "cpu",
+                  *flag])
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "by design" in err and "TPU" in err
+        assert "not ported" not in err
+        return
+    i = _IDENTIFY_ARGS.index(flag[0])
+    assert _IDENTIFY_ARGS[i:i + 2] == flag
+    out = request.getfixturevalue("identify_cli")
+    meta = read_meta(os.path.join(out, "identify.fke"))
+    assert meta["program"] == "identify" and meta["batch_size"] == 2
+    if flag[0] == "--identify-mesh":
+        assert sorted(f for f in os.listdir(out) if f.endswith(".fke")) \
+            == ["embed.fke", "identify.fke", "recognize.fke"]
+        assert meta["mesh_shape"] == {"gallery": 2}
+        assert meta["mesh_devices"] == ["cpu"] * meta["positions"] == \
+            ["cpu"] * 2
+    else:
+        assert meta["gallery_rows"] == 1024

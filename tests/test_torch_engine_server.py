@@ -19,8 +19,12 @@ import numpy as np
 import pytest
 
 from facekit_torch.config import FaceKitConfig
+from facekit_torch.engine import export_identify_engines
 from facekit_torch.engine import main as engine_main
+from facekit_torch.parallel import make_mesh
+from facekit_torch.pipeline import FacePipeline
 from facekit_torch.server import FaceServer, make_app
+from facekit_torch.server.app import model_params
 
 aiohttp = pytest.importorskip("aiohttp")
 from aiohttp.test_utils import TestClient, TestServer  # noqa: E402
@@ -171,10 +175,35 @@ def test_no_crops_and_stale_engines_refuse(engines, tmp_path):
 
 
 def test_mesh_shape_with_engines_still_refuses(engines, tmp_path):
-    cfg = dataclasses.replace(_config(tmp_path, "x"),
-                              mesh_shape={"data": 2, "gallery": 4})
-    with pytest.raises(ValueError, match="mesh_shape.*server_enginesDir"):
+    """A mesh served from engines takes identify engines: with only the
+    recognize / embed pairs in the directory it refuses, naming the
+    missing bucket and the export that makes it; with an identify engine
+    added, it boots from it (warmed) and answers WS /inference's batch
+    function. The mesh has 2 positions and the ladder one bucket, so
+    one identify engine is exported."""
+    cfg = dataclasses.replace(
+        _config(tmp_path, "x", extras=dict(_CFG["extras"],
+                                           server_batchBuckets=[2])),
+        mesh_shape={"gallery": 2})
+    with pytest.raises(ValueError, match=r"no identify engine for batch "
+                       r"bucket\(s\) \[2\].*--identify-mesh gallery=2"):
         FaceServer(cfg, warmup=False, device="cpu", engines_dir=engines)
+    dst = str(tmp_path / "e")
+    shutil.copytree(engines, dst)
+    pipe = FacePipeline(cfg, *model_params(cfg), device="cpu")
+    export_identify_engines(pipe, dst, [2], 64, make_mesh(
+        cfg.mesh_shape, devices=["cpu"] * 2))
+    server = FaceServer(cfg, warmup=True, device="cpu", engines_dir=dst)
+    try:
+        assert sorted(server.identify_engines) == server.batch_buckets == [2]
+        assert server.engines is None and server.gallery.buckets == (64,)
+        frames = np.random.default_rng(5).integers(0, 256, (2, 120, 160, 3),
+                                                   dtype=np.uint8)
+        emb = server.pipeline.recognize_frames(frames).embeddings[0, 0]
+        server.gallery.load(["ann"], emb[None].numpy())
+        assert server.inference_batch(list(frames))[0]["userId"] == "ann"
+    finally:
+        server.close()
 
 
 def test_cli_exports_the_slim_detector(tmp_path):

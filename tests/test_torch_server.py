@@ -199,20 +199,29 @@ def test_recognize_batch_pads_to_buckets(servers):
 
 
 @pytest.mark.parametrize("override", [
-    # engines alone serve since they were ported, and a mesh alone too;
-    # a mesh served from engines needs identify engines, still refused
+    # a mesh served from engines takes identify engines since they were
+    # ported (tests/test_torch_identify_engine.py): a directory without
+    # them refuses with the export that makes them, not as unported
     {"mesh_shape": {"gallery": 4},
-     "extras": {"server_enginesDir": "/tmp/engines"}},
+     "extras": {"server_enginesDir": "engines"}},
     {"extras": {"profiler_port": 9999}}])
 def test_unported_configs_are_refused(override, tmp_path):
     cfg = FaceKitConfig(database_path=str(tmp_path / "x.db"), **_COMMON)
     cfg = dataclasses.replace(cfg, **override)
-    with pytest.raises(ValueError, match="not ported"):
-        FaceServer(cfg, warmup=False, device="cpu")
-    if cfg.mesh_shape:
-        with pytest.raises(ValueError, match="identify engines"):
-            FaceServer(dataclasses.replace(cfg, extras={}), warmup=False,
-                       device="cpu", engines_dir="/tmp/engines")
+    if not cfg.mesh_shape:
+        with pytest.raises(ValueError, match="not ported"):
+            FaceServer(cfg, warmup=False, device="cpu")
+        return
+    engines = tmp_path / cfg.extras["server_enginesDir"]
+    engines.mkdir()
+    for kw in ({"extras": {"server_enginesDir": str(engines)}},
+               {"extras": {}}):
+        with pytest.raises(ValueError, match=r"no identify engine for "
+                           r"batch bucket\(s\) \[8\].*--identify-mesh "
+                           "gallery=4"):
+            FaceServer(dataclasses.replace(cfg, **kw), warmup=False,
+                       device="cpu",
+                       engines_dir=None if kw["extras"] else str(engines))
 
 
 @pytest.mark.parametrize("mesh_shape", [{"gallery": 4}, {"data": 2}])
