@@ -11,15 +11,20 @@ s8 convolution at every conv shape of the int8 IR-50 at batches 1, 8 and
 64 (with the host's and the card's time per call, and per-forward sums)
 and at the TPU kernel's own shape, the fused IR block at IR-50's four
 identity-block shapes (batch 8 and 64, bf16 and f32, and batch 32 in
-bf16). It traces the throughput config's int8 IR-50 forward back to back
+bf16; the ``ptxas`` line of its kernels, gated on stack and spill). It
+traces the throughput config's int8 IR-50 forward back to back
 at batches 1, 8 and 64 (host time, device operations, the card's idle
 share). Then it drives three serving paths on the card and checks what
 comes out: /recognize + enrollment of configs/default.json (IR-50,
 bf16), the same for configs/throughput.json (int8 IR-50, int8 gallery,
 batches of 1, 8 and 64) with dynamic and with calibrated activation
-scales, and WS /inference of configs/default.json (480x640 frames ->
-RetinaFace -> alignment -> IR-50 -> search, buckets 1 and 8), stage by
-stage against the port's CPU path, and ``server_detectors``: the same WS
+scales, ``server_f32``: configs/default.json served with
+``compute_dtype: "float32"`` (/recognize and WS /inference through the
+f32 fused blocks, held to the port's f32 CPU pipeline and the plain
+search, fused against op by op), and WS /inference of
+configs/default.json (480x640 frames -> RetinaFace -> alignment -> IR-50
+-> search, buckets 1 and 8), stage by stage against the port's CPU path,
+and ``server_detectors``: the same WS
 path and an uncropped /insert/face with the slim detector (bf16) and
 the int8 RFB and RetinaFace detectors (``det_quantize``), each int8
 site's sum held to the plain conv on the card's own input, and one
@@ -92,7 +97,9 @@ it runs, the conv's ``ptxas`` line and ``server_detectors`` alone;
 the build and ``server_remainder`` alone; ``--train`` the build of the
 two kernels it serves with and ``train`` alone; ``--mesh`` the build and
 ``server_mesh``, ``server_identify`` and ``train_dp`` alone;
-``--parallel`` the build and the last two alone. ``weights_gen``,
+``--parallel`` the build and the last two alone; ``--blocks`` the fused
+block's build, its ``ptxas`` line, ``ir_block_case`` and ``server_f32``
+alone. ``weights_gen``,
 ``server_detectors`` and ``server_remainder`` serve through aiohttp.
 """
 
@@ -118,12 +125,12 @@ DIM = 512
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 # NVIDIA H100 SXM data sheet, dense rates at 700 W
 PEAK_OPS = {"bfloat16": 989e12,               # tensor cores
-            "float32": 67e12,                 # FP32, outside the tensor cores
             "int8": 1979e12}                  # tensor cores
-# An f32 search needs f32-grade products; the least time for them on this
-# card is three TF32 passes (3xTF32) at the dense TF32 tensor-core peak
-# (NVIDIA H100 SXM data sheet, 495 TFLOPS at 700 W), below the FP32 CUDA
-# cores' 67 TFLOPS. search_bound uses it for every f32 case.
+# An f32 search or block needs f32-grade products; the least time for them
+# on this card is three TF32 passes (3xTF32) at the dense TF32 tensor-core
+# peak (NVIDIA H100 SXM data sheet, 495 TFLOPS at 700 W), below the FP32
+# CUDA cores' 67 TFLOPS. search_bound and ir_block_bound use it for every
+# f32 case.
 TF32_PEAK_OPS = 495e12
 F32_TF32_PASSES = 3
 SCORE_ATOL = 1e-4        # f32 sums over D=512 in another order
@@ -142,6 +149,8 @@ MMA_BF16_REGISTERS = 72
 COS_DIST_MAX = 1e-3      # bf16 embeddings vs f32 (BASELINE.json north star)
 INT8_COS_DIST_MAX = 5e-3  # int8 embeddings vs f32 (facekit's own int8 bar,
 #                           tests/test_model_parity.py:158-175)
+F32_COS_DIST_MAX = 1e-4  # f32 embeddings, card vs CPU (the port's f32 bar
+#                          against facekit, tests/test_torch_arcface.py)
 SITES_PER_FORWARD = 52   # int8 IR-50: stem, 24 x (conv1, conv2), 3 shortcuts
 KERNEL4_SHAPE = (256, 112, 112, 64, 64, 3, 2, 1)   # N, H, W, C, O, k, s, p
 # batches of conv_s8_case: the throughput config's /recognize buckets
@@ -503,6 +512,22 @@ def conv_ptxas(logs):
         if ("mma" in kern or "dw" in kern) and (rec.get("stack_bytes")
                                                 or rec.get("spill_bytes")):
             raise AssertionError(f"conv_s8 {kern}: {rec}")
+    return entries
+
+
+def ir_block_ptxas(logs):
+    """Registers, stack and spill of the fused block's kernels
+    (``ir_block_bf16_kernel``; ``ir_block_f32_kernel`` at each band
+    height); "not rebuilt" where the library was already built. Fails on a
+    stack frame or a spill in any, or where the f32 kernel is missing."""
+    if "ir_block" not in logs:
+        return "not rebuilt"
+    entries = ptxas_entries(logs["ir_block"], prefix="ir_block")
+    if not any("f32" in kern for kern in entries):
+        raise AssertionError(f"no ir_block_f32_kernel in {sorted(entries)}")
+    for kern, rec in entries.items():
+        if rec.get("stack_bytes") or rec.get("spill_bytes"):
+            raise AssertionError(f"ir_block {kern}: {rec}")
     return entries
 
 
@@ -1596,11 +1621,14 @@ def ir_block_bound(n, h, w, c, dtype):
     """Least time (ms) of one fused IR block on an H100 SXM and what bounds
     it: x read once, the output written once, both weights and the (5, C)
     f32 parameters read once; two convs of 2*N*H*W*9*C*C operations at the
-    dtype's peak."""
+    dtype's peak (f32: F32_TF32_PASSES of them at TF32_PEAK_OPS, as
+    search_bound counts them)."""
     item = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * n * h * w * c + 2 * 9 * c * c) * item + 5 * c * 4
     ops = 2 * (2 * n * h * w * 9 * c * c)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (F32_TF32_PASSES * ops / TF32_PEAK_OPS if dtype == "float32"
+             else ops / PEAK_OPS[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1647,6 +1675,7 @@ def phase_ir_block(device, seed=5):
 
     from facekit_torch.ops.ir_block import (_ir_block_cuda, block_operands,
                                             ir_block_reference,
+                                            split_tf32_weights,
                                             u_rounding_bound)
     gen = torch.Generator().manual_seed(seed)
     dgen = torch.Generator(device=device).manual_seed(seed)
@@ -1691,10 +1720,42 @@ def phase_ir_block(device, seed=5):
                        "plain_ms": cuda_ms(ir_block_reference, args, 3),
                        "eager_ms": eager, "library_ms": None,
                        "bound_ms": bound, "bound_by": by}
+                if dname == "float32":
+                    # the weights split on the host instead of in registers
+                    sw1, sw2 = split_tf32_weights(w1), split_tf32_weights(w2)
+                    split = _ir_block_cuda(xs[0], sw1, sw2, par).float()
+                    rec["split_w_max_abs_err"] = float((split - ref).abs()
+                                                       .max())
+                    if rec["split_w_max_abs_err"] > IR_BLOCK_F32_ATOL:
+                        raise AssertionError(f"ir_block f32 {(n, hw, c)} "
+                                             "with host-split weights: "
+                                             f"{rec['split_w_max_abs_err']}")
+                    rec["split_w_ms"] = cuda_ms(
+                        _ir_block_cuda, [(x, sw1, sw2, par) for x in xs], 10)
+                    del split
                 emit(rec)
                 out.append(rec)
                 del xs, got, ref, err
     torch.cuda.synchronize()
+    return out
+
+
+def ir_block_forwards(blocks):
+    """``ir_block_forward`` lines: the cases of one dtype and batch summed
+    over the 20 identity blocks of one IR-50 forward."""
+    out = []
+    for dname, batches in IR_BLOCK_BATCHES.items():
+        for n in batches:
+            cases = [c for c in blocks if c["dtype"] == dname
+                     and c["shape"]["N"] == n]
+            keys = [k for k in ("ms", "split_w_ms", "plain_ms", "eager_ms",
+                                "bound_ms") if k in cases[0]]
+            rec = {"phase": "ir_block_forward", "dtype": dname, "batch": n,
+                   **{k: sum(c[k] * c["blocks_per_forward"] for c in cases)
+                      for k in keys}}
+            rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
+            emit(rec)
+            out.append(rec)
     return out
 
 
@@ -1866,6 +1927,164 @@ def phase_server_inference(device, repo_dir, seed=6, n_users=32):
                    "crop_max_err": crop_err,
                    "cos_dist_vs_f32_cpu": cos_dist, "max_abs_err": err,
                    "min_enrolled_similarity": float(min(sims)),
+                   **{k: statistics.median(v) for k, v in lat.items()}}
+            emit(rec)
+            return rec
+        finally:
+            server.close()
+
+
+def phase_server_f32(device, repo_dir, seed=22, n_users=32):
+    """configs/default.json with ``compute_dtype: "float32"`` on the card,
+    everything else as shipped: RetinaFace-MobileNet0.25, IR-50 at 512-d,
+    a bf16 gallery, random weights from seeds (the detector the server
+    draws without ``det_weights``, threshold 0.5 as in server_inference).
+    /recognize: 32 crops enrolled, then ``recognize_batch`` at buckets 1
+    and 8, exactly 20 f32 ``ir_block`` launches a forward and no int8
+    kernel, the enrolled crops answered as their own users, embeddings
+    within F32_COS_DIST_MAX cosine of the port's f32 CPU pipeline. WS
+    /inference at buckets 1 and 8: 20 launches a forward, the matched
+    indices those of the plain search over the card's own embeddings.
+    Latency of both, with the fused blocks and (a guide) op by op, in
+    turns."""
+    import torch
+
+    from facekit_torch.config import load_config
+    from facekit_torch.ops.similarity import cosine_topk_reference
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.server import FaceServer
+    from facekit_torch.weights import random_arcface_params
+
+    rng = np.random.default_rng(seed)
+    cfg = load_config(os.path.join(repo_dir, "configs", "default.json"))
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              det_threshold_bbox=DET_THRESHOLD)
+    params = random_arcface_params(cfg.rec_network, seed=seed)
+    rh, rw = cfg.rec_hw
+    fh, fw = cfg.frame_hw
+    crops = rng.integers(0, 256, (n_users, rh, rw, 3), dtype=np.uint8)
+    fresh = rng.integers(0, 256, (4, rh, rw, 3), dtype=np.uint8)
+    enrolled_q = [0, 5, 10, n_users - 1]
+    queries = np.concatenate([crops[enrolled_q], fresh])       # 8 requests
+    frames = rng.integers(0, 256, (8, fh, fw, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dataclasses.replace(cfg, database_path=os.path.join(
+            tmp, "facekit.db"))
+        server = FaceServer(cfg, rec_params=params, device=device)
+        try:
+            if server.pipeline.dtype != torch.float32:
+                raise AssertionError(f"compute_dtype float32 served in "
+                                     f"{server.pipeline.dtype}")
+            # -- /recognize: enrollment, then the micro-batcher's function
+            reset_launches()
+            for u in range(n_users):
+                uid = f"user{u:02d}"
+                server.db.insert_user(uid, f"User {u}")
+                emb = server.pipeline.embed_cropped(crops[u])
+                if server.db.insert_face(uid, f"crop{u}.jpg", emb) != 1:
+                    raise AssertionError(f"insert_face failed for {uid}")
+            server.reload_gallery()
+            answers = [server.recognize_batch([queries[0]]),
+                       server.recognize_batch(list(queries))]
+            torch.cuda.synchronize()
+            counts = launches()
+            forwards = n_users + 2
+            if counts["ir_block"] != IR_BLOCKS_PER_FORWARD * forwards or \
+                    counts["cosine_topk"] < 2 or counts["conv_s8"] or \
+                    counts["cosine_topk_int8"]:
+                raise AssertionError(f"launches on the f32 /recognize path "
+                                     f"({forwards} forwards): {counts}")
+            snap = server.gallery.snapshot()
+            emb, vals, idx = server.serving_embed(server.pad_batch(
+                list(queries)), snap)
+            names = [snap.names[int(i)] for i in idx[:8, 0].cpu()]
+            if [a["userId"] for a in answers[1]] != names or \
+                    answers[0][0]["userId"] != names[0]:
+                raise AssertionError(f"recognize_batch {answers} != "
+                                     f"serving_embed {names}")
+            sims = vals[:8, 0].cpu().numpy()
+            for j, u in enumerate(enrolled_q):
+                if names[j] != f"user{u:02d}" or sims[j] < 0.99:
+                    raise AssertionError(f"enrolled crop {u}: got {names[j]} "
+                                         f"at similarity {sims[j]}")
+            plain = cosine_topk_reference(
+                snap.arr, emb.to(snap.arr.dtype), snap.count, 2)
+            err = check_search("f32 server search", (vals, idx), plain, 1)
+            e_cpu = FacePipeline(cfg, params, device="cpu") \
+                .embed_cropped_batch(queries)
+            e_gpu = emb[:8].cpu().numpy()
+            if not np.all(np.isfinite(e_gpu)) or e_gpu.shape != (8, DIM):
+                raise AssertionError("embeddings not finite (8, 512)")
+            cos_dist = float((1 - (e_cpu * e_gpu).sum(-1)).max())
+            if cos_dist > F32_COS_DIST_MAX:
+                raise AssertionError(f"f32 card vs f32 CPU embeddings: "
+                                     f"cosine distance {cos_dist}")
+
+            # -- WS /inference's batch function at buckets 1 and 8
+            reset_launches()
+            replies = [server.inference_batch([frames[0]]),
+                       server.inference_batch(list(frames))]
+            torch.cuda.synchronize()
+            ws_counts = launches()
+            if ws_counts["ir_block"] != IR_BLOCKS_PER_FORWARD * 2 or \
+                    ws_counts["cosine_topk"] != 2 or ws_counts["conv_s8"] or \
+                    ws_counts["cosine_topk_int8"]:
+                raise AssertionError(f"launches on the f32 /inference path "
+                                     f"(2 forwards): {ws_counts}")
+            if len(replies[0]) != 1 or len(replies[1]) != len(frames):
+                raise AssertionError(f"inference_batch replies {replies}")
+            res, ws_vals, ws_idx = server.serving_recognize(
+                server.pad_batch(list(frames)), snap)
+            e_dev = res.embeddings.reshape(-1, DIM)
+            if not torch.isfinite(e_dev).all():
+                raise AssertionError("WS embeddings not finite")
+            ws_plain = cosine_topk_reference(
+                snap.arr, e_dev.to(snap.arr.dtype), snap.count, 2)
+            ws_err = check_search("f32 inference search",
+                                  (ws_vals.reshape(-1, 1),
+                                   ws_idx.reshape(-1, 1)), ws_plain, 1)
+
+            # -- latency at each bucket, fused and (a guide) op by op, in
+            #    turns
+            def embed_match_ms(b, reps=12):
+                ts = []
+                for _ in range(reps):
+                    batch = rng.integers(0, 256, (b, rh, rw, 3), np.uint8)
+                    t0 = time.perf_counter()
+                    _, v, _ = server.serving_embed(server.pad_batch(
+                        list(batch)), snap)
+                    v.cpu()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                return ts[2:]
+
+            def inference_ms(b, reps=10):
+                ts = []
+                for _ in range(reps):
+                    batch = list(rng.integers(0, 256, (b, fh, fw, 3),
+                                              np.uint8))
+                    t0 = time.perf_counter()
+                    server.inference_batch(batch)
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                return ts[2:]
+            lat = {}
+            for _ in range(2):
+                for b in (1, 8):
+                    for name, fn in (("embed_match_ms", embed_match_ms),
+                                     ("inference_ms", inference_ms)):
+                        lat.setdefault(f"{name}_b{b}", []).extend(fn(b))
+                        with composed_blocks():
+                            lat.setdefault(f"{name}_b{b}_composed",
+                                           []).extend(fn(b))
+            rec = {"phase": "server_f32", "config": "configs/default.json",
+                   "compute_dtype": cfg.compute_dtype,
+                   "gallery_dtype": cfg.gallery_dtype,
+                   "network": cfg.rec_network, "users": n_users,
+                   "forwards": forwards, "launches": counts,
+                   "ws_launches": ws_counts,
+                   "faces_per_frame": res.valid.sum(1).tolist(),
+                   "max_abs_err": max(err, ws_err),
+                   "cos_dist_vs_f32_cpu": cos_dist,
+                   "min_enrolled_similarity": float(sims[:4].min()),
                    **{k: statistics.median(v) for k, v in lat.items()}}
             emit(rec)
             return rec
@@ -4477,8 +4696,9 @@ def main(argv) -> int:
     server alone (``train``); ``--mesh``: the mesh paths alone
     (``server_mesh``, ``server_identify``, ``train_dp``); ``--parallel``:
     the identify engines and the data-parallel step alone
-    (``server_identify``, ``train_dp``). None of the eleven prints an
-    ``ok`` line."""
+    (``server_identify``, ``train_dp``); ``--blocks``: the fused block
+    alone (its ``ptxas`` line, ``ir_block_case``, ``ir_block_forward``,
+    ``server_f32``). None of the twelve prints an ``ok`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4502,7 +4722,7 @@ def main(argv) -> int:
              "--detectors": ["conv_s8", "cosine_topk", "ir_block"],
              "--engines": None, "--remainder": None, "--align": [],
              "--train": ["cosine_topk", "ir_block"], "--mesh": None,
-             "--parallel": None}
+             "--parallel": None, "--blocks": ["cosine_topk", "ir_block"]}
     mode = argv[0] if len(argv) == 1 and argv[0] in modes else None
     if argv and mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -4530,6 +4750,13 @@ def main(argv) -> int:
             phase_server_mesh("cuda", repo_dir)
         phase_server_identify("cuda", repo_dir, power)
         phase_train_dp("cuda", repo_dir, power)
+        print(power, flush=True)
+        return 0
+    if mode == "--blocks":
+        emit({"phase": "ptxas", "kernel": "ir_block",
+              "kernels": ir_block_ptxas(logs)})
+        ir_block_forwards(phase_ir_block("cuda"))
+        phase_server_f32("cuda", repo_dir)
         print(power, flush=True)
         return 0
     if mode == "--align":
@@ -4562,8 +4789,10 @@ def main(argv) -> int:
     emit({"phase": "ptxas", "kernel": "B <= 8 pass 1 and pass 2",
           "kernels": selection_ptxas(logs)})
     conv_regs = conv_ptxas(logs)
+    block_regs = ir_block_ptxas(logs)
     if mode is None:
         emit({"phase": "ptxas", "kernel": "conv_s8", "kernels": conv_regs})
+        emit({"phase": "ptxas", "kernel": "ir_block", "kernels": block_regs})
 
     max_err, timings = phase_kernels("cuda")
     if mode == "--searches":
@@ -4578,6 +4807,8 @@ def main(argv) -> int:
     int8_fwd = phase_int8_forward("cuda", repo_dir)
     tput = phase_server_throughput("cuda", repo_dir)
     blocks = phase_ir_block("cuda")
+    block_forwards = ir_block_forwards(blocks)
+    server_f32 = phase_server_f32("cuda", repo_dir)
     inference = phase_server_inference("cuda", repo_dir)
     detectors, det_cases = phase_server_detectors("cuda", repo_dir)
     phase_weights_gen("cuda", repo_dir, power)
@@ -4617,9 +4848,8 @@ def main(argv) -> int:
     b8 = [c for c in blocks if c["dtype"] == "bfloat16"
           and c["shape"]["N"] == 8]
 
-    def per_forward(key, dtype="bfloat16", n=8):
-        return sum(c[key] * c["blocks_per_forward"] for c in blocks
-                   if c["dtype"] == dtype and c["shape"]["N"] == n)
+    b8_forward = next(f for f in block_forwards
+                      if f["dtype"] == "bfloat16" and f["batch"] == 8)
     emit({"kernels": [{
         "name": "cosine_topk", "route": "cuda",
         "source": "facekit_torch/ops/csrc/cosine_topk.cu",
@@ -4732,25 +4962,28 @@ def main(argv) -> int:
         "replaces": "docs/experiments/fused_block_kernel.py:84",
         "launches": inference["launches"]["ir_block"],
         "max_abs_err": max(c["max_abs_err"] for c in blocks),
-        "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
-        "bound_ms": per_forward("bound_ms"),
+        "ms": b8_forward["ms"], "plain_ms": b8_forward["plain_ms"],
+        "bound_ms": b8_forward["bound_ms"],
         "bound_by": ("operations" if all(c["bound_by"] == "operations"
                                          for c in b8) else "bytes"),
         "library_ms": None,
         "library_note": "no PyTorch call computes the fused block; eager_ms "
                         "is the block op by op (cuDNN convs), as the port "
                         "ran it before this kernel",
-        "eager_ms": per_forward("eager_ms"),
+        "eager_ms": b8_forward["eager_ms"],
         "shape": "bf16 N=8: the 20 identity blocks of one IR-50 forward "
                  "(2 x 56x56x64, 3 x 28x28x128, 13 x 14x14x256, "
                  "2 x 7x7x512), times summed",
-        # the f32 path (CUDA cores) per forward; no shipped config
-        # computes in f32, so the served paths launch it no time
-        "f32_per_forward": [
-            {"batch": n, **{key: per_forward(key, "float32", n)
-                            for key in ("ms", "plain_ms", "eager_ms",
-                                        "bound_ms")}}
-            for n in IR_BLOCK_BATCHES["float32"]],
+        # the f32 path (3xTF32) per forward, and its launches and
+        # latency on configs/default.json served with compute_dtype
+        # float32 (server_f32)
+        "f32_per_forward": [f for f in block_forwards
+                            if f["dtype"] == "float32"],
+        "f32_server": {key: server_f32[key] for key in server_f32
+                       if key.startswith(("launches", "ws_launches",
+                                          "cos_dist", "embed_match_ms",
+                                          "inference_ms"))},
+        "ptxas": block_regs,
         **on_engines("ir_block"), "registered_op": dispatch["ir_block"]}]})
     print(power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

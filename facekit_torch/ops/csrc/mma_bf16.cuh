@@ -1,9 +1,9 @@
 // Warp-level tensor-core helpers for sm_90a, as inline PTX: cp.async
 // copies from global to shared memory, ldmatrix, mma.sync m16n8k16 (bf16 in,
 // f32 accumulators), m16n8k32 (s8 in, s32 accumulators) and m16n8k8 (tf32
-// in, f32 accumulators). Shared by the fused IR block (ir_block.cu), the
-// gallery searches' tensor-core pass 1 (topk_mma.cuh) and the s8 conv
-// (conv_s8.cu). Functions only, no constants, so that no name clashes with
+// in, f32 accumulators), and two splits of an f32 into two tf32 for
+// 3xTF32. Shared by the fused IR block (ir_block.cu), the gallery searches'
+// tensor-core pass 1 (topk_mma.cuh) and the s8 conv (conv_s8.cu). Functions only, no constants, so that no name clashes with
 // a kernel's own.
 
 #pragma once
@@ -78,6 +78,32 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An f32 register split as x = hi + lo exactly: hi is x rounded to 11
+// significant bits (a tf32 as it stands, the low 13 bits 0), lo the rest,
+// of which mma_tf32 reads the top 11 bits. Veltkamp's split: four f32
+// operations on the FP32 pipe, where ptxas makes cvt.rna.tf32.f32 two
+// integer operations and the INT32 pipe runs at half the rate; the splits
+// compete with the mma for the warp schedulers. The _rn intrinsics keep
+// them unfused.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  const float f = __uint_as_float(x);
+  const float t = __fmul_rn(f, 8193.f);                 // 2^13 + 1
+  const float h = __fsub_rn(t, __fsub_rn(t, f));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(f, h));
+}
+
+// The same split with hi = x's top 19 bits (x rounded toward zero to a
+// tf32, what mma_tf32 reads of x) and lo = x - hi, exact in f32: one
+// integer and one FP32 operation where split_tf32 takes four FP32 ones.
+// lo then has up to 13 significant bits, of which mma_tf32 reads 11, so a
+// product keeps about 21 bits where split_tf32's keeps 22.
+__device__ __forceinline__ void split_tf32_trunc(uint32_t x, uint32_t& hi,
+                                                 uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(__uint_as_float(x), __uint_as_float(hi)));
 }
 
 }  // namespace

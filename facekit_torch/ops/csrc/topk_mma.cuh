@@ -100,21 +100,6 @@ __device__ __forceinline__ void mma_step(int (&d)[4], const uint32_t (&a)[4],
   mma_s8(d, a, b0, b1);
 }
 
-// An f32 register split as x = hi + lo exactly: hi is x rounded to 11
-// significant bits (a tf32 as it stands, the low 13 bits 0), lo the rest,
-// of which mma_tf32 reads the top 11 bits. Veltkamp's split: four f32
-// operations on the FP32 pipe, where ptxas makes cvt.rna.tf32.f32 two
-// integer operations and the INT32 pipe runs at half the rate; the splits
-// compete with the mma for the warp schedulers. The _rn intrinsics keep
-// them unfused.
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  const float f = __uint_as_float(x);
-  const float t = __fmul_rn(f, 8193.f);                 // 2^13 + 1
-  const float h = __fsub_rn(t, __fsub_rn(t, f));
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(__fsub_rn(f, h));
-}
-
 // Grid (query tiles of MQ, chunks of rows_per_cta rows, a multiple of MR).
 // gscale and qscale (the s8 rows' and queries' f32 scales) are read in s8
 // only.

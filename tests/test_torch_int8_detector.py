@@ -112,12 +112,23 @@ def test_quantize_detector_matches_facekit(fam):
         quantize_detector(fam.qnet)
 
 
+# RetinaFace's cases of the two tests below are the slowest of this file;
+# they run from test_torch_int8_detector_retinaface.py, on a worker of
+# their own under ``--dist loadfile``
+LIGHT = ("slim", "rfb")
+
+
+@pytest.mark.parametrize("fam", LIGHT, indirect=True)
 def test_every_site_equals_facekit_on_its_inputs(fam, monkeypatch):
     """Each int8 site, fed the activation the port's int8 forward gives
     it: the s8 x s8 -> s32 sum of the quantized input equals XLA's
     ``conv_general_dilated`` (``feature_group_count`` = C at the depthwise
     sites) bit for bit, and the dequantized output equals facekit's
     ``conv2d_int8``."""
+    every_site_equals_facekit(fam, monkeypatch)
+
+
+def every_site_equals_facekit(fam, monkeypatch):
     calls = []
     real = TL.conv2d_int8
 
@@ -167,6 +178,7 @@ def test_int8_detector_within_facekit_bars(fam):
         assert np.abs(outs[2] - ldm).max() < 0.2 * np.abs(ldm).max()
 
 
+@pytest.mark.parametrize("fam", LIGHT, indirect=True)
 def test_int8_detector_is_batch_invariant(fam, monkeypatch):
     """Per-sample activation scales: every int8 site's output for a frame
     is the same bits alone as in the batch, and RetinaFace's whole int8
@@ -175,6 +187,10 @@ def test_int8_detector_is_batch_invariant(fam, monkeypatch):
     by batch size at some of their shapes and so moves an output by an
     ulp (their float detectors are not batch-invariant here either); their
     whole outputs are held to facekit's int8 bars instead."""
+    int8_detector_is_batch_invariant(fam, monkeypatch)
+
+
+def int8_detector_is_batch_invariant(fam, monkeypatch):
     calls = []
     real = TL.conv2d_int8
 

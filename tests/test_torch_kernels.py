@@ -15,7 +15,8 @@ from facekit_torch.models.arcface import IRBlock
 from facekit_torch.ops.conv_s8 import _conv_s8_cuda, conv_s8, conv_s8_reference
 from facekit_torch.ops.ir_block import (_conv3x3, _ir_block_cuda, _plain_u,
                                         block_operands, ir_block,
-                                        ir_block_reference, u_rounding_bound)
+                                        ir_block_reference,
+                                        split_tf32_weights, u_rounding_bound)
 from facekit_torch.ops.similarity import (_cosine_topk_cuda,
                                           _cosine_topk_int8_cuda, cosine_topk,
                                           cosine_topk_int8,
@@ -122,6 +123,22 @@ def test_ir_block_wrapper_runs_plain_version_on_cpu():
     assert ir_block.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         _ir_block_cuda(x, *block_operands(blk, torch.float32))
+
+
+def test_split_tf32_weights_is_exact():
+    """The f32 kernel's weights split on the host (the option chip_smoke.py
+    times against the split in registers): per group of 32 floats of a
+    row in (kh, kw, c) order, 32 hi then 32 lo; hi + lo == w exactly in
+    f32, hi a tf32 (its low 13 bits 0), lo below 2**-10 of hi."""
+    rng = np.random.default_rng(3)
+    w = torch.tensor(rng.normal(scale=0.05, size=(64, 3, 3, 64)),
+                     dtype=torch.float32)
+    split = split_tf32_weights(w)
+    assert split.shape == (64, 18, 2, 32) and split.is_contiguous()
+    hi, lo = split[:, :, 0], split[:, :, 1]
+    assert torch.equal(hi + lo, w.reshape(64, 18, 32))
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert (lo.abs() <= hi.abs() * 2.0 ** -10).all()
 
 
 def test_u_rounding_bound_is_one_step_of_u():
@@ -672,12 +689,18 @@ def test_search_past_256_queries(cuda_device, kind, b, k):
 
 
 # (N, H, W, C): the four IR-50 identity-block shapes, ragged bands (H not
-# a multiple of the kernel's 4-row band, odd W), the forward of WS
-# /inference at bucket 8 (8 frames x 4 faces), and an 8-CTA cluster on an
-# image whose band pixels are no multiple of the 16-row tensor-core tile
+# a multiple of the kernel's band: 4 rows, in f32 7 at C >= 256; odd W),
+# the forward of WS /inference at bucket 8 (8 frames x 4 faces), an 8-CTA
+# cluster on an image whose band pixels are no multiple of the 16-row
+# tensor-core tile, and f32's plans: C = 64 writes u over the t band (at
+# batch 3, and at 23x40, whose conv1 takes two passes that meet inside an
+# image row), 7-row bands at C = 256 and 512 whose last band holds 4 and
+# 1 rows (11x9, 8x7), and a band lowered to 5 rows to fit (15x14x256)
 IR_BLOCK_CASES = [(2, 56, 56, 64), (2, 28, 28, 128), (1, 14, 14, 256),
                   (1, 7, 7, 512), (3, 9, 13, 64), (1, 5, 3, 128),
-                  (32, 14, 14, 256), (1, 3, 5, 512)]
+                  (32, 14, 14, 256), (1, 3, 5, 512), (3, 56, 56, 64),
+                  (2, 23, 40, 64), (1, 11, 9, 256), (1, 8, 7, 512),
+                  (2, 15, 14, 256)]
 
 
 @pytest.mark.cuda
@@ -685,7 +708,7 @@ IR_BLOCK_CASES = [(2, 56, 56, 64), (2, 28, 28, 128), (1, 14, 14, 256),
 @pytest.mark.parametrize("n,h,w,c", IR_BLOCK_CASES)
 def test_ir_block_kernel_matches_plain(cuda_device, n, h, w, c, dtype):
     """f32 within 1e-4 (sums over 9*C terms in another order than
-    cuDNN's). bf16: u and the output are each rounded to bf16 once, from
+    cuDNN's), with the weights split in registers and on the host. bf16: u and the output are each rounded to bf16 once, from
     f32 sums taken in another order, so all but 1e-5 of the outputs lie
     within two bf16 steps of the plain version's (2**-6 of the magnitude,
     plus 2**-9 near 0), and every one within that plus the spread one step
@@ -705,10 +728,59 @@ def test_ir_block_kernel_matches_plain(cuda_device, n, h, w, c, dtype):
     err = (got.float() - ref.float()).abs()
     if dtype == "float32":
         assert err.max() <= 1e-4, err.max()
+        split = _ir_block_cuda(x, split_tf32_weights(w1),
+                               split_tf32_weights(w2), par)
+        assert (split - ref).abs().max() <= 1e-4
     else:
         steps = 2.0 ** -6 * ref.float().abs() + 2.0 ** -9
         assert (err > steps).float().mean() <= 1e-5, err.max()
         assert (err <= steps + u_rounding_bound(x, w1, w2, par)).all()
+
+
+@pytest.mark.cuda
+def test_ir_block_f32_lowers_its_band_to_fit(cuda_device):
+    """f32 at 112 columns, where a 4-row band of t does not fit in shared
+    memory: the kernel takes a lower band and stays within 1e-4 (the bf16
+    kernel refuses this width)."""
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    w1, w2, par = (t.to(cuda_device) for t in _ir_operands(rng, 64))
+    x = torch.tensor(rng.normal(size=(1, 9, 112, 64)), dtype=torch.float32,
+                     device=cuda_device)
+    got = _ir_block_cuda(x, w1, w2, par)
+    ref = ir_block_reference(x, w1, w2, par)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_ir50_f32_embed_launches_ir_block(cuda_device, monkeypatch):
+    """A full-width f32 IR-50 embed on the card (``compute_dtype``
+    float32): 20 ``ir_block`` launches a forward, and the embeddings
+    within 1e-4 cosine of the same net with every block op by op
+    (``IRBlock.composed``, cuDNN's f32 convs)."""
+    from facekit_torch.config import FaceKitConfig
+    from facekit_torch.pipeline import FacePipeline
+    from facekit_torch.weights import random_arcface_params
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = FacePipeline(FaceKitConfig(rec_network="ir_50",
+                                      compute_dtype="float32"),
+                        random_arcface_params("ir_50", seed=2),
+                        device=cuda_device)
+    crops = torch.tensor(np.random.default_rng(6).integers(
+        0, 256, (8, 112, 112, 3), dtype=np.uint8), device=cuda_device)
+    before = ir_block.launches
+    with torch.inference_mode():
+        got = pipe._embed(crops)
+        torch.cuda.synchronize()
+        assert ir_block.launches == before + 20
+        monkeypatch.setattr(IRBlock, "fusable", lambda self: False)
+        ref = pipe._embed(crops)
+    torch.cuda.synchronize()
+    assert ir_block.launches == before + 20
+    assert got.shape == (8, 512) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert (1 - (got * ref).sum(-1)).abs().max() <= 1e-4
 
 
 @pytest.mark.cuda
