@@ -517,9 +517,9 @@ def conv_ptxas(logs):
 
 def ir_block_ptxas(logs):
     """Registers, stack and spill of the fused block's kernels
-    (``ir_block_bf16_kernel``; ``ir_block_f32_kernel`` at each band
-    height); "not rebuilt" where the library was already built. Fails on a
-    stack frame or a spill in any, or where the f32 kernel is missing."""
+    (``ir_block_bf16_kernel``, ``ir_block_f32_kernel``); "not rebuilt"
+    where the library was already built. Fails on a stack frame or a spill
+    in either, or where the f32 kernel is missing."""
     if "ir_block" not in logs:
         return "not rebuilt"
     entries = ptxas_entries(logs["ir_block"], prefix="ir_block")
@@ -931,6 +931,48 @@ def phase_kernels(device, n=N_TOP, seed=0):
     return max_err, timings
 
 
+def embed_match_ms(server, snap, rng, b, reps=12):
+    """Host ms of /recognize's embed + match (``serving_embed``) on ``b``
+    random crops, through the device sync, ``reps`` times; the first two
+    dropped."""
+    rh, rw = server.config.rec_hw
+    ts = []
+    for _ in range(reps):
+        batch = rng.integers(0, 256, (b, rh, rw, 3), np.uint8)
+        t0 = time.perf_counter()
+        _, v, _ = server.serving_embed(server.pad_batch(list(batch)), snap)
+        v.cpu()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return ts[2:]
+
+
+def inference_ms(server, rng, b, reps=10):
+    """Host ms of WS /inference's batch function on ``b`` random frames,
+    ``reps`` times; the first two dropped."""
+    fh, fw = server.config.frame_hw
+    ts = []
+    for _ in range(reps):
+        batch = list(rng.integers(0, 256, (b, fh, fw, 3), np.uint8))
+        t0 = time.perf_counter()
+        server.inference_batch(batch)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return ts[2:]
+
+
+def latency_turns(measures):
+    """The median of each ``measures[name](b)``'s samples at buckets 1 and
+    8, with the fused blocks and (a guide) with the blocks op by op, in
+    two turns of each."""
+    lat = {}
+    for _ in range(2):
+        for b in (1, 8):
+            for name, fn in measures.items():
+                lat.setdefault(f"{name}_b{b}", []).extend(fn(b))
+                with composed_blocks():
+                    lat.setdefault(f"{name}_b{b}_composed", []).extend(fn(b))
+    return {k: statistics.median(v) for k, v in lat.items()}
+
+
 def phase_server(device, repo_dir, seed=1, n_users=32):
     """configs/default.json's /recognize + enrollment path on the card."""
     import torch
@@ -1007,26 +1049,9 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
                 raise AssertionError(f"bf16 card vs f32 CPU embeddings: "
                                      f"cosine distance {cos_dist}")
 
-            # -- embed+match latency at each batch bucket, with the fused
-            #    blocks and (a guide) with the blocks op by op, in turns
-            def embed_match_ms(b, reps=12):
-                ts = []
-                for r in range(reps):
-                    batch = rng.integers(0, 256, (b, rh, rw, 3), np.uint8)
-                    t0 = time.perf_counter()
-                    _, v, _ = server.serving_embed(server.pad_batch(
-                        list(batch)), snap)
-                    v.cpu()
-                    ts.append((time.perf_counter() - t0) * 1e3)
-                return ts[2:]
-            lat = {}
-            for _ in range(2):
-                for b in (1, 8):
-                    lat.setdefault(f"embed_match_ms_b{b}", []).extend(
-                        embed_match_ms(b))
-                    with composed_blocks():
-                        lat.setdefault(f"embed_match_ms_b{b}_composed",
-                                       []).extend(embed_match_ms(b))
+            # -- embed+match latency at each batch bucket
+            lat = latency_turns({"embed_match_ms": lambda b: embed_match_ms(
+                server, snap, rng, b)})
             rec = {"phase": "server", "config": "configs/default.json",
                    "network": cfg.rec_network, "dtype": cfg.compute_dtype,
                    "users": n_users, "requests": len(queries),
@@ -1034,7 +1059,7 @@ def phase_server(device, repo_dir, seed=1, n_users=32):
                    "forwards": forwards, "launches": counts,
                    "max_abs_err": err, "cos_dist_vs_f32_cpu": cos_dist,
                    "min_enrolled_similarity": float(sims[:4].min()),
-                   **{k: statistics.median(v) for k, v in lat.items()}}
+                   **lat}
             emit(rec)
             return rec
         finally:
@@ -1523,7 +1548,6 @@ def _throughput_run(server, mode, crops, batches, enrolled_q, e_cpu, rng):
     if server.pipeline.rec_net.int8 != want:
         raise AssertionError(f"{mode}: the embedder is "
                              f"{server.pipeline.rec_net.int8}")
-    rh, rw = server.config.rec_hw
     n_users = len(crops)
     reset_launches()
     # -- the main path: enrollment as /insert/face makes it, then
@@ -1593,16 +1617,6 @@ def _throughput_run(server, mode, crops, batches, enrolled_q, e_cpu, rng):
                              "neighbour")
 
     # -- embed + match latency at each batch bucket
-    def embed_match_ms(b, reps=12):
-        ts = []
-        for _ in range(reps):
-            batch = rng.integers(0, 256, (b, rh, rw, 3), np.uint8)
-            t0 = time.perf_counter()
-            _, v, _ = server.serving_embed(server.pad_batch(list(batch)),
-                                           snap)
-            v.cpu()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(ts[2:])
     rec = {"phase": "server_throughput", "config": "configs/throughput.json",
            "scales": mode, "network": server.config.rec_network,
            "dtype": server.config.compute_dtype, "users": n_users,
@@ -1610,9 +1624,8 @@ def _throughput_run(server, mode, crops, batches, enrolled_q, e_cpu, rng):
            "gallery_capacity": server.gallery.capacity,
            "launches": counts, "cos_dist_vs_f32_cpu": cos_dist,
            "min_enrolled_similarity": min_sim, "batch_invariant": True,
-           "embed_match_ms_b1": embed_match_ms(1),
-           "embed_match_ms_b8": embed_match_ms(8),
-           "embed_match_ms_b64": embed_match_ms(64)}
+           **{f"embed_match_ms_b{b}": statistics.median(
+               embed_match_ms(server, snap, rng, b)) for b in (1, 8, 64)}}
     emit(rec)
     return rec
 
@@ -1675,7 +1688,6 @@ def phase_ir_block(device, seed=5):
 
     from facekit_torch.ops.ir_block import (_ir_block_cuda, block_operands,
                                             ir_block_reference,
-                                            split_tf32_weights,
                                             u_rounding_bound)
     gen = torch.Generator().manual_seed(seed)
     dgen = torch.Generator(device=device).manual_seed(seed)
@@ -1720,19 +1732,6 @@ def phase_ir_block(device, seed=5):
                        "plain_ms": cuda_ms(ir_block_reference, args, 3),
                        "eager_ms": eager, "library_ms": None,
                        "bound_ms": bound, "bound_by": by}
-                if dname == "float32":
-                    # the weights split on the host instead of in registers
-                    sw1, sw2 = split_tf32_weights(w1), split_tf32_weights(w2)
-                    split = _ir_block_cuda(xs[0], sw1, sw2, par).float()
-                    rec["split_w_max_abs_err"] = float((split - ref).abs()
-                                                       .max())
-                    if rec["split_w_max_abs_err"] > IR_BLOCK_F32_ATOL:
-                        raise AssertionError(f"ir_block f32 {(n, hw, c)} "
-                                             "with host-split weights: "
-                                             f"{rec['split_w_max_abs_err']}")
-                    rec["split_w_ms"] = cuda_ms(
-                        _ir_block_cuda, [(x, sw1, sw2, par) for x in xs], 10)
-                    del split
                 emit(rec)
                 out.append(rec)
                 del xs, got, ref, err
@@ -1748,11 +1747,9 @@ def ir_block_forwards(blocks):
         for n in batches:
             cases = [c for c in blocks if c["dtype"] == dname
                      and c["shape"]["N"] == n]
-            keys = [k for k in ("ms", "split_w_ms", "plain_ms", "eager_ms",
-                                "bound_ms") if k in cases[0]]
             rec = {"phase": "ir_block_forward", "dtype": dname, "batch": n,
                    **{k: sum(c[k] * c["blocks_per_forward"] for c in cases)
-                      for k in keys}}
+                      for k in ("ms", "plain_ms", "eager_ms", "bound_ms")}}
             rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
             emit(rec)
             out.append(rec)
@@ -1897,25 +1894,9 @@ def phase_server_inference(device, repo_dir, seed=6, n_users=32):
                                                     idx.reshape(-1, 1)),
                                plain, 1)
 
-            # -- frame-batch latency at each bucket, with the fused blocks
-            #    and (a guide) with the blocks op by op, in turns
-            def inference_ms(b, reps=10):
-                ts = []
-                for _ in range(reps):
-                    batch = list(rng.integers(0, 256, (b, fh, fw, 3),
-                                              np.uint8))
-                    t0 = time.perf_counter()
-                    server.inference_batch(batch)
-                    ts.append((time.perf_counter() - t0) * 1e3)
-                return ts[2:]
-            lat = {}
-            for _ in range(2):
-                for b in (1, 8):
-                    lat.setdefault(f"inference_ms_b{b}", []).extend(
-                        inference_ms(b))
-                    with composed_blocks():
-                        lat.setdefault(f"inference_ms_b{b}_composed",
-                                       []).extend(inference_ms(b))
+            # -- frame-batch latency at each bucket
+            lat = latency_turns({"inference_ms": lambda b: inference_ms(
+                server, rng, b)})
             rec = {"phase": "server_inference",
                    "config": "configs/default.json",
                    "det_threshold_bbox": cfg.det_threshold_bbox,
@@ -1927,7 +1908,7 @@ def phase_server_inference(device, repo_dir, seed=6, n_users=32):
                    "crop_max_err": crop_err,
                    "cos_dist_vs_f32_cpu": cos_dist, "max_abs_err": err,
                    "min_enrolled_similarity": float(min(sims)),
-                   **{k: statistics.median(v) for k, v in lat.items()}}
+                   **lat}
             emit(rec)
             return rec
         finally:
@@ -2044,37 +2025,11 @@ def phase_server_f32(device, repo_dir, seed=22, n_users=32):
                                   (ws_vals.reshape(-1, 1),
                                    ws_idx.reshape(-1, 1)), ws_plain, 1)
 
-            # -- latency at each bucket, fused and (a guide) op by op, in
-            #    turns
-            def embed_match_ms(b, reps=12):
-                ts = []
-                for _ in range(reps):
-                    batch = rng.integers(0, 256, (b, rh, rw, 3), np.uint8)
-                    t0 = time.perf_counter()
-                    _, v, _ = server.serving_embed(server.pad_batch(
-                        list(batch)), snap)
-                    v.cpu()
-                    ts.append((time.perf_counter() - t0) * 1e3)
-                return ts[2:]
-
-            def inference_ms(b, reps=10):
-                ts = []
-                for _ in range(reps):
-                    batch = list(rng.integers(0, 256, (b, fh, fw, 3),
-                                              np.uint8))
-                    t0 = time.perf_counter()
-                    server.inference_batch(batch)
-                    ts.append((time.perf_counter() - t0) * 1e3)
-                return ts[2:]
-            lat = {}
-            for _ in range(2):
-                for b in (1, 8):
-                    for name, fn in (("embed_match_ms", embed_match_ms),
-                                     ("inference_ms", inference_ms)):
-                        lat.setdefault(f"{name}_b{b}", []).extend(fn(b))
-                        with composed_blocks():
-                            lat.setdefault(f"{name}_b{b}_composed",
-                                           []).extend(fn(b))
+            # -- latency at each bucket
+            lat = latency_turns({
+                "embed_match_ms": lambda b: embed_match_ms(server, snap, rng,
+                                                           b),
+                "inference_ms": lambda b: inference_ms(server, rng, b)})
             rec = {"phase": "server_f32", "config": "configs/default.json",
                    "compute_dtype": cfg.compute_dtype,
                    "gallery_dtype": cfg.gallery_dtype,
@@ -2085,7 +2040,7 @@ def phase_server_f32(device, repo_dir, seed=22, n_users=32):
                    "max_abs_err": max(err, ws_err),
                    "cos_dist_vs_f32_cpu": cos_dist,
                    "min_enrolled_similarity": float(sims[:4].min()),
-                   **{k: statistics.median(v) for k, v in lat.items()}}
+                   **lat}
             emit(rec)
             return rec
         finally:
@@ -2486,20 +2441,11 @@ def phase_server_detectors(device, repo_dir, seed=9, n_users=8):
                     rec[f"det_ms_{key}"] = cuda_ms(det_forward,
                                                    [(x_dev[:b],)], 10)
 
-                def inference_ms(b, reps=8):
-                    ts = []
-                    for _ in range(reps):
-                        batch = list(rng.integers(0, 256, (b, fh, fw, 3),
-                                                  np.uint8))
-                        t0 = time.perf_counter()
-                        server.inference_batch(batch)
-                        ts.append((time.perf_counter() - t0) * 1e3)
-                    return ts[2:]
                 lat = {}
                 for _ in range(2):
                     for b in (1, 8):
                         lat.setdefault(f"inference_ms_b{b}", []).extend(
-                            inference_ms(b))
+                            inference_ms(server, rng, b, reps=8))
                 rec.update({k: statistics.median(v) for k, v in lat.items()})
                 emit(rec)
                 out.append(rec)

@@ -81,8 +81,8 @@
 //    and the weights are split in registers after each ldmatrix
 //    (split_tf32_trunc: hi = the top 19 bits, lo = x - hi, one integer
 //    and one FP32 operation; Veltkamp's split_tf32, four FP32 ones, was
-//    slower here). Weights split once on the host instead double the
-//    weight stream and were slower at every shape (PERF.md).
+//    slower here). Weights split once on the host instead doubled the
+//    weight stream and were slower at every shape (PERF.md, PR 19).
 //  * The tensor cores round toward zero as they accumulate: a chain of
 //    3*9*C/8 mma (1,728 at C = 512) drifts by ulps of the sum each step,
 //    past 1e-4 of the output. Each stage sums into a fresh accumulator,
@@ -511,7 +511,8 @@ __host__ __device__ __forceinline__ int warps_m_f32(int mtiles) {
 __host__ __device__ __forceinline__ int f32_band_rows(int R, int H, int C) {
   if (C == TN) return R + 5;
   int rows = 0;
-  for (int r0 = 0; r0 < H; r0 += R) rows = max(rows, min(r0 + R + 1, H) - max(r0 - 1, 0) + 2);
+  for (int r0 = 0; r0 < H; r0 += R)
+    rows = max(rows, min(r0 + R + 1, H) - max(r0 - 1, 0) + 2);
   return rows;
 }
 __host__ __device__ __forceinline__ int f32_urows(int R, int H) {
@@ -542,24 +543,25 @@ __host__ __device__ __forceinline__ size_t f32_ring_bytes(int R, int W) {
 
 // This thread's share of a conv's weight stages (64 output channels x 256
 // bytes of K, 1,024 chunks of 16 bytes): rows tid/16 + 16r (r < 4), chunk
-// tid%16. A weight row holds `krow` floats. A stage's rows are 256 bytes,
+// tid%16. A weight row holds K floats. A stage's rows are 256 bytes,
 // unpadded: chunk c of row n lies at chunk c ^ (n % 8), so the 8 row
 // addresses of an ldmatrix fall in distinct bank groups.
 struct WeightStreamF32 {
   const float* src;
   size_t rows16;                  // 16 rows of w, in elements
   uint32_t dst;
-  __device__ WeightStreamF32(const float* w, int krow, int o_base, const float* ring) {
+  __device__ WeightStreamF32(const float* w, int K, int o_base, const float* ring) {
     const int row = threadIdx.x >> 4, ch = threadIdx.x & 15;
-    src = w + (size_t)(o_base + row) * krow + ch * 4;
-    rows16 = (size_t)16 * krow;
+    src = w + (size_t)(o_base + row) * K + ch * 4;
+    rows16 = (size_t)16 * K;
     dst = smem_u32(ring + row * FCH + (ch ^ (row & 7)) * 4);
   }
   // starts the copy of stage s into ring buffer buf
   __device__ __forceinline__ void load(int s, int buf) const {
     const uint32_t d = dst + buf * FSTAGE;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) cp_async16(d + r * 16 * FCH * 4, src + r * rows16 + s * FCH);
+    for (int r = 0; r < 4; ++r)
+      cp_async16(d + r * 16 * FCH * 4, src + r * rows16 + s * FCH);
   }
   // the first FNST-1 stages, one commit group each
   __device__ __forceinline__ void prologue() const {
@@ -573,23 +575,20 @@ struct WeightStreamF32 {
 
 // conv_mma's implicit GEMM in f32 as 3xTF32, over `rows` output rows of
 // the band from `band` on (pixel stride CP floats, zero columns at 0 and
-// W+1). A stage is 64 channels of one tap, eight k8 steps (32 channels,
-// four, when the weights come split: each weight row then 32 floats of hi
-// and 32 of lo per 64). The warps split as conv_mma's, split-K over the k8
-// steps of a stage in turn. Every pass ends with a __syncthreads, after
-// which the band and the ring are no longer read; the split-K partial sums
-// go through `part` (the ring). Calls epi(m, n, v0, v1) as conv_mma does.
-template <bool SPLIT_W, typename Epi>
+// W+1). A stage is 64 channels of one tap, eight k8 steps. The warps split
+// as conv_mma's, split-K over the k8 steps of a stage in turn. Every pass
+// ends with a __syncthreads, after which the band and the ring are no
+// longer read; the split-K partial sums then go through the ring. Calls
+// epi(m, n, v0, v1) as conv_mma does.
+template <typename Epi>
 __device__ __forceinline__ void conv_tf32(const float* band, int CP,
-                                          const WeightStreamF32& ws,
-                                          const float* ring, float* part, int rows,
-                                          int W, int C, Epi epi) {
-  constexpr int CH = SPLIT_W ? FCH / 2 : FCH;      // input channels per stage
-  constexpr int KSTEP = CH / 8;                    // k8 steps per stage
+                                          const WeightStreamF32& ws, float* ring,
+                                          int rows, int W, int C, Epi epi) {
+  constexpr int KSTEP = FCH / 8;                   // k8 steps per stage
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int W2 = W + 2;
-  const int S = 9 * C / CH;                        // stages per pass
+  const int S = 9 * C / FCH;                       // stages per pass
   const int P = rows * W;
   const int mtiles = (P + 15) / 16;
   const int WM = warps_m_f32(mtiles);
@@ -645,23 +644,14 @@ __device__ __forceinline__ void conv_tf32(const float* band, int CP,
       bh[0][0] = r[0]; bh[0][1] = r[1]; bh[1][0] = r[2]; bh[1][1] = r[3];
       ldmatrix_x4(r, b_k + 16 * FCH * 4);
       bh[2][0] = r[0]; bh[2][1] = r[1]; bh[3][0] = r[2]; bh[3][1] = r[3];
-      if constexpr (SPLIT_W) {
-        // the lo half: chunks 8 .. 15, swizzled within them
-        ldmatrix_x4(r, b_k + FCH * 2);
-        bl[0][0] = r[0]; bl[0][1] = r[1]; bl[1][0] = r[2]; bl[1][1] = r[3];
-        ldmatrix_x4(r, b_k + 16 * FCH * 4 + FCH * 2);
-        bl[2][0] = r[0]; bl[2][1] = r[1]; bl[3][0] = r[2]; bl[3][1] = r[3];
-      }
       // every A of the step before the first mma
 #pragma unroll
       for (int i = 0; i < MT; ++i)
         if (i < ntile) ldmatrix_x4(ar[i], a_tap + a_off[i] + kk * 32);
-      if constexpr (!SPLIT_W) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) split_tf32_trunc(bh[j][h], bh[j][h], bl[j][h]);
-      }
+        for (int h = 0; h < 2; ++h) split_tf32_trunc(bh[j][h], bh[j][h], bl[j][h]);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         if (i < ntile) {
@@ -683,9 +673,10 @@ __device__ __forceinline__ void conv_tf32(const float* band, int CP,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = __fadd_rn(acc[i][j][q], part_s[i][j][q]);
+        for (int q = 0; q < 4; ++q)
+          acc[i][j][q] = __fadd_rn(acc[i][j][q], part_s[i][j][q]);
     if (++buf == FNST) buf = 0;
-    if ((c0 += CH) == C) {
+    if ((c0 += FCH) == C) {
       c0 = 0;
       if (++kw == 3) { kw = 0; ++kh; }
     }
@@ -697,7 +688,7 @@ __device__ __forceinline__ void conv_tf32(const float* band, int CP,
     __syncthreads();                               // the band is read
     if (WK > 1) {
       // split-K (one pass, so the ring is free): groups wk > 0 leave their
-      // sums in `part`, group 0 adds them in the order of wk
+      // sums in the ring, group 0 adds them in the order of wk
       if (wk > 0) {
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
@@ -705,7 +696,7 @@ __device__ __forceinline__ void conv_tf32(const float* band, int CP,
             const int row = (WM * i + wm) * 16 + (lane >> 2);
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              float* q = part + ((wk - 1) * mtiles * 16 + row) * PSTR + wn * 32 +
+              float* q = ring + ((wk - 1) * mtiles * 16 + row) * PSTR + wn * 32 +
                          j * 8 + (lane & 3) * 2;
               *reinterpret_cast<float2*>(q) = make_float2(acc[i][j][0], acc[i][j][1]);
               *reinterpret_cast<float2*>(q + 8 * PSTR) =
@@ -723,7 +714,7 @@ __device__ __forceinline__ void conv_tf32(const float* band, int CP,
               const int row = (WM * i + wm) * 16 + (lane >> 2);
 #pragma unroll
               for (int j = 0; j < 4; ++j) {
-                const float* q = part + ((g - 1) * mtiles * 16 + row) * PSTR +
+                const float* q = ring + ((g - 1) * mtiles * 16 + row) * PSTR +
                                  wn * 32 + j * 8 + (lane & 3) * 2;
                 const float2 lo = *reinterpret_cast<const float2*>(q);
                 const float2 hi = *reinterpret_cast<const float2*>(q + 8 * PSTR);
@@ -757,11 +748,7 @@ __device__ __forceinline__ void conv_tf32(const float* band, int CP,
 }
 
 // Grid and clusters as ir_block_bf16_kernel's; the band height R is
-// H / bands rounded up (f32_band_height). SPLIT_W: w1 and w2 come split on
-// the host (split_tf32_weights in ops/ir_block.py), each row of 9*C floats
-// as 9*C/32 groups of 32 hi then 32 lo; else (C, 3, 3, C) f32, split in
-// registers.
-template <bool SPLIT_W>
+// H / bands rounded up (f32_band_height).
 __global__ void __launch_bounds__(THREADS, 1)
 ir_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                     const float* __restrict__ w2, const float* __restrict__ par,
@@ -799,7 +786,6 @@ ir_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   const int trow = G > 1 ? 0 : 1;                  // the band row of t's first
   const int tb = G > 1 ? y1 - 1 : r0 - 2, te = G > 1 ? y1e + 1 : r0 + R + 2;
   const int o_base = g * TN;
-  const int krow = SPLIT_W ? 18 * C : 9 * C;
   const float* xn = x + (size_t)n * H * W * C;
   const float* s1 = par;
   const float* b1 = par + C;
@@ -808,7 +794,8 @@ ir_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   const float* b2 = par + 4 * C + o_base;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const WeightStreamF32 ws1(w1, krow, o_base, ring), ws2(w2, krow, o_base, ring);
+  const int K = 9 * C;
+  const WeightStreamF32 ws1(w1, K, o_base, ring), ws2(w2, K, o_base, ring);
   ws1.prologue();                                  // w1 loads while t builds
 
   // x on image rows tb .. te-1, all C channels, 0 off the image, copied
@@ -851,15 +838,14 @@ ir_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   // (conv_tf32's first __syncthreads publishes t)
 
   // u on image rows y1 .. y1e-1, this CTA's channels: prelu of conv1
-  conv_tf32<SPLIT_W>(band + (size_t)(trow + y1 - 1 - tb) * W2 * CP, CP, ws1, ring, ring,
-                     y1e - y1, W, C,
-                     [&](int m, int c, float v0, float v1) {
-                       const int i = m / W, col = m - (m / W) * W;
-                       const float2 a = __ldg(reinterpret_cast<const float2*>(alpha + c));
-                       *reinterpret_cast<float2*>(u_at(y1 - r0 + 1 + i, col) + c) =
-                           make_float2(v0 > 0.f ? v0 : __fmul_rn(v0, a.x),
-                                       v1 > 0.f ? v1 : __fmul_rn(v1, a.y));
-                     });
+  conv_tf32(band + (size_t)(trow + y1 - 1 - tb) * W2 * CP, CP, ws1, ring, y1e - y1, W, C,
+            [&](int m, int c, float v0, float v1) {
+              const int i = m / W, col = m - (m / W) * W;
+              const float2 a = __ldg(reinterpret_cast<const float2*>(alpha + c));
+              *reinterpret_cast<float2*>(u_at(y1 - r0 + 1 + i, col) + c) =
+                  make_float2(v0 > 0.f ? v0 : __fmul_rn(v0, a.x),
+                              v1 > 0.f ? v1 : __fmul_rn(v1, a.y));
+            });
   // the u rows conv2 reads off the image: r0-1 in the first band, H in the
   // last (with G = 1 these band rows still hold x or nothing)
   for (int e = threadIdx.x; e < (y2e - r0 + 2) * W * (TN / 4); e += THREADS) {
@@ -897,17 +883,17 @@ ir_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   // (the other CTAs may still read this CTA's u slice, which nothing
   // writes any more)
   float* on = out + (size_t)n * H * W * C;
-  conv_tf32<SPLIT_W>(band, CP, ws2, ring, ring, y2e - r0, W, C,
-                     [&](int m, int c, float v0, float v1) {
-                       const int i = m / W, col = m - (m / W) * W;
-                       const size_t off = ((size_t)(r0 + i) * W + col) * C + o_base + c;
-                       const float2 res = __ldg(reinterpret_cast<const float2*>(xn + off));
-                       const float2 sc = __ldg(reinterpret_cast<const float2*>(s2 + c));
-                       const float2 sh = __ldg(reinterpret_cast<const float2*>(b2 + c));
-                       *reinterpret_cast<float2*>(on + off) = make_float2(
-                           __fadd_rn(__fadd_rn(__fmul_rn(v0, sc.x), sh.x), res.x),
-                           __fadd_rn(__fadd_rn(__fmul_rn(v1, sc.y), sh.y), res.y));
-                     });
+  conv_tf32(band, CP, ws2, ring, y2e - r0, W, C,
+            [&](int m, int c, float v0, float v1) {
+              const int i = m / W, col = m - (m / W) * W;
+              const size_t off = ((size_t)(r0 + i) * W + col) * C + o_base + c;
+              const float2 res = __ldg(reinterpret_cast<const float2*>(xn + off));
+              const float2 sc = __ldg(reinterpret_cast<const float2*>(s2 + c));
+              const float2 sh = __ldg(reinterpret_cast<const float2*>(b2 + c));
+              *reinterpret_cast<float2*>(on + off) = make_float2(
+                  __fadd_rn(__fadd_rn(__fmul_rn(v0, sc.x), sh.x), res.x),
+                  __fadd_rn(__fadd_rn(__fmul_rn(v1, sc.y), sh.y), res.y));
+            });
   if (G > 1) cluster.sync();        // no CTA leaves while its u slice is read
 }
 
@@ -969,29 +955,26 @@ int f32_band_height(int H, int W, int C, size_t* smem) {
   }
 }
 
-template <bool SPLIT_W>
 int launch_f32(cudaStream_t s, const void* x, const void* w1, const void* w2,
                const float* par, void* out, int N, int H, int W, int C) {
   size_t smem;
   const int R = f32_band_height(H, W, C, &smem);
-  return launch_clusters<float>(ir_block_f32_kernel<SPLIT_W>, smem, s, x, w1, w2, par,
-                                out, N, H, W, C, R);
+  return launch_clusters<float>(ir_block_f32_kernel, smem, s, x, w1, w2, par, out, N,
+                                H, W, C, R);
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes). Launches on `stream` and returns the
 // CUDA error as an int; it never synchronizes. The caller has checked: x and
-// out (N, H, W, C), w1 and w2 (C, 3, 3, C) in one dtype (0 = f32, 1 = bf16;
-// 2 = f32 with w1 and w2 split on the host), par (5, C) f32 = s1, b1, alpha,
-// s2, b2, all contiguous on one device; C a multiple of 64 up to 512;
-// N*H*W*C below 2**31.
+// out (N, H, W, C), w1 and w2 (C, 3, 3, C) in one dtype (0 = f32, 1 = bf16),
+// par (5, C) f32 = s1, b1, alpha, s2, b2, all contiguous on one device; C a
+// multiple of 64 up to 512; N*H*W*C below 2**31.
 extern "C" int facekit_ir_block(const void* x, const void* w1, const void* w2,
                                 const void* par, void* out, int N, int H, int W,
                                 int C, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(par);
   if (dtype == 1) return launch_bf16<4>(s, x, w1, w2, p, out, N, H, W, C);
-  if (dtype == 2) return launch_f32<true>(s, x, w1, w2, p, out, N, H, W, C);
-  return launch_f32<false>(s, x, w1, w2, p, out, N, H, W, C);
+  return launch_f32(s, x, w1, w2, p, out, N, H, W, C);
 }

@@ -3,8 +3,9 @@
 // f32 accumulators), m16n8k32 (s8 in, s32 accumulators) and m16n8k8 (tf32
 // in, f32 accumulators), and two splits of an f32 into two tf32 for
 // 3xTF32. Shared by the fused IR block (ir_block.cu), the gallery searches'
-// tensor-core pass 1 (topk_mma.cuh) and the s8 conv (conv_s8.cu). Functions only, no constants, so that no name clashes with
-// a kernel's own.
+// tensor-core pass 1 (topk_mma.cuh) and the s8 conv (conv_s8.cu).
+// Functions only, no constants, so that no name clashes with a kernel's
+// own.
 
 #pragma once
 

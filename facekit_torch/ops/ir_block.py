@@ -32,10 +32,6 @@ output channel) and ``par`` is (5, C) f32: s1, b1, alpha, s2, b2.
   * ``facekit_torch::ir_block`` is the block as a ``torch.library`` op
     on (x, w1, w2, par): the plain version on the CPU, the kernel on CUDA;
     ``ir_block`` calls it while ``torch.export`` traces;
-  * ``split_tf32_weights`` gives f32 weights split on the host into the
-    tf32 hi and lo the f32 kernel's 3xTF32 takes; the kernel also takes
-    them so (``_ir_block_cuda`` on split weights), which chip_smoke.py
-    times against the split in registers that the served path runs;
   * ``u_rounding_bound`` is how far two right versions may lie apart
     through the rounding of u, which the comparisons of the kernel with
     the plain version on the card allow for in bf16.
@@ -104,16 +100,6 @@ def _operands(block, dtype: torch.dtype):
                               block.bn2.mean, block.bn2.var)
         par = torch.stack([s1, b1, block.prelu.float(), s2, b2]).contiguous()
     return w1, w2, par
-
-
-def split_tf32_weights(w: torch.Tensor) -> torch.Tensor:
-    """(O, 3, 3, C) f32 weights split for the f32 kernel's 3xTF32: each
-    row's 9*C floats as 9*C/32 groups of 32 hi (the low 13 bits cleared, a
-    tf32 as it stands), then their 32 lo = w - hi, exact in f32:
-    (O, 9*C/32, 2, 32)."""
-    g = w.float().reshape(w.shape[0], -1, 32)
-    hi = (g.view(torch.int32) & -8192).view(torch.float32)
-    return torch.stack([hi, g - hi], dim=2).contiguous()
 
 
 def ir_block_reference(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -209,9 +195,7 @@ def _check(x, w1, w2, par):
         raise ValueError(f"ir_block: x {tuple(x.shape)}, (N, H, W, C) "
                          "expected")
     c = x.shape[3]
-    shapes = [(c, 3, 3, c)] + ([(c, 9 * c // 32, 2, 32)]
-                               if x.dtype == torch.float32 else [])
-    if w1.shape not in shapes or w2.shape != w1.shape or \
+    if w1.shape != (c, 3, 3, c) or w2.shape != (c, 3, 3, c) or \
             par.shape != (5, c) or par.dtype != torch.float32:
         raise ValueError(f"ir_block: w1 {tuple(w1.shape)}, w2 "
                          f"{tuple(w2.shape)}, par {tuple(par.shape)} "
@@ -235,9 +219,8 @@ def _ir_block_cuda(x, w1, w2, par):
     fn = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = 2 if w1.shape[1] != 3 else _DTYPES[x.dtype]
         err = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), par.data_ptr(),
-                 out.data_ptr(), n, h, w, c, code, stream)
+                 out.data_ptr(), n, h, w, c, _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ir_block: kernel launch failed with CUDA error "
                            f"{err}")

@@ -15,8 +15,7 @@ from facekit_torch.models.arcface import IRBlock
 from facekit_torch.ops.conv_s8 import _conv_s8_cuda, conv_s8, conv_s8_reference
 from facekit_torch.ops.ir_block import (_conv3x3, _ir_block_cuda, _plain_u,
                                         block_operands, ir_block,
-                                        ir_block_reference,
-                                        split_tf32_weights, u_rounding_bound)
+                                        ir_block_reference, u_rounding_bound)
 from facekit_torch.ops.similarity import (_cosine_topk_cuda,
                                           _cosine_topk_int8_cuda, cosine_topk,
                                           cosine_topk_int8,
@@ -123,22 +122,6 @@ def test_ir_block_wrapper_runs_plain_version_on_cpu():
     assert ir_block.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         _ir_block_cuda(x, *block_operands(blk, torch.float32))
-
-
-def test_split_tf32_weights_is_exact():
-    """The f32 kernel's weights split on the host (the option chip_smoke.py
-    times against the split in registers): per group of 32 floats of a
-    row in (kh, kw, c) order, 32 hi then 32 lo; hi + lo == w exactly in
-    f32, hi a tf32 (its low 13 bits 0), lo below 2**-10 of hi."""
-    rng = np.random.default_rng(3)
-    w = torch.tensor(rng.normal(scale=0.05, size=(64, 3, 3, 64)),
-                     dtype=torch.float32)
-    split = split_tf32_weights(w)
-    assert split.shape == (64, 18, 2, 32) and split.is_contiguous()
-    hi, lo = split[:, :, 0], split[:, :, 1]
-    assert torch.equal(hi + lo, w.reshape(64, 18, 32))
-    assert not (hi.view(torch.int32) & 0x1FFF).any()
-    assert (lo.abs() <= hi.abs() * 2.0 ** -10).all()
 
 
 def test_u_rounding_bound_is_one_step_of_u():
@@ -708,7 +691,7 @@ IR_BLOCK_CASES = [(2, 56, 56, 64), (2, 28, 28, 128), (1, 14, 14, 256),
 @pytest.mark.parametrize("n,h,w,c", IR_BLOCK_CASES)
 def test_ir_block_kernel_matches_plain(cuda_device, n, h, w, c, dtype):
     """f32 within 1e-4 (sums over 9*C terms in another order than
-    cuDNN's), with the weights split in registers and on the host. bf16: u and the output are each rounded to bf16 once, from
+    cuDNN's). bf16: u and the output are each rounded to bf16 once, from
     f32 sums taken in another order, so all but 1e-5 of the outputs lie
     within two bf16 steps of the plain version's (2**-6 of the magnitude,
     plus 2**-9 near 0), and every one within that plus the spread one step
@@ -728,9 +711,6 @@ def test_ir_block_kernel_matches_plain(cuda_device, n, h, w, c, dtype):
     err = (got.float() - ref.float()).abs()
     if dtype == "float32":
         assert err.max() <= 1e-4, err.max()
-        split = _ir_block_cuda(x, split_tf32_weights(w1),
-                               split_tf32_weights(w2), par)
-        assert (split - ref).abs().max() <= 1e-4
     else:
         steps = 2.0 ** -6 * ref.float().abs() + 2.0 ** -9
         assert (err > steps).float().mean() <= 1e-5, err.max()
