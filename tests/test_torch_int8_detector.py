@@ -80,6 +80,19 @@ def fam(request):
     return _Family(request.param)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch's CPU ops of this file in one thread. Its many small convs
+    spend most of their time in OpenMP barriers when other processes hold
+    the cores: with every core busy elsewhere the file took over 380 s on
+    torch's default threads and 65 s on one (49 s alone either way). No
+    result depends on it: the s8 sums are exact in float64 in any order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qconvs(net):
     return {name: m for name, m in net.named_modules()
             if isinstance(m, TL.QConv)}

@@ -2,12 +2,14 @@
 the slowest of that file, in a file of their own so that ``--dist
 loadfile`` gives them another worker: every int8 site against facekit's
 s8 conv on its own input, and batch invariance. Same checks, inputs and
-bars (the functions are that file's)."""
+bars, torch's CPU ops in one thread (the functions and the fixture are
+that file's)."""
 
 import pytest
 
 from test_torch_int8_detector import (_Family, every_site_equals_facekit,
-                                      int8_detector_is_batch_invariant)
+                                      int8_detector_is_batch_invariant,
+                                      one_thread)  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", params=["mobilenet0.25"])
