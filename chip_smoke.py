@@ -87,12 +87,14 @@ failed phase exits non-zero; nothing falls back to the CPU or to a plain
 version. Without CUDA it exits non-zero and prints no result. Imports
 nothing of JAX. ``python3 chip_smoke.py --searches`` runs the build and
 the two search phases alone, for comparing search kernels; ``--convs``
-the conv's build, its ``ptxas`` line and the conv phase alone;
+the conv's build, its ``ptxas`` line, the empty-launch floor
+(``launch_floor``) and the conv phase alone;
 ``--throughput`` the int8 forward and the throughput config's /recognize
 path alone (it runs on an older checkout too, to compare the two in one
 call); ``--gen`` the build of the two kernels it runs and
 ``weights_gen`` alone; ``--detectors`` the build of the three kernels
-it runs, the conv's ``ptxas`` line and ``server_detectors`` alone;
+it runs, the conv's ``ptxas`` line, ``launch_floor`` and
+``server_detectors`` alone;
 ``--engines`` the build and ``server_engines`` alone; ``--remainder``
 the build and ``server_remainder`` alone; ``--train`` the build of the
 two kernels it serves with and ``train`` alone; ``--mesh`` the build and
@@ -191,13 +193,21 @@ def _wrappers():
 
 
 def reset_launches():
-    """Every kernel's launch count to 0."""
+    """Every kernel's launch count to 0, and the conv's by route."""
     for fn in _wrappers().values():
         fn.launches = 0
+    routes = getattr(_wrappers()["conv_s8"], "route_launches", {})
+    for route in routes:
+        routes[route] = 0
 
 
 def launches():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Every kernel's launch count, and the conv's by route
+    (``conv_s8.mma``, ``conv_s8.dp4a``, ``conv_s8.dw``)."""
+    out = {name: fn.launches for name, fn in _wrappers().items()}
+    routes = getattr(_wrappers()["conv_s8"], "route_launches", {})
+    out.update({f"conv_s8.{route}": n for route, n in routes.items()})
+    return out
 
 
 @contextlib.contextmanager
@@ -340,6 +350,44 @@ def flushed_kernel_us(cases, name: str, flush, reps: int = SPLIT_REPS,
         us = [d for _, d in sorted((start, d) for n, start, d
                                    in device_events(run) if name in n)]
         if len(us) == reps * len(cases):
+            return [sum(us[i:i + reps]) / reps
+                    for i in range(0, len(us), reps)]
+    return [None] * len(cases)
+
+
+def flushed_call_us(cases, flush, reps: int = SPLIT_REPS,
+                    tries: int = TRACE_TRIES):
+    """For each ``(fn, args_list)`` of ``cases``, the mean device µs of
+    every kernel one call ``fn(*args)`` launches, with the L2 flushed
+    before each, in one trace as ``flushed_kernel_us`` takes it: for a
+    function whose kernels have no name in common (cuDNN's). An empty
+    kernel (``launch_floor``) after each flush marks where a call's
+    kernels begin; they end at the next flush, the event before the next
+    mark. A trace that does not hold one mark and one kernel after it per
+    call is taken again, up to ``tries`` times; all None if none does."""
+    import torch
+
+    from facekit_torch.ops.conv_s8 import launch_floor
+    for fn, args_list in cases:
+        fn(*args_list[0])                        # warm up
+
+    def run():
+        for fn, args_list in cases:
+            for i in range(reps):
+                flush.fill_(i)
+                launch_floor()
+                fn(*args_list[i % len(args_list)])
+                torch.cuda.synchronize()
+    for _ in range(tries):
+        events = sorted((start, n, d) for n, start, d in device_events(run))
+        marks = [i for i, (_, n, _) in enumerate(events)
+                 if "launch_floor" in n]
+        if len(marks) != reps * len(cases):
+            continue
+        ends = [m - 1 for m in marks[1:]] + [len(events)]
+        us = [sum(d for _, _, d in events[m + 1:e])
+              for m, e in zip(marks, ends)]
+        if all(e > m + 1 for m, e in zip(marks, ends)):
             return [sum(us[i:i + reps]) / reps
                     for i in range(0, len(us), reps)]
     return [None] * len(cases)
@@ -495,24 +543,48 @@ def selection_ptxas(logs):
     return out
 
 
+# the conv's kernels that its ptxas line must hold: the tensor-core route
+# and the two band routes
+CONV_KERNELS = ("conv_s8_mma_kernel", "conv_s8_band_dp4a_kernel",
+                "conv_s8_band_dw_kernel")
+
+
 def conv_ptxas(logs):
     """Registers, stack and spill of every kernel of the s8 conv's build
     (``conv_s8_*kernel``); "not rebuilt" where the library was already
-    built. Fails on a stack frame or a spill in a tensor-core kernel
-    (``conv_s8_mma_kernel``) or a depthwise one (``conv_s8_dw_kernel``),
-    or where the depthwise kernel is missing."""
+    built. Fails on a stack frame or a spill in any of them, or where one
+    of CONV_KERNELS is missing."""
     if "conv_s8" not in logs:
         return "not rebuilt"
     entries = ptxas_entries(logs["conv_s8"], prefix="conv_s8")
-    if not entries:
-        raise AssertionError("no ptxas -v lines of the conv_s8 kernels")
-    if not any("dw" in kern for kern in entries):
-        raise AssertionError(f"no conv_s8_dw_kernel in {sorted(entries)}")
+    missing = [k for k in CONV_KERNELS
+               if not any(kern.startswith(k + "<") for kern in entries)]
+    if missing:
+        raise AssertionError(f"no ptxas -v lines of {missing} in "
+                             f"{sorted(entries)}")
     for kern, rec in entries.items():
-        if ("mma" in kern or "dw" in kern) and (rec.get("stack_bytes")
-                                                or rec.get("spill_bytes")):
+        if rec.get("stack_bytes") or rec.get("spill_bytes"):
             raise AssertionError(f"conv_s8 {kern}: {rec}")
     return entries
+
+
+def phase_launch_floor(device, reps: int = 20):
+    """The device µs of one empty kernel of one CTA, launched through
+    ctypes on the current stream as the conv is (``launch_floor``), timed
+    by the traces the conv cases take: ``device_us`` (as ``conv_s8_case``)
+    and ``flushed_kernel_us`` (as ``conv_s8_det_case``). A site near it
+    is as fast as a launch."""
+    import torch
+
+    from facekit_torch.ops.conv_s8 import launch_floor
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    rec = {"phase": "launch_floor",
+           "device_us": device_us(launch_floor, [()], reps),
+           "flushed_device_us": flushed_kernel_us(
+               [(launch_floor, [()])], "launch_floor", flush, reps)[0]}
+    del flush
+    emit(rec)
+    return rec
 
 
 def ir_block_ptxas(logs):
@@ -1321,7 +1393,8 @@ def phase_conv(device, batches=CONV_BATCHES, seed=3):
     import torch
     import torch.nn.functional as F
 
-    from facekit_torch.ops.conv_s8 import (_launch_plan, conv_route, conv_s8,
+    from facekit_torch.ops.conv_s8 import (_band_plan, _launch_plan,
+                                           conv_route, conv_s8,
                                            conv_s8_reference)
     gen = torch.Generator(device=device).manual_seed(seed)
     cases = [(shape, batch, len(sites), ",".join(sites[:3])
@@ -1360,6 +1433,8 @@ def phase_conv(device, batches=CONV_BATCHES, seed=3):
                "sites": sites, "launches_per_forward": per_forward,
                "route": route,
                "plan": plan._asdict() if plan.bn else None,
+               "band": None if plan.bn else _band_plan(
+                   n, h, w, c, o, ks, stride, pad, 1, sms)._asdict(),
                "max_abs_err": 0,
                "ms": cuda_ms(conv_s8, args, 20),
                "host_us": host_us(conv_s8, args),
@@ -1389,8 +1464,9 @@ def _ms(us):
 def conv_forwards(convs):
     """One line per batch of ``convs``: the conv_s8_case lines of the int8
     IR-50's sites summed by their launches_per_forward (ms, host ms,
-    device ms, bound, plain version, bf16 cuDNN yardstick), and the sites
-    each route serves."""
+    device ms, bound, plain version, bf16 cuDNN yardstick), in all and by
+    route (``by_route``: the sites, ms, device ms and bound of each, so
+    that the dp4a stem's share shows), and the sites each route serves."""
     out = []
     for batch in sorted({c["batch"] for c in convs
                          if c["launches_per_forward"]}):
@@ -1405,6 +1481,14 @@ def conv_forwards(convs):
         for c in cs:
             routes[c["route"]] = (routes.get(c["route"], 0)
                                   + c["launches_per_forward"])
+        by_route = {}
+        for route in routes:
+            rs = [c for c in cs if c["route"] == route]
+            dev = total("device_us", rs)
+            by_route[route] = {"sites": routes[route],
+                               "ms": total("ms", rs),
+                               "device_ms": _ms(dev),
+                               "bound_ms": total("bound_ms", rs)}
         rec = {"phase": "conv_s8_forward", "batch": batch,
                "launches_per_forward": sum(c["launches_per_forward"]
                                            for c in cs),
@@ -1414,7 +1498,7 @@ def conv_forwards(convs):
                "plain_ms": total("plain_ms"),
                "bf16_cudnn_ms": total("bf16_cudnn_ms"),
                "bf16_cudnn_device_ms": _ms(total("bf16_cudnn_device_us")),
-               "sites_by_route": routes}
+               "sites_by_route": routes, "by_route": by_route}
         if rec["launches_per_forward"] != SITES_PER_FORWARD:
             raise AssertionError(f"conv_s8 batch {batch}: "
                                  f"{rec['launches_per_forward']} sites")
@@ -2089,17 +2173,22 @@ def det_conv_cases(device, shapes, in_forward, gen):
     case in one trace (``device_us``, the operands read from HBM as the
     bound counts them);
     the mean device µs of a site of this shape inside the served forward
-    on each path (``in_forward_us``, from ``in_forward``); the bound; and
+    on each path (``in_forward_us``, from ``in_forward``); the bound; the
+    band geometry of the CUDA-core routes (``band``, ``_band_plan``); and
     cuDNN's bf16 conv of the same shape (``groups`` = C for the depthwise
-    sites) as a guide only. A device time whose trace never held one
-    kernel per call is None."""
+    sites) as a guide only, by CUDA events (``bf16_cudnn_ms``, which the
+    host's time per call sets) and by a trace (``bf16_cudnn_device_us``,
+    every kernel of a call with the L2 flushed, ``flushed_call_us``). A
+    device time whose trace never held one kernel per call is None."""
     import torch
     import torch.nn.functional as F
 
-    from facekit_torch.ops.conv_s8 import (conv_route, conv_s8,
+    from facekit_torch.ops.conv_s8 import (_band_plan, conv_route, conv_s8,
                                            conv_s8_reference)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     out, timed = [], []                  # timed: (conv_s8, its args) a case
+    guides = []                          # (cuDNN's conv, its args) a case
     for shape, per_forward in shapes.items():
         n, h, w, c, o, ks, stride, pad, groups = shape
         xs = [torch.randint(-127, 128, (n, h, w, c), generator=gen,
@@ -2116,15 +2205,19 @@ def det_conv_cases(device, shapes, in_forward, gen):
         xb = [x.permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
         wb = wt.permute(0, 3, 1, 2).to(torch.bfloat16)
 
-        def cudnn(x_, w_):
+        def cudnn(x_, w_, stride=stride, pad=pad, groups=groups):
+            # (bound now: it is called again after the loop)
             return F.conv2d(x_, w_, stride=stride, padding=pad,
                             groups=groups)
         bound, by = conv_bound(n, h, w, c, o, ks, stride, pad, groups)
+        route = conv_route(c, groups)
         rec = {"phase": "conv_s8_det_case",
                "shape": {"N": n, "H": h, "W": w, "C": c, "O": o, "k": ks,
                          "stride": stride, "pad": pad, "groups": groups},
                "launches_per_forward": per_forward,
-               "route": conv_route(c, groups), "max_abs_err": 0,
+               "route": route, "max_abs_err": 0,
+               "band": None if route == "mma" else _band_plan(
+                   n, h, w, c, o, ks, stride, pad, groups, sms)._asdict(),
                "ms": cuda_ms(conv_s8, args, 20),
                "in_forward_us": {path: in_forward[path].get(shape)
                                  if in_forward.get(path) else None
@@ -2134,17 +2227,21 @@ def det_conv_cases(device, shapes, in_forward, gen):
                "bound_ms": bound, "bound_by": by}
         out.append(rec)
         timed.append((conv_s8, args))
-    for rec, us in zip(out, flushed_kernel_us(timed, "conv_s8", flush)):
+        guides.append((cudnn, [(x, wb) for x in xb]))
+    for rec, us, guide_us in zip(out, flushed_kernel_us(timed, "conv_s8",
+                                                        flush),
+                                 flushed_call_us(guides, flush)):
         rec["device_us"] = us
+        rec["bf16_cudnn_device_us"] = guide_us
         emit(rec)
-    del flush, timed
+    del flush, timed, guides
     torch.cuda.synchronize()
     return out
 
 
 # the conv_s8_det_case keys summed per forward (µs ones summed as ms)
 DET_CASE_SUMS = ("ms", "device_us", "bound_ms", "plain_ms",
-                 "bf16_cudnn_ms")
+                 "bf16_cudnn_ms", "bf16_cudnn_device_us")
 
 
 def det_case_sums(cases):
@@ -2153,7 +2250,8 @@ def det_case_sums(cases):
     route: the conv's ms per detector forward, its device ms alone with
     the L2 flushed (``device_ms``) and inside the served forward
     (``in_forward_device_ms``), beside its bound, the
-    plain version and cuDNN's bf16 convs. A sum over a case whose device
+    plain version and cuDNN's bf16 convs (event ms and traced device ms).
+    A sum over a case whose device
     time is None is None."""
     out = {}
 
@@ -4626,13 +4724,14 @@ def main(argv) -> int:
     """No arguments: the whole smoke test. ``--searches``: the two search
     phases alone (build, ptxas, ``kernel_case``, ``kernel_int8_case``),
     for comparing search kernels; ``--convs``: the conv phase alone
-    (build, ptxas, ``conv_s8_case``, ``conv_s8_forward``);
+    (build, ptxas, ``launch_floor``, ``conv_s8_case``,
+    ``conv_s8_forward``);
     ``--throughput``: the int8 embedder's forward and the throughput
     config's /recognize path alone (``int8_forward``,
     ``server_throughput``), for comparing them with another checkout;
     ``--gen``: the checkpoint-to-gallery phase alone (``weights_gen``);
-    ``--detectors``: the conv's ``ptxas`` line and the detector paths
-    alone (``server_detectors``, ``conv_s8_det_case``); ``--engines``:
+    ``--detectors``: the conv's ``ptxas`` line, ``launch_floor`` and the
+    detector paths alone (``server_detectors``, ``conv_s8_det_case``); ``--engines``:
     both shipped configs served from exported engines alone
     (``server_engines``, ``dispatch_cost``); ``--remainder``: the native
     pixel backend, the int8-residual embedder and the windowed alignment
@@ -4716,7 +4815,9 @@ def main(argv) -> int:
     if mode == "--detectors":
         emit({"phase": "ptxas", "kernel": "conv_s8",
               "kernels": conv_ptxas(logs)})
-        phase_server_detectors("cuda", repo_dir)
+        phase_launch_floor("cuda")
+        _, det_cases = phase_server_detectors("cuda", repo_dir)
+        emit({"phase": "detector_sites", **det_case_sums(det_cases)})
         print(power, flush=True)
         return 0
     if mode == "--throughput":
@@ -4727,6 +4828,7 @@ def main(argv) -> int:
     if mode == "--convs":
         emit({"phase": "ptxas", "kernel": "conv_s8",
               "kernels": conv_ptxas(logs)})
+        phase_launch_floor("cuda")
         conv_forwards(phase_conv("cuda"))
         print(power, flush=True)
         return 0
@@ -4748,6 +4850,7 @@ def main(argv) -> int:
     server = phase_server("cuda", repo_dir)
     int8_timings = phase_int8_kernels("cuda")
     big = phase_big_batches("cuda")
+    floor = phase_launch_floor("cuda")
     convs = phase_conv("cuda")
     forwards = {f["batch"]: f for f in conv_forwards(convs)}
     int8_fwd = phase_int8_forward("cuda", repo_dir)
@@ -4789,6 +4892,20 @@ def main(argv) -> int:
     k4_case = next(c for c in convs if c["launches_per_forward"] == 0)
     k4 = k4_case["shape"]
     conv64 = forwards[64]
+    # the band routes at the main paths' shapes: the int8 IR-50 stem at
+    # batch 64 (dp4a) and the 13 depthwise sites of an int8 RetinaFace
+    # forward at batch 8 (dw), whose launches are the throughput path's and
+    # the int8 RetinaFace path's
+    stem = next(c for c in convs
+                if c["batch"] == 64 and c["route"] == "dp4a")
+    det_sums = det_case_sums(det_cases)
+    retina_dw = det_sums["mobilenet0.25_int8 b8"]["by_route"]["dw"]
+    det_launches = {d["path"]: d["launches"] for d in detectors
+                    if "int8" in d["path"]}
+
+    def band_regs(kernel):
+        return ("not rebuilt" if isinstance(conv_regs, str) else
+                {k: v for k, v in conv_regs.items() if k.startswith(kernel)})
     # kernel #3 at the main path's shapes: one bf16 IR-50 forward of 8
     # crops runs its 20 identity blocks at the four shapes
     b8 = [c for c in blocks if c["dtype"] == "bfloat16"
@@ -4898,11 +5015,47 @@ def main(argv) -> int:
                 ("path", "launches", "det_device_ms", "bf16_det_device_ms",
                  "conv_s8_share", "inference_ms"))}
             for d in detectors],
-        "detector_sites": det_case_sums(det_cases),
+        "detector_sites": det_sums,
         # registers, stack and spill of each route's kernels, the
         # depthwise one among them
         "ptxas": conv_regs, **on_engines("conv_s8"),
         "registered_op": dispatch["conv_s8"]}, {
+        "name": "conv_s8_band_dp4a_kernel", "route": "cuda",
+        "source": "facekit_torch/ops/csrc/conv_s8.cu",
+        "replaces": "docs/experiments/pallas_s8_stride2_conv.py:86",
+        "launches": tput[0]["launches"]["conv_s8.dp4a"],
+        "max_abs_err": 0,
+        "ms": stem["ms"], "device_ms": _ms(stem["device_us"]),
+        "plain_ms": stem["plain_ms"], "bound_ms": stem["bound_ms"],
+        "bound_by": stem["bound_by"], "library_ms": None,
+        "library_note": "no s8 convolution on CUDA in PyTorch; "
+                        "bf16_cudnn_ms as a yardstick",
+        "bf16_cudnn_ms": stem["bf16_cudnn_ms"],
+        "bf16_cudnn_device_ms": _ms(stem["bf16_cudnn_device_us"]),
+        "launch_floor_us": floor["device_us"],
+        "shape": "s8 N=64 112x112x3 -> 64, 3x3 stride 1 pad 1 (the int8 "
+                 "IR-50 stem), band " + json.dumps(stem["band"]),
+        "detector_launches": {p: n["conv_s8.dp4a"]
+                              for p, n in det_launches.items()},
+        "ptxas": band_regs("conv_s8_band_dp4a_kernel")}, {
+        "name": "conv_s8_band_dw_kernel", "route": "cuda",
+        "source": "facekit_torch/ops/csrc/conv_s8.cu",
+        "replaces": "docs/experiments/pallas_s8_stride2_conv.py:86",
+        "launches": det_launches["mobilenet0.25_int8"]["conv_s8.dw"],
+        "max_abs_err": 0,
+        "ms": retina_dw["ms"], "device_ms": retina_dw["device_ms"],
+        "plain_ms": retina_dw["plain_ms"], "bound_ms": retina_dw["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library_note": "no s8 convolution on CUDA in PyTorch; "
+                        "bf16_cudnn_ms (groups = C) as a yardstick",
+        "bf16_cudnn_ms": retina_dw["bf16_cudnn_ms"],
+        "bf16_cudnn_device_ms": retina_dw["bf16_cudnn_device_ms"],
+        "launch_floor_us": floor["flushed_device_us"],
+        "shape": "s8: the 13 depthwise sites of one int8 RetinaFace "
+                 "forward at 288x320, batch 8, times summed",
+        "detector_launches": {p: n["conv_s8.dw"]
+                              for p, n in det_launches.items()},
+        "ptxas": band_regs("conv_s8_band_dw_kernel")}, {
         "name": "ir_block", "route": "cuda",
         "source": "facekit_torch/ops/csrc/ir_block.cu",
         "replaces": "docs/experiments/fused_block_kernel.py:84",

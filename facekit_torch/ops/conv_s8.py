@@ -16,15 +16,16 @@ output, the exact integer sum; ``groups`` is 1 or C (depthwise):
     tensors it runs the plain version.
 
 The kernel has three routes, and the wrapper alone chooses
-(``conv_route``): a depthwise conv (``groups`` = C: the detectors' 3x3
-dw sites) runs a CUDA-core kernel that sums each output's 9 taps; a dense
-conv of 16 input channels or more (every IR-50 site but the stem, and
-most detector sites) runs an implicit GEMM on s8 ``mma.sync`` tensor
-cores, in CTA tiles and K splits that ``_conv_plan`` chooses; the stems'
-3 channels (padded to 4) and 8-channel inputs run a ``__dp4a`` kernel on
-CUDA cores. Both dense routes take any multiple of 8 output channels.
-The plan passed to the C entry point names the dense route (``bn = 0``:
-dp4a); ``groups`` names the depthwise one.
+(``conv_route``): a dense conv of 16 input channels or more (every IR-50
+site but the stem, and most detector sites) runs an implicit GEMM on s8
+``mma.sync`` tensor cores, in CTA tiles and K splits that ``_conv_plan``
+chooses; the two others run on CUDA cores in bands of whole output rows
+that ``_band_plan`` chooses: a dense conv of at most 8 input channels
+(the stems' 3, read as they are, and 8-channel inputs) on ``__dp4a``, and
+a depthwise conv (``groups`` = C: the detectors' 3x3 dw sites). Both
+dense routes take any multiple of 8 output channels. The plan passed to
+the C entry point names the dense route (``bn = 0``: dp4a); ``groups``
+names the depthwise one.
 
 The convolution is also the ``torch.library`` op ``facekit_torch::conv_s8``
 (the plain version on the CPU, the kernel on CUDA), which the wrapper
@@ -54,6 +55,20 @@ MIN_SPLIT_STAGES = 2
 MAX_SPLITS = 8
 # |sum| <= 128**2 * K must stay below 2**31 (int8 spans -128..127)
 MAX_K = (2 ** 31 - 1) // 128 ** 2
+# the band routes (CUDA cores): the most input channels of the dense one,
+# its output-channel tiles (an exact tile for these O, else 64), the
+# threads of a CTA, the CTAs an SM holds (the kernels' launch bounds), the
+# dynamic shared memory a CTA may take so that they fit in an SM's 228 KiB
+# with the 1 KiB the system keeps for each, and the bands each CTA should
+# walk before a band takes more than one row
+DP4A_MAX_C = 8
+DENSE_TILES = (8, 16, 32, 64)
+BAND_THREADS = 256
+BAND_CTAS_PER_SM = 2
+BAND_SMEM = 112 * 1024
+BAND_MIN_PER_CTA = 4
+BAND_RING = 4          # input buffers of a band CTA: a band and 3 ahead
+DW_MIN_CH = 8          # the fewest channels a depthwise band takes (or C)
 
 
 def conv_s8_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -72,7 +87,8 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
     CPU tensors run ``conv_s8_reference``. CUDA tensors launch the kernel
     on the current stream, without synchronizing; a shape it does not take
-    raises. ``conv_s8.launches`` counts the launches. Under
+    raises. ``conv_s8.launches`` counts the launches, and
+    ``conv_s8.route_launches`` those of each route. Under
     ``torch.export`` it is the registered op ``facekit_torch::conv_s8``,
     which runs the same two functions.
     """
@@ -85,14 +101,16 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
 
 conv_s8.launches = 0
+conv_s8.route_launches = dict.fromkeys(("mma", "dp4a", "dw"), 0)
 
 
 def conv_route(c: int, groups: int = 1) -> str:
     """The kernel a CUDA tensor of ``c`` input channels runs: ``"dw"``
     (CUDA cores, 9 taps a channel) where ``groups`` > 1 (= C, depthwise),
     else ``"mma"`` (s8 ``mma.sync`` tensor cores) from MMA_MIN_C channels
-    on, else ``"dp4a"`` (CUDA cores; the stems' 3 channels, padded to 4,
-    and 8-channel inputs)."""
+    on, else ``"dp4a"`` (CUDA cores; the stems' 3 channels and 8-channel
+    inputs; 9 to 15 channels are padded to a multiple of 4 and take the
+    tensor cores at 16, or are refused)."""
     if groups > 1:
         return "dw"
     return "mma" if c >= MMA_MIN_C else "dp4a"
@@ -146,12 +164,108 @@ def _conv_plan(n: int, oh: int, ow: int, o: int, k: int, sms: int
 
 def _launch_plan(n: int, oh: int, ow: int, o: int, c: int, ks: int,
                  sms: int, groups: int = 1) -> ConvPlan:
-    """The plan the C entry point takes for ``c`` input channels (a power
-    of two >= 4 where ``groups`` is 1) and a ``ks`` x ``ks`` kernel:
-    ``_NO_PLAN`` on the dp4a and depthwise routes, else ``_conv_plan``."""
+    """The plan the C entry point takes for ``c`` input channels (at most
+    DP4A_MAX_C, or a power of two >= 16, where ``groups`` is 1) and a
+    ``ks`` x ``ks`` kernel: ``_NO_PLAN`` on the dp4a and depthwise routes
+    (which take ``_band_plan``), else ``_conv_plan``."""
     if conv_route(c, groups) != "mma":
         return _NO_PLAN
     return _conv_plan(n, oh, ow, o, ks * ks * c, sms)
+
+
+class BandPlan(NamedTuple):
+    """The launch of a band route (dp4a or depthwise): bands of ``rows``
+    output rows of one image (the last of an image may take fewer) and
+    ``ch`` output channels, ``chunks`` = ceil(O / ch) tiles of channels
+    (gridDim.y) by ``bands`` = N * ceil(OH / rows) bands each, walked by
+    ``ctas`` persistent CTAs (gridDim.x) of ``smem`` bytes of dynamic
+    shared memory."""
+    rows: int
+    ch: int
+    chunks: int
+    bands: int
+    ctas: int
+    smem: int
+
+
+_NO_BAND = BandPlan(0, 0, 0, 0, 0, 0)   # the tensor-core route takes none
+
+
+def _align16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _band_smem(w: int, ow: int, c: int, o: int, ks: int, stride: int,
+               rows: int, ch: int, groups: int = 1) -> int:
+    """Dynamic shared memory (bytes) of a band CTA, as the kernel lays it
+    out (``DenseBand`` and ``DwBand`` in ops/csrc/conv_s8.cu). Dense: the
+    tile's weights (as they lie in w, each run copied from the 16-byte
+    word at or below its first byte, then as 4-channel words), BAND_RING
+    raw buffers of a band's input rows, their tile of 4-channel words with
+    a zero column either side, two int32 output buffers. Depthwise: the
+    weights, BAND_RING byte tiles and two output buffers."""
+    ir = (rows - 1) * stride + ks
+    if groups > 1:
+        return (_align16(ch * 9 + 15)
+                + BAND_RING * _align16(ir * (w + 2) * ch)
+                + 2 * rows * ow * ch * 4)
+    cw = -(-c // 4)
+    return (_align16(ch * ks * ks * c + 15) + ch * ks * ks * cw * 4
+            + BAND_RING * _align16(ir * w * c + 15)
+            + _align16(ir * (w + 2) * cw * 4)
+            + 2 * rows * ow * min(o, ch) * 4)
+
+
+@functools.lru_cache(maxsize=1024)     # a model has a few dozen shapes
+def _band_plan(n: int, h: int, w: int, c: int, o: int, ks: int, stride: int,
+               pad: int, groups: int, sms: int) -> BandPlan:
+    """The bands of a dp4a (``c`` <= DP4A_MAX_C) or depthwise (``groups``
+    = C) conv on a card of ``sms`` SMs.
+
+    The channel tile: dense, O itself where O is in DENSE_TILES, else 64;
+    depthwise, the most of C, C/2, C/4, ... (multiples of 4, at least
+    DW_MIN_CH or C) whose bands of one row still give every SM one, else
+    the fewest. Either is halved while a band of one row does not fit in
+    BAND_SMEM; a shape whose row does not fit at the least tile raises.
+    Then the rows a band: the most that fit in BAND_SMEM while each CTA
+    the card holds (BAND_CTAS_PER_SM an SM) still walks BAND_MIN_PER_CTA
+    bands, else one: a CTA overlaps a band's store with the next band's
+    loads and sums only where it has a next band. The CTAs: one for each
+    band, at most BAND_CTAS_PER_SM an SM."""
+    oh = (h + 2 * pad - ks) // stride + 1
+    ow = (w + 2 * pad - ks) // stride + 1
+    slots = BAND_CTAS_PER_SM * sms
+
+    def smem(rows, ch):
+        return _band_smem(w, ow, c, o, ks, stride, rows, ch, groups)
+    if groups > 1:
+        tiles = [c]
+        while tiles[-1] % 8 == 0 and tiles[-1] // 2 >= min(c, DW_MIN_CH):
+            tiles.append(tiles[-1] // 2)
+        tiles = [t for t in tiles if t <= 4 * BAND_THREADS
+                 and smem(1, t) <= BAND_SMEM]
+        ch = next((t for t in tiles if n * oh * (c // t) >= sms),
+                  tiles[-1] if tiles else 0)
+    else:
+        ch = o if o in DENSE_TILES else DENSE_TILES[-1]
+        while ch > DENSE_TILES[0] and smem(1, ch) > BAND_SMEM:
+            ch //= 2
+        if smem(1, ch) > BAND_SMEM:
+            ch = 0
+    if not ch:
+        raise ValueError(f"conv_s8: a band of one output row of {ow} pixels "
+                         f"(C = {c}, O = {o}) does not fit in {BAND_SMEM} "
+                         "bytes of shared memory")
+    chunks = -(-o // ch)
+    rows = 1
+    for r in range(2, oh + 1):
+        if smem(r, ch) > BAND_SMEM or \
+                n * -(-oh // r) * chunks < BAND_MIN_PER_CTA * slots:
+            break
+        rows = r
+    bands = n * -(-oh // rows)
+    return BandPlan(rows, ch, chunks, bands,
+                    min(bands, max(1, slots // chunks)), smem(rows, ch))
 
 
 @functools.cache
@@ -161,13 +275,28 @@ def _sms(index: int) -> int:
 
 @functools.cache
 def _library():
-    """The kernel's C entry point, built at first use."""
+    """The kernel's library, built at first use: the conv's C entry point
+    (``facekit_conv_s8``), the shared memory of a band CTA
+    (``facekit_conv_s8_band_smem``, held to ``_band_smem`` by the tests on
+    the card) and an empty launch (``facekit_launch_floor``)."""
     from facekit_torch.ops import _build
-    fn = _build.load("conv_s8").facekit_conv_s8
+    lib = _build.load("conv_s8")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+    for name, args in (("facekit_conv_s8", [p, p, p] + [i] * 17 + [p]),
+                       ("facekit_conv_s8_band_smem", [i] * 9),
+                       ("facekit_launch_floor", [p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
+    return lib
+
+
+def launch_floor() -> None:
+    """Launches one empty kernel of one CTA on the current stream, through
+    ctypes as the conv is: what a launch costs the card with no work."""
+    err = _library().facekit_launch_floor(
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch_floor: CUDA error {err}")
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
@@ -205,14 +334,15 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
 def _conv_s8_cuda(x, w, stride, padding, groups=1):
     _check(x, w, stride, padding, groups)
     c = x.shape[3]
-    if c % 4:
-        # the stem's 3 channels: zero channels add nothing to the sum
-        x = F.pad(x, (0, 4 - c % 4))
-        w = F.pad(w, (0, 4 - c % 4))
-        c = x.shape[3]
-    if groups == 1 and c & (c - 1):
-        raise ValueError(f"conv_s8: {c} input channels; the dense routes "
-                         "take a power of two")
+    if groups == 1 and c > DP4A_MAX_C:
+        if c % 4:
+            # 9 to 15 channels: zero channels add nothing to the sum
+            x = F.pad(x, (0, 4 - c % 4))
+            w = F.pad(w, (0, 4 - c % 4))
+            c = x.shape[3]
+        if c & (c - 1):
+            raise ValueError(f"conv_s8: {c} input channels; the tensor-core "
+                             "route takes a power of two")
     x, w = x.contiguous(), w.contiguous()
     n, h, wd, _ = x.shape
     o, ks = w.shape[0], w.shape[1]
@@ -226,18 +356,22 @@ def _conv_s8_cuda(x, w, stride, padding, groups=1):
         raise ValueError("conv_s8: tensors of 2**31 elements or more")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv_s8: x and w must be 16-byte aligned")
-    plan = _launch_plan(n, oh, ow, o, c, ks, _sms(x.device.index), groups)
+    sms = _sms(x.device.index)
+    plan = _launch_plan(n, oh, ow, o, c, ks, sms, groups)
+    band = _NO_BAND if plan.bn else _band_plan(n, h, wd, c, o, ks, stride,
+                                               padding, groups, sms)
     out = torch.empty((n, oh, ow, o), dtype=torch.int32, device=x.device)
-    fn = _library()
+    fn = _library().facekit_conv_s8
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, o,
                  ks, stride, padding, oh, ow, groups, plan.bn, plan.splits,
-                 plan.per_split, stream)
+                 plan.per_split, band.rows, band.ch, band.ctas, stream)
     if err != 0:
         raise RuntimeError(f"conv_s8: kernel launch failed with CUDA error "
                            f"{err}")
     conv_s8.launches += 1
+    conv_s8.route_launches[conv_route(c, groups)] += 1
     return out
 
 

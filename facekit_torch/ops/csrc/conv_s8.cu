@@ -8,10 +8,10 @@
 // docs/experiments/pallas_s8_stride2_conv.py:46-104, an s8 3x3 stride-2
 // pad-1 convolution at C = 64, 112x112 written as one im2col matmul per
 // image, made general here: KS in {1, 3}, stride in {1, 2}, pad in {0, 1},
-// C a power of two >= 4 (the wrapper pads the stem's 3 channels to 4 with
-// zeros, which is exact), O a multiple of 8; or depthwise (groups = C = O,
-// 3x3, C a multiple of 4). The result is the exact integer sum, as the TPU
-// kernel's s32 accumulation gives it.
+// C a power of two >= 16 or C <= 8 (the stems' 3 channels, read as they
+// are), O a multiple of 8; or depthwise (groups = C = O, 3x3, C a multiple
+// of 4). The result is the exact integer sum, as the TPU kernel's s32
+// accumulation gives it.
 //
 // Bound on an H100 SXM: x read once, w read once, out written once,
 // N*H*W*C + O*KS*KS*C + 4*N*OH*OW*O bytes at 3.35 TB/s, against
@@ -22,8 +22,8 @@
 // operations. chip_smoke.py computes the bound of every shape it runs.
 //
 // Three routes, chosen in the wrapper (`conv_route`): groups > 1 runs the
-// depthwise kernel; else the plan names the route (bn = 0: the __dp4a
-// kernel).
+// depthwise band kernel; else the plan names the route (bn = 0: the dense
+// band kernel on __dp4a).
 //
 // C >= 16: an implicit GEMM on s8 tensor cores (conv_s8_mma_kernel).
 //  * M = N*OH*OW output pixels, N_gemm = O, K = KS*KS*C in the weight's
@@ -59,20 +59,43 @@
 //    reused), so that each thread writes 16 bytes of one pixel's channels
 //    and a warp whole runs of a pixel row.
 //
-// C < 16 (the stems, 8-channel inputs): conv_s8_dp4a_kernel on CUDA cores.
-// Each thread accumulates a 4 x 4 micro-tile of a 64 x 64 CTA tile with
-// __dp4a, from 4-byte words of K (one tap each) loaded into registers a
-// stage ahead and stored transposed to shared memory. K is 36 bytes at a
-// stem, too thin for an m16n8k32 and bound by the bytes of its output.
-// Weight rows past O read as 0 and their stores are skipped.
+// The two CUDA-core routes (C <= 8, and depthwise) work in row bands. In
+// NHWC, R whole output rows of one image are one contiguous run of out
+// (R*OW*O*4 bytes), and their (R-1)*stride + KS input rows one run of x.
+// A persistent CTA walks bands (blockIdx.x, += gridDim.x; blockIdx.y a
+// tile of output channels). It keeps the input rows of the next RING - 1
+// bands in flight into a ring of shared buffers with cp.async (zero-filled
+// off the image, nothing read past x's end) while it sums the current one
+// from shared memory into one of two int32 output buffers. One thread
+// sends each staged band out as one bulk copy (cp.async.bulk ...
+// bulk_group), so that a band's store overlaps the next bands' loads and
+// sums. A band's sums are short: with one band of loads in flight, each
+// band waited out the memory's latency. Where a CTA holds fewer
+// channels than O, the band is strided in out and goes out in 16-byte
+// stores. Both routes are bound by the bytes of their int32 output. The
+// wrapper's `_band_plan` takes the most rows a band that fit two CTAs an
+// SM and still give every CTA a band; it splits the channels only where a
+// row does not fit or (depthwise) the map has too few rows for the SMs.
 //
-// groups = C (the detectors' depthwise 3x3 sites): conv_s8_dw_kernel on
-// CUDA cores. No sum runs across channels, so there is no matrix product
-// for the tensor cores: each thread sums the 9 taps of VEC channels (16,
-// or 4 where C is no multiple of 16) of one output pixel in int32, from
-// one VEC-byte load of x per tap (neighbouring threads on neighbouring
-// channels) and its 9*VEC weight bytes, contiguous in the (C, 3, 3, 1)
-// weight. Bound by bytes: N*H*W*C in, 9*C weights, 4*N*OH*OW*C out.
+// C <= 8 (the stems' 3 channels, 8-channel inputs): conv_s8_band_dp4a_kernel
+// <KS, CW, OT>. K is KS*KS*CW words of 4 input channels (CW = 1 for C <= 4,
+// else 2), fixed at compile time, with no zero words. The raw input rows
+// are unpacked into a tile of such words (channels past C zero), so x is
+// read as it is, with no padded copy. OT, the output channels of a tile,
+// is O for O in {8, 16, 32, 64}, else 64 (the last tile partly past O).
+// Each thread keeps the K weight words of 4 output channels in registers,
+// loaded once a CTA, and sums pixel after pixel with __dp4a: one shared
+// word a tap feeds 4 __dp4a. Tensor cores would buy nothing here. At the
+// IR-50 stem (64 x 112x112x3 -> 64) the int32 output is 205 MB (0.062 ms
+// at 3.35 TB/s), against 2.8 G int8 operations, about 0.02 ms on the CUDA
+// cores' __dp4a.
+//
+// groups = C (the detectors' depthwise 3x3 sites): conv_s8_band_dw_kernel.
+// No sum runs across channels, so there is no matrix product for the
+// tensor cores. Threads spread over the channels and pixels of a band,
+// and the channels over CTAs where the rows are few (the late 18x20 and
+// 9x10 maps). Every tap is read from the shared tile, 4 channels a word.
+// Bound by bytes: N*H*W*C in, 9*C weights, 4*N*OH*OW*C out.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -312,235 +335,470 @@ int launch_mma(cudaStream_t s, const void* x, const void* w, void* out, int H,
 }
 
 // ---------------------------------------------------------------------------
-// the CUDA-core route (C < 16: the stem)
+// the CUDA-core routes: row bands (C <= 8 dense; depthwise)
 
-constexpr int DBM = 64;          // output pixels per CTA
-constexpr int DBN = 64;          // output channels per CTA
-constexpr int BKW = 16;          // 4-byte words of K per stage (64 bytes)
-constexpr int PAD = 4;           // shared row padding in words (keeps 16 B alignment)
+constexpr int BAND_THREADS = 256;
+constexpr int SMEM_MAX = 232448;    // the dynamic shared memory a CTA may take
+constexpr int RING = 4;             // input buffers: a band and 3 ahead
 
-// This thread's 16 bytes of K (kb0 .. kb0+15) of its output pixel's patch
-// row, one 4-byte word (one tap) at a time. The pixel's top-left input
-// corner is (ih0, iw0) in image xb.
-template <int KS>
-__device__ __forceinline__ void load_a(int (&ra)[4], const int8_t* __restrict__ xb,
-                                       bool m_ok, int ih0, int iw0, int H, int W,
-                                       int lc, int K, int kb0) {
-  const int cmask = (1 << lc) - 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kb = kb0 + 4 * i;
-    int v = 0;
-    if (m_ok && kb < K) {
-      const int tap = kb >> lc;
-      const int kh = tap / KS, kw = tap - (tap / KS) * KS;
-      const int ih = ih0 + kh, iw = iw0 + kw;
-      if ((unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W)
-        v = __ldg(reinterpret_cast<const int*>(
-            xb + (((size_t)ih * W + iw) << lc) + (kb & cmask)));
-    }
-    ra[i] = v;
+__host__ __device__ constexpr int align16(int v) { return (v + 15) & ~15; }
+
+// Shared memory that a run of n bytes copied by `copy_run` takes.
+__host__ __device__ constexpr int run_bytes(int n) { return align16(n + 15); }
+
+// Shared-memory layout of a CTA of the dense route, in bytes: the weights
+// of its ch output channels (as they lie in w, then as words), RING raw
+// buffers (a band's input rows as they lie in x), the word tile they are
+// unpacked into (CW words of channels a pixel, a zero column either side),
+// two output buffers (rows x OW pixels x min(O, ch) int32). The wrapper's
+// `_band_smem` is the same sum.
+struct DenseBand {
+  int wts, words, raw, tile, out;
+  __host__ __device__ DenseBand(int W, int OW, int cin, int O, int ks, int stride,
+                                int rows, int ch) {
+    const int ir = (rows - 1) * stride + ks;
+    const int cw = (cin + 3) / 4;
+    wts = run_bytes(ch * ks * ks * cin);
+    words = ch * ks * ks * cw * 4;
+    raw = run_bytes(ir * W * cin);
+    tile = align16(ir * (W + 2) * cw * 4);
+    out = rows * OW * (O < ch ? O : ch) * 4;
+  }
+  __host__ __device__ int bytes() const {
+    return wts + words + RING * raw + tile + 2 * out;
+  }
+};
+
+// ... of a CTA of the depthwise route: the weights of its ch channels,
+// RING byte tiles (a band's input rows, ch channels a pixel, a zero column
+// either side) and two output buffers (rows x OW pixels x ch int32).
+struct DwBand {
+  int wts, tile, out;
+  __host__ __device__ DwBand(int W, int OW, int stride, int rows, int ch) {
+    wts = run_bytes(ch * 9);
+    tile = align16(((rows - 1) * stride + 3) * (W + 2) * ch);
+    out = rows * OW * ch * 4;
+  }
+  __host__ __device__ int bytes() const { return wts + RING * tile + 2 * out; }
+};
+
+// `bytes` (0..16) of src to dst and zeros to the rest of its 16, or 4 or
+// 8 bytes when `valid`, zeros else (cp.async's src-size: nothing past it
+// is read)
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+
+// cp.async of bytes start .. end-1 of src (16-byte aligned) to dst, from the
+// 16-byte word at or below start, so that byte start lands at dst + (start
+// & 15); the last word is cut at end (src-size): nothing past it is read.
+// Every thread of the CTA calls it; the caller commits.
+__device__ __forceinline__ void copy_run(unsigned char* dst, const int8_t* src,
+                                         size_t start, size_t end) {
+  if (end <= start) return;
+  const size_t base = start & ~static_cast<size_t>(15);
+  const int words = static_cast<int>((end - base + 15) / 16);
+  for (int i = threadIdx.x; i < words; i += BAND_THREADS) {
+    const size_t at = base + 16 * (size_t)i;
+    cp_async16_n(smem_u32(dst + 16 * i), src + at,
+                 static_cast<int>(end - at < 16 ? end - at : 16));
+  }
+}
+template <int V>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, bool valid) {
+  if constexpr (V == 16)
+    cp_async16_zfill(dst, src, valid);
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(V), "r"(valid ? V : 0));
+}
+
+// the output buffers go out through the bulk-copy engine: the threads'
+// writes are made visible to it, one thread issues the copy, and a buffer
+// is written again only once the copy issued from it two bands ago has
+// read it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read1() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read0() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// One band: output rows oh0 .. oh0+nrows-1 of image img.
+struct Band {
+  int img, oh0, nrows;
+  __device__ Band(int b, int rows, int OH) {
+    const int per_img = (OH + rows - 1) / rows;
+    img = b / per_img;
+    oh0 = (b - img * per_img) * rows;
+    nrows = min(rows, OH - oh0);
+  }
+};
+
+// Writes the staged band (nrows x OW pixels x `so` int32 of channels c0 ..)
+// out: one bulk copy of nrows*OW*O int32 where the CTA holds every channel
+// (so == O: the band is one contiguous run of out), else 16-byte stores of
+// each pixel's channels below O. Called by every thread, after the
+// barrier that follows the staging.
+__device__ __forceinline__ void store_band(int32_t* __restrict__ out, const int* ob,
+                                           const Band& bd, int OH, int OW, int O,
+                                           int so, int c0) {
+  int32_t* dst = out + ((size_t)bd.img * OH + bd.oh0) * OW * O;
+  const int pixels = bd.nrows * OW;
+  if (so == O) {
+    if (threadIdx.x == 0) bulk_store(dst, smem_u32(ob), pixels * O * 4);
+    return;
+  }
+  const int quads = so / 4;
+  for (int i = threadIdx.x; i < pixels * quads; i += BAND_THREADS) {
+    const int p = i / quads, q = i - p * quads;
+    if (c0 + 4 * q < O)
+      *reinterpret_cast<int4*>(dst + (size_t)p * O + c0 + 4 * q) =
+          *reinterpret_cast<const int4*>(ob + p * so + 4 * q);
   }
 }
 
-// This thread's 16 bytes of K (kb0 .. kb0+15) of its weight row wb; 0 for
-// a row past O (n_ok false).
-__device__ __forceinline__ void load_b(int (&rb)[4], const int8_t* __restrict__ wb,
-                                       bool n_ok, int K, int kb0) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kb = kb0 + 4 * i;
-    rb[i] = n_ok && kb < K ? __ldg(reinterpret_cast<const int*>(wb + kb)) : 0;
-  }
-}
-
-template <int KS>
-__global__ void __launch_bounds__(THREADS)
-conv_s8_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                    int32_t* __restrict__ out, int H, int W, int lc, int O,
-                    int OH, int OW, int stride, int pad, int M) {
-  __shared__ __align__(16) int As[2][BKW][DBM + PAD];   // [word][pixel]
-  __shared__ __align__(16) int Bs[2][BKW][DBN + PAD];   // [word][channel]
-
-  const int K = KS * KS << lc;
+// The dense route, C = cin <= 8 (the stems' 3 channels, 8-channel inputs):
+// K = KS*KS*CW words of 4 input channels (channels past cin read as 0), O
+// tiled by OT channels (blockIdx.y), the bands walked by a persistent CTA
+// (blockIdx.x, += gridDim.x) with the input rows of the next RING - 1
+// bands in flight. Thread t holds output channels c0 + 4(t % OT/4) .. +3,
+// and their K weight words in registers, for every pixel it sums: pixels
+// t / (OT/4), + BAND_THREADS / (OT/4), ... of the band. At K = 18 words
+// (3x3, 5 to 8 channels) the 72 weight registers take one CTA an SM, so
+// that nothing spills.
+template <int KS, int CW, int OT>
+__global__ void __launch_bounds__(BAND_THREADS, KS * KS * CW > 9 ? 1 : 2)
+conv_s8_band_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                         int32_t* __restrict__ out, int H, int W, int cin, int O,
+                         int OH, int OW, int stride, int pad, int rows, int bands) {
+  constexpr int K = KS * KS * CW;
+  constexpr int QT = OT / 4;                 // channel quads of the tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DenseBand L(W, OW, cin, O, KS, stride, rows, OT);
+  // the weights as they lie in w, their words, raw buffer k at raw0 +
+  // k*L.raw, the tile, output buffer k (offsets, not arrays of pointers,
+  // which would go to the stack)
+  uint32_t* wwords = reinterpret_cast<uint32_t*>(smem + L.wts);
+  unsigned char* raw0 = smem + L.wts + L.words;
+  int* tile = reinterpret_cast<int*>(raw0 + RING * L.raw);
+  unsigned char* obuf = raw0 + RING * L.raw + L.tile;
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * DBM;
-  const int n0 = blockIdx.y * DBN;
+  const int q = tid % QT;
+  const int c0 = blockIdx.y * OT;
+  const int so = O < OT ? O : OT;            // staged channels a pixel
+  const bool q_ok = c0 + 4 * q < O;          // this thread's channels exist
+  const int TW = W + 2;                      // tile columns: x's, and a zero
+                                             // column either side
+  const int kb = KS * KS * cin;              // weight bytes a channel
 
-  // loading role: pixel / weight row ld_p, words ld_w .. ld_w+3 of a stage
-  const int ld_p = tid >> 2;
-  const int ld_w = (tid & 3) * 4;
-  const int m = m0 + ld_p;
-  const bool m_ok = m < M;
-  int ih0 = 0, iw0 = 0;
-  const int8_t* xb = x;
-  if (m_ok) {
-    const int img = m / (OH * OW);
-    const int r = m - img * (OH * OW);
-    const int oh = r / OW;
-    const int ow = r - oh * OW;
-    ih0 = oh * stride - pad;
-    iw0 = ow * stride - pad;
-    xb = x + (((size_t)img * H * W) << lc);
+  // a band's input rows ih_lo .. ih_lo + ir - 1, of which those in the
+  // image (a .. e-1) are one run of x's bytes
+  auto in_rows = [&](const Band& bd, int& ih_lo, int& ir, int& a, int& e) {
+    ih_lo = bd.oh0 * stride - pad;
+    ir = (bd.nrows - 1) * stride + KS;
+    a = max(ih_lo, 0);
+    e = min(ih_lo + ir, H);
+  };
+  auto load_raw = [&](int b, int slot) {
+    if (b >= bands) return;
+    const Band bd(b, rows, OH);
+    int ih_lo, ir, a, e;
+    in_rows(bd, ih_lo, ir, a, e);
+    copy_run(raw0 + slot * L.raw, x, ((size_t)bd.img * H + a) * W * cin,
+             ((size_t)bd.img * H + max(a, e)) * W * cin);
+  };
+
+  // the weights of channels c0 .. c0+OT-1 below O arrive with the first
+  // band's rows; RING - 2 more bands follow
+  copy_run(smem, w, (size_t)c0 * kb, (size_t)min(O, c0 + OT) * kb);
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    load_raw(blockIdx.x + s * gridDim.x, s);
+    cp_async_commit();
   }
-  const bool n_ok = n0 + ld_p < O;
-  const int8_t* wb = w + (size_t)(n_ok ? n0 + ld_p : 0) * K;
-
-  // computing role: pixels ty*4 .. ty*4+3, channels tx*4 .. tx*4+3
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  int acc[4][4];
+  cp_async_wait<RING - 2>();                 // the weights landed
+  __syncthreads();
+  {
+    // word k = (tap, cw) of channel c holds input channels 4cw .. 4cw+3 of
+    // that tap, bytes past cin 0: built once, each by one thread
+    const unsigned char* ws = smem + ((size_t)c0 * kb & 15);
+    for (int i = tid; i < OT * K; i += BAND_THREADS) {
+      const int c = i / K, k = i - c * K;
+      const int t = k / CW, cw = k - t * CW;
+      uint32_t v = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-  }
-
-  const int nk = (K + 4 * BKW - 1) / (4 * BKW);
-  int ra[4], rb[4];
-  load_a<KS>(ra, xb, m_ok, ih0, iw0, H, W, lc, K, ld_w * 4);
-  load_b(rb, wb, n_ok, K, ld_w * 4);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    As[0][ld_w + i][ld_p] = ra[i];
-    Bs[0][ld_w + i][ld_p] = rb[i];
+      for (int e = 0; e < 4; ++e)
+        if (c0 + c < O && 4 * cw + e < cin)
+          v |= static_cast<uint32_t>(ws[c * kb + t * cin + 4 * cw + e]) << (8 * e);
+      wwords[i] = v;
+    }
   }
   __syncthreads();
+  uint32_t wr[4][K];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) wr[j][k] = wwords[(4 * q + j) * K + k];
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) {
-      const int kb0 = (kt + 1) * 4 * BKW + ld_w * 4;
-      load_a<KS>(ra, xb, m_ok, ih0, iw0, H, W, lc, K, kb0);
-      load_b(rb, wb, n_ok, K, kb0);
-    }
+  int it = 0;
+  for (int b = blockIdx.x; b < bands; b += gridDim.x, ++it) {
+    const Band bd(b, rows, OH);
+    load_raw(b + (RING - 1) * gridDim.x, (it + RING - 1) % RING);
+    cp_async_commit();
+    cp_async_wait<RING - 1>();               // this band's raw rows landed
+    __syncthreads();                         // ... for every thread
+
+    // unpack: tile word (row, col, cw) = input channels 4cw .. 4cw+3 of
+    // pixel (ih_lo + row, col - 1); 0 off the image and past cin
+    {
+      int ih_lo, ir, a, e;
+      in_rows(bd, ih_lo, ir, a, e);
+      const unsigned char* rb = raw0 + (it % RING) * L.raw +
+                                (((size_t)bd.img * H + a) * W * cin & 15);
+      for (int r = 0; r < ir; ++r) {
+        const int ih = ih_lo + r;
+        const bool row_ok = ih >= a && ih < e;
+        const unsigned char* rrow = rb + (ih - a) * W * cin;
+        for (int i = tid; i < TW * CW; i += BAND_THREADS) {
+          const int col = i / CW, cw = i - col * CW;
+          const int iw = col - 1;
+          uint32_t v = 0;
+          if (row_ok && (unsigned)iw < (unsigned)W) {
+            const unsigned char* px = rrow + iw * cin + 4 * cw;
+            if (cin % 4 == 0) {              // cin 4 or 8: the word is aligned
+              v = *reinterpret_cast<const uint32_t*>(px);
+            } else {
 #pragma unroll
-    for (int kw = 0; kw < BKW; ++kw) {
-      const int4 a = *reinterpret_cast<const int4*>(&As[cur][kw][ty * 4]);
-      const int4 b = *reinterpret_cast<const int4*>(&Bs[cur][kw][tx * 4]);
-      const int av[4] = {a.x, a.y, a.z, a.w};
-      const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+              for (int e2 = 0; e2 < 4; ++e2)
+                if (4 * cw + e2 < cin) v |= static_cast<uint32_t>(px[e2]) << (8 * e2);
+            }
+          }
+          tile[r * TW * CW + i] = static_cast<int>(v);
+        }
       }
     }
-    if (more) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        As[cur ^ 1][ld_w + i][ld_p] = ra[i];
-        Bs[cur ^ 1][ld_w + i][ld_p] = rb[i];
-      }
-    }
+    if (tid == 0) bulk_wait_read1();         // output buffer it & 1 was read
     __syncthreads();
-  }
 
-  if (n0 + tx * 4 >= O) return;       // O % 4 == 0: a run is in or out
+    int* ob = reinterpret_cast<int*>(obuf + (it & 1) * L.out);
+    if (q_ok) {
+      const int step = BAND_THREADS / QT;
+      int r = 0, ow = tid / QT;
+      for (int p = ow; p < bd.nrows * OW; p += step, ow += step) {
+        while (ow >= OW) { ow -= OW; ++r; }
+        const int* tp = tile + ((r * stride) * TW + ow * stride - pad + 1) * CW;
+        int acc[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int mo = m0 + ty * 4 + i;
-    if (mo < M)
-      *reinterpret_cast<int4*>(out + (size_t)mo * O + n0 + tx * 4) =
-          make_int4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        for (int kh = 0; kh < KS; ++kh)
+#pragma unroll
+          for (int kw = 0; kw < KS; ++kw)
+#pragma unroll
+            for (int cw = 0; cw < CW; ++cw) {
+              const int v = tp[(kh * TW + kw) * CW + cw];
+              const int k = (kh * KS + kw) * CW + cw;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[j] = __dp4a(v, static_cast<int>(wr[j][k]), acc[j]);
+            }
+        *reinterpret_cast<int4*>(ob + p * so + 4 * q) = make_int4(acc[0], acc[1], acc[2], acc[3]);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();                         // the band is staged
+    store_band(out, ob, bd, OH, OW, O, so, c0);
   }
+  if (tid == 0) bulk_wait_read0();           // the last band left smem
 }
 
-template <int KS>
-int launch_dp4a(cudaStream_t s, const void* x, const void* w, void* out, int H,
-                int W, int lc, int O, int OH, int OW, int stride, int pad, int M) {
-  const dim3 grid((M + DBM - 1) / DBM, (O + DBN - 1) / DBN);
-  conv_s8_dp4a_kernel<KS><<<grid, THREADS, 0, s>>>(
+// The depthwise route (groups = C = O, 3x3): channels tiled by ch (a
+// multiple of 4 dividing C; blockIdx.y), the bands walked as above.
+// Thread t sums channels c0 + 4(t % Q) .. +3 (Q = ch/4 quads) of pixels
+// t / Q, + BAND_THREADS / Q, ...: one 4-byte word of the tile a tap. The
+// 4 x 4 bytes of taps 0-3 (and 4-7) are transposed with __byte_perm so
+// that one __dp4a sums 4 taps of a channel; tap 8 takes one __dp4a a
+// channel against a weight word that holds the channel's byte alone.
+// V: the bytes of one cp.async (16, 8 or 4, as C and ch allow).
+template <int V>
+__global__ void __launch_bounds__(BAND_THREADS, 2)
+conv_s8_band_dw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                       int32_t* __restrict__ out, int H, int W, int C, int OH,
+                       int OW, int stride, int pad, int rows, int ch, int bands) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DwBand L(W, OW, stride, rows, ch);
+  // the weights, tile k at tile0 + k*L.tile, output buffer k
+  unsigned char* tile0 = smem + L.wts;
+  unsigned char* obuf = tile0 + RING * L.tile;
+  const int tid = threadIdx.x;
+  const int Q = ch / 4;
+  const int step = BAND_THREADS / Q;         // pixels summed at once
+  const int q = tid % Q;
+  const int c0 = blockIdx.y * ch;
+  const int TW = W + 2;
+  const int CQ = ch / 4;                     // tile words a pixel
+
+  // cp.async of a band's tile: rows ih_lo .., columns -1 .. W, channels
+  // c0 .. c0+ch-1; off the image zero-filled, nothing read
+  auto load_tile = [&](int b, int slot) {
+    if (b >= bands) return;
+    unsigned char* dst = tile0 + slot * L.tile;
+    const Band bd(b, rows, OH);
+    const int ih_lo = bd.oh0 * stride - pad;
+    const int ir = (bd.nrows - 1) * stride + 3;
+    const int units = ch / V;
+    for (int i = tid; i < ir * TW * units; i += BAND_THREADS) {
+      const int px = i / units, u = i - px * units;
+      const int r = px / TW, col = px - r * TW;
+      const int ih = ih_lo + r, iw = col - 1;
+      const bool ok = (unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W;
+      const int8_t* src = ok ? x + (((size_t)bd.img * H + ih) * W + iw) * C + c0 + u * V : x;
+      cp_async_zfill<V>(smem_u32(dst + px * ch + u * V), src, ok);
+    }
+  };
+
+  // the weights of channels c0 .. c0+ch-1 (w is (C, 3, 3, 1): 9 bytes a
+  // channel) arrive with the first band's tile; RING - 2 more follow
+  copy_run(smem, w, (size_t)c0 * 9, (size_t)(c0 + ch) * 9);
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    load_tile(blockIdx.x + s * gridDim.x, s);
+    cp_async_commit();
+  }
+  uint32_t wa[4], wb[4], w8[4];
+  int it = 0;
+  for (int b = blockIdx.x; b < bands; b += gridDim.x, ++it) {
+    const Band bd(b, rows, OH);
+    load_tile(b + (RING - 1) * gridDim.x, (it + RING - 1) % RING);
+    cp_async_commit();
+    cp_async_wait<RING - 1>();               // this band's tile landed
+    if (tid == 0) bulk_wait_read1();         // output buffer it & 1 was read
+    __syncthreads();
+
+    if (it == 0 && tid < step * Q) {
+      // weights of channels c0+4q .. +3: taps 0-3 and 4-7 a word each,
+      // tap 8 in byte j of w8[j]
+      const unsigned char* ws = smem + ((size_t)c0 * 9 & 15);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned char* wc = ws + (4 * q + j) * 9;
+        uint32_t u[9];
+#pragma unroll
+        for (int t = 0; t < 9; ++t) u[t] = wc[t];
+        wa[j] = u[0] | u[1] << 8 | u[2] << 16 | u[3] << 24;
+        wb[j] = u[4] | u[5] << 8 | u[6] << 16 | u[7] << 24;
+        w8[j] = u[8] << (8 * j);
+      }
+    }
+
+    const uint32_t* tile = reinterpret_cast<const uint32_t*>(tile0 + (it % RING) * L.tile);
+    int* ob = reinterpret_cast<int*>(obuf + (it & 1) * L.out);
+    if (tid < step * Q) {
+      int r = 0, ow = tid / Q;
+      for (int p = ow; p < bd.nrows * OW; p += step, ow += step) {
+        while (ow >= OW) { ow -= OW; ++r; }
+        const uint32_t* tp = tile + ((r * stride) * TW + ow * stride - pad + 1) * CQ + q;
+        uint32_t v[9];
+#pragma unroll
+        for (int t = 0; t < 9; ++t) v[t] = tp[((t / 3) * TW + t % 3) * CQ];
+        int acc[4];
+        // bytes j of taps 0-3 (4-7) to word j: one channel's 4 taps
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const uint32_t* s = v + 4 * g;
+          const uint32_t lo01 = __byte_perm(s[0], s[1], 0x5140);
+          const uint32_t hi01 = __byte_perm(s[0], s[1], 0x7362);
+          const uint32_t lo23 = __byte_perm(s[2], s[3], 0x5140);
+          const uint32_t hi23 = __byte_perm(s[2], s[3], 0x7362);
+          const uint32_t tr[4] = {__byte_perm(lo01, lo23, 0x5410),
+                                  __byte_perm(lo01, lo23, 0x7632),
+                                  __byte_perm(hi01, hi23, 0x5410),
+                                  __byte_perm(hi01, hi23, 0x7632)};
+          const uint32_t* wg = g ? wb : wa;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[j] = __dp4a(static_cast<int>(tr[j]), static_cast<int>(wg[j]),
+                            g ? acc[j] : 0);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[j] = __dp4a(static_cast<int>(v[8]), static_cast<int>(w8[j]), acc[j]);
+        *reinterpret_cast<int4*>(ob + p * ch + 4 * q) = make_int4(acc[0], acc[1], acc[2], acc[3]);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();                         // the band is staged; its
+                                             // tile is free for band it+RING
+    store_band(out, ob, bd, OH, OW, C, ch, c0);
+  }
+  if (tid == 0) bulk_wait_read0();           // the last band left smem
+}
+
+// Sets a kernel's dynamic shared-memory limit to SMEM_MAX once per device.
+template <typename Kernel>
+int allow_smem(Kernel kernel, bool (&set)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) set[dev] = true;
+  }
+  return 0;
+}
+
+template <int KS, int CW, int OT>
+int launch_band_dp4a(cudaStream_t s, const void* x, const void* w, void* out, int N,
+                     int H, int W, int cin, int O, int OH, int OW, int stride,
+                     int pad, int rows, int ctas) {
+  static bool set[64] = {};
+  auto kernel = conv_s8_band_dp4a_kernel<KS, CW, OT>;
+  if (int err = allow_smem(kernel, set)) return err;
+  const int bands = N * ((OH + rows - 1) / rows);
+  const int smem = DenseBand(W, OW, cin, O, KS, stride, rows, OT).bytes();
+  kernel<<<dim3(min(ctas, bands), (O + OT - 1) / OT), BAND_THREADS, smem, s>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(out), H, W, lc, O, OH, OW, stride, pad, M);
+      static_cast<int32_t*>(out), H, W, cin, O, OH, OW, stride, pad, rows, bands);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// the depthwise route (groups = C = O, 3x3)
-
-// signed byte b (a constant after unrolling) of the word v
-__device__ __forceinline__ int sbyte(uint32_t v, int b) {
-  return static_cast<int>(static_cast<int8_t>(v >> (8 * b)));
+template <int KS, int CW>
+int launch_band_dp4a_ot(cudaStream_t s, const void* x, const void* w, void* out, int N,
+                        int H, int W, int cin, int O, int OH, int OW, int stride,
+                        int pad, int rows, int ch, int ctas) {
+  switch (ch) {
+    case 8: return launch_band_dp4a<KS, CW, 8>(s, x, w, out, N, H, W, cin, O, OH, OW, stride, pad, rows, ctas);
+    case 16: return launch_band_dp4a<KS, CW, 16>(s, x, w, out, N, H, W, cin, O, OH, OW, stride, pad, rows, ctas);
+    case 32: return launch_band_dp4a<KS, CW, 32>(s, x, w, out, N, H, W, cin, O, OH, OW, stride, pad, rows, ctas);
+    default: return launch_band_dp4a<KS, CW, 64>(s, x, w, out, N, H, W, cin, O, OH, OW, stride, pad, rows, ctas);
+  }
 }
 
-// VEC channels of one output pixel a thread: 16, or 4 where C % 16 != 0
-template <int VEC>
-__global__ void __launch_bounds__(THREADS)
-conv_s8_dw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                  int32_t* __restrict__ out, int H, int W, int C, int OH,
-                  int OW, int stride, int pad, int total) {
-  static_assert(VEC == 4 || VEC == 16, "VEC is 4 or 16");
-  const int t = blockIdx.x * THREADS + threadIdx.x;
-  if (t >= total) return;
-  const int runs = C / VEC;
-  const int pix = t / runs;            // output pixel, (image, oh, ow)
-  const int c0 = (t - pix * runs) * VEC;
-  const int img = pix / (OH * OW);
-  const int r = pix - img * (OH * OW);
-  const int oh = r / OW;
-  const int ih0 = oh * stride - pad, iw0 = (r - oh * OW) * stride - pad;
-
-  // the 9 * VEC weight bytes of channels c0 .. c0+VEC-1: channel j's tap
-  // q is byte 9j + q (the weight is (C, 3, 3, 1), 9 bytes a channel)
-  constexpr int NW = 9 * VEC / 4;
-  uint32_t wv[NW];
-  if constexpr (VEC == 16) {
-    const int4* src = reinterpret_cast<const int4*>(w + (size_t)c0 * 9);
-#pragma unroll
-    for (int i = 0; i < NW / 4; ++i) {
-      const int4 v = __ldg(src + i);
-      wv[4 * i] = v.x; wv[4 * i + 1] = v.y; wv[4 * i + 2] = v.z; wv[4 * i + 3] = v.w;
-    }
-  } else {
-    const int* src = reinterpret_cast<const int*>(w + (size_t)c0 * 9);
-#pragma unroll
-    for (int i = 0; i < NW; ++i) wv[i] = __ldg(src + i);
-  }
-
-  int acc[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = 0;
-  const int8_t* xb = x + (size_t)img * H * W * C + c0;
-#pragma unroll
-  for (int q = 0; q < 9; ++q) {
-    const int ih = ih0 + q / 3, iw = iw0 + q % 3;
-    if ((unsigned)ih >= (unsigned)H || (unsigned)iw >= (unsigned)W) continue;
-    const int8_t* src = xb + ((size_t)ih * W + iw) * C;
-    uint32_t xv[VEC / 4];
-    if constexpr (VEC == 16) {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(src));
-      xv[0] = v.x; xv[1] = v.y; xv[2] = v.z; xv[3] = v.w;
-    } else {
-      xv[0] = __ldg(reinterpret_cast<const int*>(src));
-    }
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const int b = 9 * j + q;
-      acc[j] += sbyte(xv[j / 4], j % 4) * sbyte(wv[b / 4], b % 4);
-    }
-  }
-  int4* dst = reinterpret_cast<int4*>(out + (size_t)pix * C + c0);
-#pragma unroll
-  for (int i = 0; i < VEC / 4; ++i)
-    dst[i] = make_int4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
-}
-
-int launch_dw(cudaStream_t s, const void* x, const void* w, void* out, int N,
-              int H, int W, int C, int OH, int OW, int stride, int pad) {
-  const int vec = C % 16 == 0 ? 16 : 4;
-  const int total = N * OH * OW * (C / vec);
-  const dim3 grid((total + THREADS - 1) / THREADS);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  int32_t* op = static_cast<int32_t*>(out);
-  if (vec == 16)
-    conv_s8_dw_kernel<16><<<grid, THREADS, 0, s>>>(xp, wp, op, H, W, C, OH, OW, stride, pad, total);
-  else
-    conv_s8_dw_kernel<4><<<grid, THREADS, 0, s>>>(xp, wp, op, H, W, C, OH, OW, stride, pad, total);
+template <int V>
+int launch_band_dw(cudaStream_t s, const void* x, const void* w, void* out, int N,
+                   int H, int W, int C, int OH, int OW, int stride, int pad,
+                   int rows, int ch, int ctas) {
+  static bool set[64] = {};
+  auto kernel = conv_s8_band_dw_kernel<V>;
+  if (int err = allow_smem(kernel, set)) return err;
+  const int bands = N * ((OH + rows - 1) / rows);
+  const int smem = DwBand(W, OW, stride, rows, ch).bytes();
+  kernel<<<dim3(min(ctas, bands), C / ch), BAND_THREADS, smem, s>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<int32_t*>(out), H, W, C, OH, OW, stride, pad, rows, ch, bands);
   return static_cast<int>(cudaGetLastError());
 }
+
+// an empty kernel: the floor of a launch's device time
+__global__ void launch_floor_kernel() {}
 
 }  // namespace
 
@@ -550,33 +808,65 @@ int launch_dw(cudaStream_t s, const void* x, const void* w, void* out, int N,
 // int32, all contiguous and 16-byte aligned; ks in {1, 3}; O a multiple of
 // 8; N*OH*OW*O and N*H*W*C below 2**31; K = ks*ks*C / groups small enough
 // that no int32 sum overflows. groups = C (= O, ks = 3, C a multiple of 4)
-// runs the depthwise kernel. Else C is a power of two >= 4 and the plan is
-// the wrapper's `_conv_plan`, which carries the route: bn = 0 runs the
-// __dp4a kernel; bn = 128 (O a multiple of 128) or 64 runs the tensor-core
-// kernel, which takes C >= 16, in `splits` (1..8) runs of `per_split`
-// stages of K covering them all.
+// runs the depthwise band kernel. Else the plans are the wrapper's: bn = 0
+// runs the dense band kernel, which takes C <= 8; bn = 128 (O a multiple
+// of 128) or 64 runs the tensor-core kernel, which takes C a power of two
+// >= 16, in `splits` (1..8) runs of `per_split` stages of K covering them
+// all. A band kernel takes bands of `rows` output rows and `ch` output
+// channels (the dense route: 8, 16, 32 or 64; the depthwise one: a
+// multiple of 4 dividing C, at most 4 * BAND_THREADS) over at most `ctas`
+// CTAs along the bands (`_band_plan`).
 extern "C" int facekit_conv_s8(const void* x, const void* w, void* out,
                                int N, int H, int W, int C, int O, int ks,
                                int stride, int pad, int OH, int OW, int groups,
-                               int bn, int splits, int per_split, void* stream) {
+                               int bn, int splits, int per_split, int rows,
+                               int ch, int ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (groups > 1) {
-    if (groups != C || O != C || ks != 3 || C % 4)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return launch_dw(s, x, w, out, N, H, W, C, OH, OW, stride, pad);
+    if (groups != C || O != C || ks != 3 || C % 4 || rows < 1 || ctas < 1 ||
+        ch < 4 || ch % 4 || C % ch || ch > 4 * BAND_THREADS ||
+        DwBand(W, OW, stride, rows, ch).bytes() > SMEM_MAX)
+      return bad;
+    if (C % 16 == 0 && ch % 16 == 0)
+      return launch_band_dw<16>(s, x, w, out, N, H, W, C, OH, OW, stride, pad, rows, ch, ctas);
+    if (C % 8 == 0 && ch % 8 == 0)
+      return launch_band_dw<8>(s, x, w, out, N, H, W, C, OH, OW, stride, pad, rows, ch, ctas);
+    return launch_band_dw<4>(s, x, w, out, N, H, W, C, OH, OW, stride, pad, rows, ch, ctas);
   }
-  if (C < 4 || (C & (C - 1)) || O % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (O % 8) return bad;
+  if (bn == 0) {
+    if (C < 1 || C > 8 || rows < 1 || ctas < 1 ||
+        (ch != 8 && ch != 16 && ch != 32 && ch != 64) ||
+        DenseBand(W, OW, C, O, ks, stride, rows, ch).bytes() > SMEM_MAX)
+      return bad;
+    if (ks == 1)
+      return C <= 4 ? launch_band_dp4a_ot<1, 1>(s, x, w, out, N, H, W, C, O, OH, OW, stride, pad, rows, ch, ctas)
+                    : launch_band_dp4a_ot<1, 2>(s, x, w, out, N, H, W, C, O, OH, OW, stride, pad, rows, ch, ctas);
+    return C <= 4 ? launch_band_dp4a_ot<3, 1>(s, x, w, out, N, H, W, C, O, OH, OW, stride, pad, rows, ch, ctas)
+                  : launch_band_dp4a_ot<3, 2>(s, x, w, out, N, H, W, C, O, OH, OW, stride, pad, rows, ch, ctas);
+  }
+  if (C < 16 || (C & (C - 1)) || splits < 1 || splits > MAX_SPLITS) return bad;
   const int log2_c = __builtin_ctz(static_cast<unsigned>(C));
   const int M = N * OH * OW;
-  if (bn == 0) {
-    return ks == 1 ? launch_dp4a<1>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M)
-                   : launch_dp4a<3>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M);
-  }
-  if (log2_c < 4 || splits < 1 || splits > MAX_SPLITS)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (ks == 1)
     return bn == 128 ? launch_mma<1, 128>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split)
                      : launch_mma<1, 64>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split);
   return bn == 128 ? launch_mma<3, 128>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split)
                    : launch_mma<3, 64>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split);
+}
+
+// The dynamic shared memory (bytes) of a CTA of a band kernel at this
+// shape and plan: groups > 1 the depthwise route, else the dense one.
+extern "C" int facekit_conv_s8_band_smem(int groups, int W, int OW, int C, int O,
+                                         int ks, int stride, int rows, int ch) {
+  return groups > 1 ? DwBand(W, OW, stride, rows, ch).bytes()
+                    : DenseBand(W, OW, C, O, ks, stride, rows, ch).bytes();
+}
+
+// One empty kernel of one CTA on `stream`: what a launch costs the card
+// with no work (chip_smoke.py's floor for the band kernels' small sites).
+extern "C" int facekit_launch_floor(void* stream) {
+  launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

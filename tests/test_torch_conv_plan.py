@@ -1,9 +1,10 @@
 """The launch plan of facekit_torch's s8 conv kernel.
 
 ``conv_route`` (which kernel a channel count and ``groups`` run),
-``_conv_plan`` (the tensor-core route's CTA tile and K split) and
+``_conv_plan`` (the tensor-core route's CTA tile and K split),
 ``_launch_plan`` (the plan the C entry point takes, which names the dense
-route) are pure functions of the shapes and the card's SM count, so they
+route) and ``_band_plan`` (the row bands of the two CUDA-core routes)
+are pure functions of the shapes and the card's SM count, so they
 are checked here on the CPU at every conv site of the int8 IR-50 at the
 served batches and at every site of the int8 detectors (whose list the
 kernel tests take is held here to the sites a forward runs); the kernel
@@ -20,9 +21,13 @@ import torch
 from facekit_torch.models import LightDet, RetinaFace, quantize_detector
 from facekit_torch.models import layers as TL
 from facekit_torch.models.arcface import block_specs
-from facekit_torch.ops.conv_s8 import (CONV_BK, CONV_BM, MAX_K, MAX_SPLITS,
-                                       MIN_SPLIT_STAGES, MMA_MIN_C, _NO_PLAN,
-                                       _conv_plan, _launch_plan, conv_route)
+from facekit_torch.ops.conv_s8 import (BAND_CTAS_PER_SM, BAND_MIN_PER_CTA,
+                                       BAND_SMEM, CONV_BK,
+                                       CONV_BM, DENSE_TILES, MAX_K,
+                                       MAX_SPLITS, MIN_SPLIT_STAGES,
+                                       MMA_MIN_C, _NO_PLAN, _band_plan,
+                                       _band_smem, _conv_plan, _launch_plan,
+                                       conv_route)
 from test_torch_kernels import DET_HW, _detector_conv_shapes
 
 SMS = 132                      # an H100 SXM
@@ -183,3 +188,125 @@ def test_wrapper_runs_depthwise_plain_version_on_cpu(c, stride):
         assert int(got[1, 0, 0, ch]) == int((patch * w[ch, :, :, 0]).sum())
     with pytest.raises(ValueError, match="CUDA"):
         _conv_s8_cuda(x, w, stride, 1, c)
+
+
+SMEM_PER_SM = 233_472          # 228 KiB of shared memory an H100 SM offers
+SMEM_PER_CTA_RESERVED = 1_024  # kept by the system for each CTA
+
+
+def _band_sites():
+    """(N, H, W, C, O, KS, stride, pad, groups) of every site of the two
+    band routes, once per shape: the int8 IR-50's stem at the served
+    batches and the dp4a and depthwise sites of the three int8 detectors
+    at batches 1 and 8."""
+    sites = [(n, 112, 112, 3, 64, 3, 1, 1, 1) for n in BATCHES]
+    for n in (1, 8):
+        for family in ("mobilenet0.25", "slim", "rfb"):
+            sites += [s for s in _detector_conv_shapes(n, family)
+                      if conv_route(s[3], s[8]) != "mma"]
+    return list(dict.fromkeys(sites))
+
+
+BAND_SITES = _band_sites()
+
+
+def test_band_sites_are_the_cuda_core_routes():
+    """The IR-50 stem at three batches; at two batches each, the
+    detectors' two stems (3 -> 8, 3 -> 16), RetinaFace's 8 -> 16 1x1 and
+    the 11 distinct depthwise shapes."""
+    routes = Counter(conv_route(s[3], s[8]) for s in BAND_SITES)
+    assert routes == {"dp4a": 3 + 2 * 3, "dw": 2 * 11}
+
+
+@pytest.mark.parametrize(
+    "site", BAND_SITES,
+    ids=lambda s: "n{0}h{1}w{2}c{3}o{4}k{5}s{6}g{8}".format(*s))
+def test_band_plan_covers_each_site(site):
+    """The bands of a channel tile, walked as the kernel walks them (CTA
+    i takes bands i, i + ctas, ...), cover every output row of every
+    image once; the channel tiles cover O once; a CTA's shared memory is
+    the kernel's layout and fits BAND_CTAS_PER_SM CTAs in an SM; no CTA
+    is without a band; and a band takes as many rows as fit while every
+    CTA the card holds still walks BAND_MIN_PER_CTA bands."""
+    n, h, w, c, o, ks, stride, pad, groups = site
+    oh = (h + 2 * pad - ks) // stride + 1
+    ow = (w + 2 * pad - ks) // stride + 1
+    p = _band_plan(n, h, w, c, o, ks, stride, pad, groups, SMS)
+    if groups > 1:
+        assert c % p.ch == 0 and p.ch % 4 == 0 and p.chunks == c // p.ch
+    else:
+        # every served O has its exact tile, and its rows fit unsplit
+        assert p.ch == o in DENSE_TILES and p.chunks == 1
+    assert (p.chunks - 1) * p.ch < o <= p.chunks * p.ch
+    per_img = -(-oh // p.rows)
+    assert p.bands == n * per_img
+    rows = Counter()
+    for cta in range(p.ctas):
+        for b in range(cta, p.bands, p.ctas):
+            img, first = divmod(b, per_img)
+            rows.update((img, r) for r in range(first * p.rows,
+                                                min(oh, (first + 1) *
+                                                    p.rows)))
+    assert rows == Counter({(i, r): 1 for i in range(n) for r in range(oh)})
+    assert p.smem == _band_smem(w, ow, c, o, ks, stride, p.rows, p.ch,
+                                groups) <= BAND_SMEM
+    assert BAND_CTAS_PER_SM * (p.smem + SMEM_PER_CTA_RESERVED) <= SMEM_PER_SM
+    slots = BAND_CTAS_PER_SM * SMS
+    assert 1 <= p.ctas == min(p.bands, slots // p.chunks)
+    if p.rows > 1:
+        assert p.bands * p.chunks >= BAND_MIN_PER_CTA * slots
+    if p.rows < oh:
+        more = p.rows + 1
+        assert (_band_smem(w, ow, c, o, ks, stride, more, p.ch, groups)
+                > BAND_SMEM or
+                n * -(-oh // more) * p.chunks < BAND_MIN_PER_CTA * slots)
+
+
+def test_band_plan_at_served_shapes():
+    """The IR-50 stem takes one row a band (two rows of 28,672 bytes of
+    int32 a buffer would not leave room for two CTAs an SM): 112 bands at
+    batch 1, 7,168 walked by 264 CTAs at batch 64. The detectors' stems
+    at batch 8 take one row a band too (1,152 rows: fewer than four bands
+    of two rows for each of 264 CTAs); the late 9x10x256 depthwise map
+    splits its channels so that its 9 rows still give every SM a band."""
+    assert _band_plan(1, 112, 112, 3, 64, 3, 1, 1, 1, SMS)[:5] == \
+        (1, 64, 1, 112, 112)
+    assert _band_plan(64, 112, 112, 3, 64, 3, 1, 1, 1, SMS)[:5] == \
+        (1, 64, 1, 7168, 264)
+    assert _band_plan(8, 288, 320, 3, 8, 3, 2, 1, 1, SMS)[:5] == \
+        (1, 8, 1, 1152, 264)
+    assert _band_plan(1, 9, 10, 256, 256, 3, 1, 1, 256, SMS)[:5] == \
+        (1, 16, 16, 9, 9)
+    assert _band_plan(8, 9, 10, 256, 256, 3, 1, 1, 256, SMS)[:5] == \
+        (1, 128, 2, 72, 72)
+
+
+@pytest.mark.parametrize("o", [8, 16, 24, 32, 40, 64, 128, 192, 200])
+def test_dense_band_tile_is_o_or_64(o):
+    """An O in DENSE_TILES takes a tile of exactly O channels; any other
+    multiple of 8 takes 64-channel tiles, the last partly past O."""
+    p = _band_plan(2, 13, 11, 3, o, 3, 1, 1, 1, SMS)
+    assert p.ch == (o if o in DENSE_TILES else 64)
+    assert p.chunks == -(-o // p.ch)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 4000, 3, 8, 3, 1, 1, 1),
+                                   (1, 8, 4000, 4, 4, 3, 1, 1, 4)])
+def test_band_plan_refuses_a_row_that_does_not_fit(shape):
+    """A row of 4,000 pixels does not fit in BAND_SMEM even at the least
+    channel tile (8 dense, C = 4 depthwise): refused, no other route."""
+    with pytest.raises(ValueError, match="does not fit"):
+        _band_plan(*shape, SMS)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 1000, 3, 64, 3, 1, 1, 1),
+                                   (1, 8, 600, 256, 256, 3, 1, 1, 256)])
+def test_band_plan_splits_the_channels_of_a_wide_row(shape):
+    """Where a band of one row of the whole O does not fit, the channels
+    split over CTAs, halving the tile until a row fits."""
+    n, h, w, c, o, ks, stride, pad, groups = shape
+    p = _band_plan(*shape, SMS)
+    ow = (w + 2 * pad - ks) // stride + 1
+    assert p.chunks > 1 and p.smem <= BAND_SMEM
+    assert _band_smem(w, ow, c, o, ks, stride, 1, 2 * p.ch,
+                      groups) > BAND_SMEM

@@ -643,6 +643,89 @@ def test_conv_narrow_and_depthwise_bit_for_bit(cuda_device, n, h, w, c, o,
             groups))
 
 
+# (N, H, W, C, O, kernel, stride, padding, groups, rows, chunks on 132
+# SMs) of the band routes' edges: C = 3 read as it is; O in {8, 16, 24,
+# 64}; ragged last bands (13 output rows in bands of 3, 56 in bands of
+# 3) and more bands than CTAs (each CTA walks several, through both
+# output buffers); fewer bands than SMs (7, 9); stride 2 with the top and
+# left padding rows; a depthwise map whose rows are too few for the SMs,
+# its channels split over CTAs (16-byte stores of a strided band)
+CONV_BAND_CASES = [(256, 13, 11, 3, 16, 3, 1, 1, 1, 3, 1),
+                   (64, 56, 56, 3, 64, 3, 1, 1, 1, 3, 1),
+                   (1, 7, 9, 3, 8, 3, 1, 1, 1, 1, 1),
+                   (256, 25, 21, 3, 24, 3, 2, 1, 1, 3, 1),
+                   (2, 17, 21, 8, 16, 1, 1, 0, 1, 1, 1),
+                   (256, 25, 21, 8, 8, 3, 2, 1, 8, 3, 1),
+                   (64, 56, 56, 32, 32, 3, 1, 1, 32, 3, 1),
+                   (1, 9, 10, 256, 256, 3, 1, 1, 256, 1, 16),
+                   (3, 9, 7, 16, 16, 3, 2, 1, 16, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,ks,stride,pad,groups,rows,chunks",
+                         CONV_BAND_CASES)
+def test_conv_band_edges_bit_for_bit(cuda_device, n, h, w, c, o, ks, stride,
+                                     pad, groups, rows, chunks):
+    from facekit_torch.ops.conv_s8 import _band_plan, _sms
+    sms = _sms(cuda_device.index or 0)
+    plan = _band_plan(n, h, w, c, o, ks, stride, pad, groups, sms)
+    if sms == 132:
+        assert (plan.rows, plan.chunks) == (rows, chunks)
+    rng = np.random.default_rng(5 * n + h + w + c + o + ks + groups)
+    x = _s8(rng, (n, h, w, c)).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, c // groups)).to(cuda_device)
+    before = conv_s8.launches
+    got = conv_s8(x, wt, stride, pad, groups)
+    ref = conv_s8_reference(x, wt, stride, pad, groups)
+    torch.cuda.synchronize()
+    assert conv_s8.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("n,h,w,c,o,ks,stride,pad,groups",
+                         [(8, 288, 320, 3, 16, 3, 2, 1, 1),
+                          (2, 13, 11, 8, 64, 3, 1, 1, 1),
+                          (8, 144, 160, 8, 8, 3, 1, 1, 8),
+                          (2, 9, 10, 256, 256, 3, 2, 1, 256)])
+def test_conv_band_extreme_sums(cuda_device, sign, n, h, w, c, o, ks, stride,
+                                pad, groups):
+    """Every input 127 and every weight +-127 on both band routes: each
+    inner output sums ks*ks*C / groups products of 127**2."""
+    x = torch.full((n, h, w, c), 127, dtype=torch.int8, device=cuda_device)
+    wt = torch.full((o, ks, ks, c // groups), sign * 127, dtype=torch.int8,
+                    device=cuda_device)
+    got = conv_s8(x, wt, stride, pad, groups)
+    ref = conv_s8_reference(x, wt, stride, pad, groups)
+    torch.cuda.synchronize()
+    assert int(got[0, 1, 1, 0]) == sign * 127 ** 2 * ks * ks * (c // groups)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_band_smem_is_the_kernels(cuda_device):
+    """The shared memory the wrapper plans a band CTA with is the
+    kernel's own layout, at every dp4a and depthwise site of the int8
+    IR-50 and of the three detectors, and at the band edge cases."""
+    from facekit_torch.ops.conv_s8 import (_band_plan, _band_smem, _library,
+                                           _sms, conv_route)
+    sms = _sms(cuda_device.index or 0)
+    shapes = [(n, 112, 112, 3, 64, 3, 1, 1, 1) for n in (1, 8, 64)]
+    shapes += [s for n in (1, 8) for f in ("mobilenet0.25", "slim", "rfb")
+               for s in _detector_conv_shapes(n, f)
+               if conv_route(s[3], s[8]) != "mma"]
+    shapes += [s[:9] for s in CONV_BAND_CASES]
+    lib = _library()
+    for n, h, w, c, o, ks, stride, pad, groups in shapes:
+        p = _band_plan(n, h, w, c, o, ks, stride, pad, groups, sms)
+        ow = (w + 2 * pad - ks) // stride + 1
+        assert p.smem == _band_smem(w, ow, c, o, ks, stride, p.rows, p.ch,
+                                    groups)
+        assert p.smem == lib.facekit_conv_s8_band_smem(
+            groups, w, ow, c, o, ks, stride, p.rows, p.ch)
+
+
 @pytest.mark.cuda
 def test_conv_refuses_overflowing_k(cuda_device):
     """K = 3 * 3 * 16,384 could overflow the int32 sums: refused."""
