@@ -59,15 +59,16 @@ MAX_K = (2 ** 31 - 1) // 128 ** 2
 # its output-channel tiles (an exact tile for these O, else 64), the
 # threads of a CTA, the CTAs an SM holds (the kernels' launch bounds), the
 # dynamic shared memory a CTA may take so that they fit in an SM's 228 KiB
-# with the 1 KiB the system keeps for each, and the bands each CTA should
-# walk before a band takes more than one row
+# with the 1 KiB the system keeps for each, the most rows a band takes (so
+# that a large map still gives each CTA several bands to overlap), and the
+# input buffers of a CTA (a band and 3 ahead)
 DP4A_MAX_C = 8
 DENSE_TILES = (8, 16, 32, 64)
 BAND_THREADS = 256
 BAND_CTAS_PER_SM = 2
 BAND_SMEM = 112 * 1024
-BAND_MIN_PER_CTA = 4
-BAND_RING = 4          # input buffers of a band CTA: a band and 3 ahead
+BAND_MAX_ROWS = 8
+BAND_RING = 4
 DW_MIN_CH = 8          # the fewest channels a depthwise band takes (or C)
 
 
@@ -195,25 +196,23 @@ def _align16(v: int) -> int:
     return -(-v // 16) * 16
 
 
-def _band_smem(w: int, ow: int, c: int, o: int, ks: int, stride: int,
-               rows: int, ch: int, groups: int = 1) -> int:
+def _band_smem(w: int, c: int, ks: int, stride: int, rows: int, ch: int,
+               groups: int = 1) -> int:
     """Dynamic shared memory (bytes) of a band CTA, as the kernel lays it
     out (``DenseBand`` and ``DwBand`` in ops/csrc/conv_s8.cu). Dense: the
     tile's weights (as they lie in w, each run copied from the 16-byte
     word at or below its first byte, then as 4-channel words), BAND_RING
-    raw buffers of a band's input rows, their tile of 4-channel words with
-    a zero column either side, two int32 output buffers. Depthwise: the
-    weights, BAND_RING byte tiles and two output buffers."""
+    raw buffers of a band's input rows and their tile of 4-channel words
+    with a zero column either side. Depthwise: the weights and BAND_RING
+    byte tiles. The sums go out from registers."""
     ir = (rows - 1) * stride + ks
     if groups > 1:
         return (_align16(ch * 9 + 15)
-                + BAND_RING * _align16(ir * (w + 2) * ch)
-                + 2 * rows * ow * ch * 4)
+                + BAND_RING * _align16(ir * (w + 2) * ch))
     cw = -(-c // 4)
     return (_align16(ch * ks * ks * c + 15) + ch * ks * ks * cw * 4
             + BAND_RING * _align16(ir * w * c + 15)
-            + _align16(ir * (w + 2) * cw * 4)
-            + 2 * rows * ow * min(o, ch) * 4)
+            + _align16(ir * (w + 2) * cw * 4))
 
 
 @functools.lru_cache(maxsize=1024)     # a model has a few dozen shapes
@@ -224,20 +223,19 @@ def _band_plan(n: int, h: int, w: int, c: int, o: int, ks: int, stride: int,
 
     The channel tile: dense, O itself where O is in DENSE_TILES, else 64;
     depthwise, the most of C, C/2, C/4, ... (multiples of 4, at least
-    DW_MIN_CH or C) whose bands of one row still give every SM one, else
-    the fewest. Either is halved while a band of one row does not fit in
-    BAND_SMEM; a shape whose row does not fit at the least tile raises.
-    Then the rows a band: the most that fit in BAND_SMEM while each CTA
-    the card holds (BAND_CTAS_PER_SM an SM) still walks BAND_MIN_PER_CTA
-    bands, else one: a CTA overlaps a band's store with the next band's
-    loads and sums only where it has a next band. The CTAs: one for each
-    band, at most BAND_CTAS_PER_SM an SM."""
+    DW_MIN_CH or C) whose bands of one row fit in BAND_SMEM and still give
+    every SM one, else the fewest that fit. A shape whose band of one row
+    does not fit (at the least tile) raises.
+    Then the rows a band: the fewest with which the bands number no more
+    than the CTAs the card holds (BAND_CTAS_PER_SM an SM), so that they
+    all run at once and none waits for a second round, up to BAND_MAX_ROWS
+    and as far as BAND_SMEM allows. The CTAs: one for each band, at most
+    BAND_CTAS_PER_SM an SM."""
     oh = (h + 2 * pad - ks) // stride + 1
-    ow = (w + 2 * pad - ks) // stride + 1
     slots = BAND_CTAS_PER_SM * sms
 
     def smem(rows, ch):
-        return _band_smem(w, ow, c, o, ks, stride, rows, ch, groups)
+        return _band_smem(w, c, ks, stride, rows, ch, groups)
     if groups > 1:
         tiles = [c]
         while tiles[-1] % 8 == 0 and tiles[-1] // 2 >= min(c, DW_MIN_CH):
@@ -248,21 +246,17 @@ def _band_plan(n: int, h: int, w: int, c: int, o: int, ks: int, stride: int,
                   tiles[-1] if tiles else 0)
     else:
         ch = o if o in DENSE_TILES else DENSE_TILES[-1]
-        while ch > DENSE_TILES[0] and smem(1, ch) > BAND_SMEM:
-            ch //= 2
         if smem(1, ch) > BAND_SMEM:
             ch = 0
     if not ch:
-        raise ValueError(f"conv_s8: a band of one output row of {ow} pixels "
-                         f"(C = {c}, O = {o}) does not fit in {BAND_SMEM} "
-                         "bytes of shared memory")
+        raise ValueError(f"conv_s8: a band of one output row of a {w}-pixel "
+                         f"wide input (C = {c}, O = {o}) does not fit in "
+                         f"{BAND_SMEM} bytes of shared memory")
     chunks = -(-o // ch)
     rows = 1
-    for r in range(2, oh + 1):
-        if smem(r, ch) > BAND_SMEM or \
-                n * -(-oh // r) * chunks < BAND_MIN_PER_CTA * slots:
-            break
-        rows = r
+    while (rows < min(oh, BAND_MAX_ROWS) and n * -(-oh // rows) * chunks
+           > slots and smem(rows + 1, ch) <= BAND_SMEM):
+        rows += 1
     bands = n * -(-oh // rows)
     return BandPlan(rows, ch, chunks, bands,
                     min(bands, max(1, slots // chunks)), smem(rows, ch))
@@ -283,7 +277,7 @@ def _library():
     lib = _build.load("conv_s8")
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, args in (("facekit_conv_s8", [p, p, p] + [i] * 17 + [p]),
-                       ("facekit_conv_s8_band_smem", [i] * 9),
+                       ("facekit_conv_s8_band_smem", [i] * 7),
                        ("facekit_launch_floor", [p])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i

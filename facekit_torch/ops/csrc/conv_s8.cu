@@ -65,17 +65,19 @@
 // A persistent CTA walks bands (blockIdx.x, += gridDim.x; blockIdx.y a
 // tile of output channels). It keeps the input rows of the next RING - 1
 // bands in flight into a ring of shared buffers with cp.async (zero-filled
-// off the image, nothing read past x's end) while it sums the current one
-// from shared memory into one of two int32 output buffers. One thread
-// sends each staged band out as one bulk copy (cp.async.bulk ...
-// bulk_group), so that a band's store overlaps the next bands' loads and
-// sums. A band's sums are short: with one band of loads in flight, each
-// band waited out the memory's latency. Where a CTA holds fewer
-// channels than O, the band is strided in out and goes out in 16-byte
-// stores. Both routes are bound by the bytes of their int32 output. The
-// wrapper's `_band_plan` takes the most rows a band that fit two CTAs an
-// SM and still give every CTA a band; it splits the channels only where a
-// row does not fit or (depthwise) the map has too few rows for the SMs.
+// off the image, nothing read past x's end) while it sums the current
+// band from shared memory. A band's sums are short: with one band of
+// loads in flight, each band waited out the memory's latency. The sums go
+// out from registers in 16-byte stores, neighbouring lanes on neighbouring
+// 16 bytes, so that a warp writes 512 contiguous bytes of the band at
+// once; where a CTA holds fewer channels than O, each pixel's run of them.
+// (A form that staged each band in shared memory and sent it out as one
+// bulk copy, cp.async.bulk, was slower at every site.) Both routes are
+// bound by the bytes of their int32 output. The wrapper's `_band_plan`
+// takes the fewest rows a band with which every band runs at once (two
+// CTAs an SM), at most 8 (a larger map gives each CTA several bands); it
+// splits the channels only where a row does not fit or (depthwise) the map
+// has too few rows for the SMs.
 //
 // C <= 8 (the stems' 3 channels, 8-channel inputs): conv_s8_band_dp4a_kernel
 // <KS, CW, OT>. K is KS*KS*CW words of 4 input channels (CW = 1 for C <= 4,
@@ -348,38 +350,32 @@ __host__ __device__ constexpr int run_bytes(int n) { return align16(n + 15); }
 
 // Shared-memory layout of a CTA of the dense route, in bytes: the weights
 // of its ch output channels (as they lie in w, then as words), RING raw
-// buffers (a band's input rows as they lie in x), the word tile they are
-// unpacked into (CW words of channels a pixel, a zero column either side),
-// two output buffers (rows x OW pixels x min(O, ch) int32). The wrapper's
-// `_band_smem` is the same sum.
+// buffers (a band's input rows as they lie in x) and the word tile they
+// are unpacked into (CW words of channels a pixel, a zero column either
+// side). The wrapper's `_band_smem` is the same sum.
 struct DenseBand {
-  int wts, words, raw, tile, out;
-  __host__ __device__ DenseBand(int W, int OW, int cin, int O, int ks, int stride,
-                                int rows, int ch) {
+  int wts, words, raw, tile;
+  __host__ __device__ DenseBand(int W, int cin, int ks, int stride, int rows, int ch) {
     const int ir = (rows - 1) * stride + ks;
     const int cw = (cin + 3) / 4;
     wts = run_bytes(ch * ks * ks * cin);
     words = ch * ks * ks * cw * 4;
     raw = run_bytes(ir * W * cin);
     tile = align16(ir * (W + 2) * cw * 4);
-    out = rows * OW * (O < ch ? O : ch) * 4;
   }
-  __host__ __device__ int bytes() const {
-    return wts + words + RING * raw + tile + 2 * out;
-  }
+  __host__ __device__ int bytes() const { return wts + words + RING * raw + tile; }
 };
 
-// ... of a CTA of the depthwise route: the weights of its ch channels,
+// ... of a CTA of the depthwise route: the weights of its ch channels and
 // RING byte tiles (a band's input rows, ch channels a pixel, a zero column
-// either side) and two output buffers (rows x OW pixels x ch int32).
+// either side).
 struct DwBand {
-  int wts, tile, out;
-  __host__ __device__ DwBand(int W, int OW, int stride, int rows, int ch) {
+  int wts, tile;
+  __host__ __device__ DwBand(int W, int stride, int rows, int ch) {
     wts = run_bytes(ch * 9);
     tile = align16(((rows - 1) * stride + 3) * (W + 2) * ch);
-    out = rows * OW * ch * 4;
   }
-  __host__ __device__ int bytes() const { return wts + RING * tile + 2 * out; }
+  __host__ __device__ int bytes() const { return wts + RING * tile; }
 };
 
 // `bytes` (0..16) of src to dst and zeros to the rest of its 16, or 4 or
@@ -414,25 +410,6 @@ __device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, bo
                  "l"(src), "n"(V), "r"(valid ? V : 0));
 }
 
-// the output buffers go out through the bulk-copy engine: the threads'
-// writes are made visible to it, one thread issues the copy, and a buffer
-// is written again only once the copy issued from it two bands ago has
-// read it
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read1() {
-  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read0() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
 // One band: output rows oh0 .. oh0+nrows-1 of image img.
 struct Band {
   int img, oh0, nrows;
@@ -443,29 +420,6 @@ struct Band {
     nrows = min(rows, OH - oh0);
   }
 };
-
-// Writes the staged band (nrows x OW pixels x `so` int32 of channels c0 ..)
-// out: one bulk copy of nrows*OW*O int32 where the CTA holds every channel
-// (so == O: the band is one contiguous run of out), else 16-byte stores of
-// each pixel's channels below O. Called by every thread, after the
-// barrier that follows the staging.
-__device__ __forceinline__ void store_band(int32_t* __restrict__ out, const int* ob,
-                                           const Band& bd, int OH, int OW, int O,
-                                           int so, int c0) {
-  int32_t* dst = out + ((size_t)bd.img * OH + bd.oh0) * OW * O;
-  const int pixels = bd.nrows * OW;
-  if (so == O) {
-    if (threadIdx.x == 0) bulk_store(dst, smem_u32(ob), pixels * O * 4);
-    return;
-  }
-  const int quads = so / 4;
-  for (int i = threadIdx.x; i < pixels * quads; i += BAND_THREADS) {
-    const int p = i / quads, q = i - p * quads;
-    if (c0 + 4 * q < O)
-      *reinterpret_cast<int4*>(dst + (size_t)p * O + c0 + 4 * q) =
-          *reinterpret_cast<const int4*>(ob + p * so + 4 * q);
-  }
-}
 
 // The dense route, C = cin <= 8 (the stems' 3 channels, 8-channel inputs):
 // K = KS*KS*CW words of 4 input channels (channels past cin read as 0), O
@@ -484,18 +438,16 @@ conv_s8_band_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict_
   constexpr int K = KS * KS * CW;
   constexpr int QT = OT / 4;                 // channel quads of the tile
   extern __shared__ __align__(16) unsigned char smem[];
-  const DenseBand L(W, OW, cin, O, KS, stride, rows, OT);
+  const DenseBand L(W, cin, KS, stride, rows, OT);
   // the weights as they lie in w, their words, raw buffer k at raw0 +
-  // k*L.raw, the tile, output buffer k (offsets, not arrays of pointers,
-  // which would go to the stack)
+  // k*L.raw, the tile (offsets, not arrays of pointers, which would go to
+  // the stack)
   uint32_t* wwords = reinterpret_cast<uint32_t*>(smem + L.wts);
   unsigned char* raw0 = smem + L.wts + L.words;
   int* tile = reinterpret_cast<int*>(raw0 + RING * L.raw);
-  unsigned char* obuf = raw0 + RING * L.raw + L.tile;
   const int tid = threadIdx.x;
   const int q = tid % QT;
   const int c0 = blockIdx.y * OT;
-  const int so = O < OT ? O : OT;            // staged channels a pixel
   const bool q_ok = c0 + 4 * q < O;          // this thread's channels exist
   const int TW = W + 2;                      // tile columns: x's, and a zero
                                              // column either side
@@ -519,14 +471,14 @@ conv_s8_band_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict_
   };
 
   // the weights of channels c0 .. c0+OT-1 below O arrive with the first
-  // band's rows; RING - 2 more bands follow
+  // band's rows (group 0); group g holds the rows of the CTA's band g
   copy_run(smem, w, (size_t)c0 * kb, (size_t)min(O, c0 + OT) * kb);
 #pragma unroll
   for (int s = 0; s < RING - 1; ++s) {
     load_raw(blockIdx.x + s * gridDim.x, s);
     cp_async_commit();
   }
-  cp_async_wait<RING - 2>();                 // the weights landed
+  cp_async_wait<RING - 2>();                 // group 0 landed
   __syncthreads();
   {
     // word k = (tap, cw) of channel c holds input channels 4cw .. 4cw+3 of
@@ -553,10 +505,11 @@ conv_s8_band_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict_
   int it = 0;
   for (int b = blockIdx.x; b < bands; b += gridDim.x, ++it) {
     const Band bd(b, rows, OH);
+    cp_async_wait<RING - 2>();               // this band's raw rows landed
+    __syncthreads();                         // ... for every thread, and the
+                                             // last band's tile is summed
     load_raw(b + (RING - 1) * gridDim.x, (it + RING - 1) % RING);
     cp_async_commit();
-    cp_async_wait<RING - 1>();               // this band's raw rows landed
-    __syncthreads();                         // ... for every thread
 
     // unpack: tile word (row, col, cw) = input channels 4cw .. 4cw+3 of
     // pixel (ih_lo + row, col - 1); 0 off the image and past cin
@@ -587,10 +540,9 @@ conv_s8_band_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict_
         }
       }
     }
-    if (tid == 0) bulk_wait_read1();         // output buffer it & 1 was read
     __syncthreads();
 
-    int* ob = reinterpret_cast<int*>(obuf + (it & 1) * L.out);
+    int32_t* ob = out + ((size_t)bd.img * OH + bd.oh0) * OW * O + c0 + 4 * q;
     if (q_ok) {
       const int step = BAND_THREADS / QT;
       int r = 0, ow = tid / QT;
@@ -609,14 +561,10 @@ conv_s8_band_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict_
 #pragma unroll
               for (int j = 0; j < 4; ++j) acc[j] = __dp4a(v, static_cast<int>(wr[j][k]), acc[j]);
             }
-        *reinterpret_cast<int4*>(ob + p * so + 4 * q) = make_int4(acc[0], acc[1], acc[2], acc[3]);
+        *reinterpret_cast<int4*>(ob + (size_t)p * O) = make_int4(acc[0], acc[1], acc[2], acc[3]);
       }
     }
-    fence_proxy_async();
-    __syncthreads();                         // the band is staged
-    store_band(out, ob, bd, OH, OW, O, so, c0);
   }
-  if (tid == 0) bulk_wait_read0();           // the last band left smem
 }
 
 // The depthwise route (groups = C = O, 3x3): channels tiled by ch (a
@@ -633,10 +581,9 @@ conv_s8_band_dw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ 
                        int32_t* __restrict__ out, int H, int W, int C, int OH,
                        int OW, int stride, int pad, int rows, int ch, int bands) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const DwBand L(W, OW, stride, rows, ch);
-  // the weights, tile k at tile0 + k*L.tile, output buffer k
+  const DwBand L(W, stride, rows, ch);
+  // the weights, then tile k at tile0 + k*L.tile
   unsigned char* tile0 = smem + L.wts;
-  unsigned char* obuf = tile0 + RING * L.tile;
   const int tid = threadIdx.x;
   const int Q = ch / 4;
   const int step = BAND_THREADS / Q;         // pixels summed at once
@@ -665,7 +612,8 @@ conv_s8_band_dw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ 
   };
 
   // the weights of channels c0 .. c0+ch-1 (w is (C, 3, 3, 1): 9 bytes a
-  // channel) arrive with the first band's tile; RING - 2 more follow
+  // channel) arrive with the first band's tile (group 0); group g holds
+  // the tile of the CTA's band g
   copy_run(smem, w, (size_t)c0 * 9, (size_t)(c0 + ch) * 9);
 #pragma unroll
   for (int s = 0; s < RING - 1; ++s) {
@@ -676,11 +624,11 @@ conv_s8_band_dw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ 
   int it = 0;
   for (int b = blockIdx.x; b < bands; b += gridDim.x, ++it) {
     const Band bd(b, rows, OH);
+    cp_async_wait<RING - 2>();               // this band's tile landed
+    __syncthreads();                         // ... for every thread, and the
+                                             // last band's tile is summed
     load_tile(b + (RING - 1) * gridDim.x, (it + RING - 1) % RING);
     cp_async_commit();
-    cp_async_wait<RING - 1>();               // this band's tile landed
-    if (tid == 0) bulk_wait_read1();         // output buffer it & 1 was read
-    __syncthreads();
 
     if (it == 0 && tid < step * Q) {
       // weights of channels c0+4q .. +3: taps 0-3 and 4-7 a word each,
@@ -699,7 +647,7 @@ conv_s8_band_dw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ 
     }
 
     const uint32_t* tile = reinterpret_cast<const uint32_t*>(tile0 + (it % RING) * L.tile);
-    int* ob = reinterpret_cast<int*>(obuf + (it & 1) * L.out);
+    int32_t* ob = out + ((size_t)bd.img * OH + bd.oh0) * OW * C + c0 + 4 * q;
     if (tid < step * Q) {
       int r = 0, ow = tid / Q;
       for (int p = ow; p < bd.nrows * OW; p += step, ow += step) {
@@ -730,15 +678,10 @@ conv_s8_band_dw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ 
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           acc[j] = __dp4a(static_cast<int>(v[8]), static_cast<int>(w8[j]), acc[j]);
-        *reinterpret_cast<int4*>(ob + p * ch + 4 * q) = make_int4(acc[0], acc[1], acc[2], acc[3]);
+        *reinterpret_cast<int4*>(ob + (size_t)p * C) = make_int4(acc[0], acc[1], acc[2], acc[3]);
       }
     }
-    fence_proxy_async();
-    __syncthreads();                         // the band is staged; its
-                                             // tile is free for band it+RING
-    store_band(out, ob, bd, OH, OW, C, ch, c0);
   }
-  if (tid == 0) bulk_wait_read0();           // the last band left smem
 }
 
 // Sets a kernel's dynamic shared-memory limit to SMEM_MAX once per device.
@@ -763,7 +706,7 @@ int launch_band_dp4a(cudaStream_t s, const void* x, const void* w, void* out, in
   auto kernel = conv_s8_band_dp4a_kernel<KS, CW, OT>;
   if (int err = allow_smem(kernel, set)) return err;
   const int bands = N * ((OH + rows - 1) / rows);
-  const int smem = DenseBand(W, OW, cin, O, KS, stride, rows, OT).bytes();
+  const int smem = DenseBand(W, cin, KS, stride, rows, OT).bytes();
   kernel<<<dim3(min(ctas, bands), (O + OT - 1) / OT), BAND_THREADS, smem, s>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<int32_t*>(out), H, W, cin, O, OH, OW, stride, pad, rows, bands);
@@ -790,7 +733,7 @@ int launch_band_dw(cudaStream_t s, const void* x, const void* w, void* out, int 
   auto kernel = conv_s8_band_dw_kernel<V>;
   if (int err = allow_smem(kernel, set)) return err;
   const int bands = N * ((OH + rows - 1) / rows);
-  const int smem = DwBand(W, OW, stride, rows, ch).bytes();
+  const int smem = DwBand(W, stride, rows, ch).bytes();
   kernel<<<dim3(min(ctas, bands), C / ch), BAND_THREADS, smem, s>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<int32_t*>(out), H, W, C, OH, OW, stride, pad, rows, ch, bands);
@@ -826,7 +769,7 @@ extern "C" int facekit_conv_s8(const void* x, const void* w, void* out,
   if (groups > 1) {
     if (groups != C || O != C || ks != 3 || C % 4 || rows < 1 || ctas < 1 ||
         ch < 4 || ch % 4 || C % ch || ch > 4 * BAND_THREADS ||
-        DwBand(W, OW, stride, rows, ch).bytes() > SMEM_MAX)
+        DwBand(W, stride, rows, ch).bytes() > SMEM_MAX)
       return bad;
     if (C % 16 == 0 && ch % 16 == 0)
       return launch_band_dw<16>(s, x, w, out, N, H, W, C, OH, OW, stride, pad, rows, ch, ctas);
@@ -838,7 +781,7 @@ extern "C" int facekit_conv_s8(const void* x, const void* w, void* out,
   if (bn == 0) {
     if (C < 1 || C > 8 || rows < 1 || ctas < 1 ||
         (ch != 8 && ch != 16 && ch != 32 && ch != 64) ||
-        DenseBand(W, OW, C, O, ks, stride, rows, ch).bytes() > SMEM_MAX)
+        DenseBand(W, C, ks, stride, rows, ch).bytes() > SMEM_MAX)
       return bad;
     if (ks == 1)
       return C <= 4 ? launch_band_dp4a_ot<1, 1>(s, x, w, out, N, H, W, C, O, OH, OW, stride, pad, rows, ch, ctas)
@@ -858,10 +801,10 @@ extern "C" int facekit_conv_s8(const void* x, const void* w, void* out,
 
 // The dynamic shared memory (bytes) of a CTA of a band kernel at this
 // shape and plan: groups > 1 the depthwise route, else the dense one.
-extern "C" int facekit_conv_s8_band_smem(int groups, int W, int OW, int C, int O,
-                                         int ks, int stride, int rows, int ch) {
-  return groups > 1 ? DwBand(W, OW, stride, rows, ch).bytes()
-                    : DenseBand(W, OW, C, O, ks, stride, rows, ch).bytes();
+extern "C" int facekit_conv_s8_band_smem(int groups, int W, int C, int ks,
+                                         int stride, int rows, int ch) {
+  return groups > 1 ? DwBand(W, stride, rows, ch).bytes()
+                    : DenseBand(W, C, ks, stride, rows, ch).bytes();
 }
 
 // One empty kernel of one CTA on `stream`: what a launch costs the card

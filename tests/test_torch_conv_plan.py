@@ -21,7 +21,7 @@ import torch
 from facekit_torch.models import LightDet, RetinaFace, quantize_detector
 from facekit_torch.models import layers as TL
 from facekit_torch.models.arcface import block_specs
-from facekit_torch.ops.conv_s8 import (BAND_CTAS_PER_SM, BAND_MIN_PER_CTA,
+from facekit_torch.ops.conv_s8 import (BAND_CTAS_PER_SM, BAND_MAX_ROWS,
                                        BAND_SMEM, CONV_BK,
                                        CONV_BM, DENSE_TILES, MAX_K,
                                        MAX_SPLITS, MIN_SPLIT_STAGES,
@@ -226,8 +226,9 @@ def test_band_plan_covers_each_site(site):
     i takes bands i, i + ctas, ...), cover every output row of every
     image once; the channel tiles cover O once; a CTA's shared memory is
     the kernel's layout and fits BAND_CTAS_PER_SM CTAs in an SM; no CTA
-    is without a band; and a band takes as many rows as fit while every
-    CTA the card holds still walks BAND_MIN_PER_CTA bands."""
+    is without a band; and a band takes the fewest rows with which the
+    bands fit in one round of the CTAs the card holds, up to
+    BAND_MAX_ROWS and as far as BAND_SMEM allows."""
     n, h, w, c, o, ks, stride, pad, groups = site
     oh = (h + 2 * pad - ks) // stride + 1
     ow = (w + 2 * pad - ks) // stride + 1
@@ -248,33 +249,36 @@ def test_band_plan_covers_each_site(site):
                                                 min(oh, (first + 1) *
                                                     p.rows)))
     assert rows == Counter({(i, r): 1 for i in range(n) for r in range(oh)})
-    assert p.smem == _band_smem(w, ow, c, o, ks, stride, p.rows, p.ch,
+    assert p.smem == _band_smem(w, c, ks, stride, p.rows, p.ch,
                                 groups) <= BAND_SMEM
     assert BAND_CTAS_PER_SM * (p.smem + SMEM_PER_CTA_RESERVED) <= SMEM_PER_SM
     slots = BAND_CTAS_PER_SM * SMS
     assert 1 <= p.ctas == min(p.bands, slots // p.chunks)
+    assert p.rows <= BAND_MAX_ROWS
     if p.rows > 1:
-        assert p.bands * p.chunks >= BAND_MIN_PER_CTA * slots
-    if p.rows < oh:
-        more = p.rows + 1
-        assert (_band_smem(w, ow, c, o, ks, stride, more, p.ch, groups)
-                > BAND_SMEM or
-                n * -(-oh // more) * p.chunks < BAND_MIN_PER_CTA * slots)
+        assert n * -(-oh // (p.rows - 1)) * p.chunks > slots
+    if p.bands * p.chunks > slots and p.rows < min(oh, BAND_MAX_ROWS):
+        assert _band_smem(w, c, ks, stride, p.rows + 1, p.ch,
+                          groups) > BAND_SMEM
 
 
 def test_band_plan_at_served_shapes():
-    """The IR-50 stem takes one row a band (two rows of 28,672 bytes of
-    int32 a buffer would not leave room for two CTAs an SM): 112 bands at
-    batch 1, 7,168 walked by 264 CTAs at batch 64. The detectors' stems
-    at batch 8 take one row a band too (1,152 rows: fewer than four bands
-    of two rows for each of 264 CTAs); the late 9x10x256 depthwise map
-    splits its channels so that its 9 rows still give every SM a band."""
+    """The IR-50 stem takes bands of one row at batch 1 (112 bands, fewer
+    than the SMs), four at batch 8 (224 bands, one round of 264 CTAs) and
+    BAND_MAX_ROWS at batch 64 (896 bands walked by 264 CTAs). The
+    detectors' 144-row maps take five rows a band at batch 8 (232 bands);
+    the late 9x10x256 depthwise map splits its channels so that its 9
+    rows still give every SM a band."""
     assert _band_plan(1, 112, 112, 3, 64, 3, 1, 1, 1, SMS)[:5] == \
         (1, 64, 1, 112, 112)
+    assert _band_plan(8, 112, 112, 3, 64, 3, 1, 1, 1, SMS)[:5] == \
+        (4, 64, 1, 224, 224)
     assert _band_plan(64, 112, 112, 3, 64, 3, 1, 1, 1, SMS)[:5] == \
-        (1, 64, 1, 7168, 264)
+        (BAND_MAX_ROWS, 64, 1, 896, 264)
     assert _band_plan(8, 288, 320, 3, 8, 3, 2, 1, 1, SMS)[:5] == \
-        (1, 8, 1, 1152, 264)
+        (5, 8, 1, 232, 232)
+    assert _band_plan(8, 144, 160, 16, 16, 3, 1, 1, 16, SMS)[:5] == \
+        (5, 16, 1, 232, 232)
     assert _band_plan(1, 9, 10, 256, 256, 3, 1, 1, 256, SMS)[:5] == \
         (1, 16, 16, 9, 9)
     assert _band_plan(8, 9, 10, 256, 256, 3, 1, 1, 256, SMS)[:5] == \
@@ -293,20 +297,19 @@ def test_dense_band_tile_is_o_or_64(o):
 @pytest.mark.parametrize("shape", [(1, 8, 4000, 3, 8, 3, 1, 1, 1),
                                    (1, 8, 4000, 4, 4, 3, 1, 1, 4)])
 def test_band_plan_refuses_a_row_that_does_not_fit(shape):
-    """A row of 4,000 pixels does not fit in BAND_SMEM even at the least
-    channel tile (8 dense, C = 4 depthwise): refused, no other route."""
+    """The input rows of a band of one row 4,000 pixels wide do not fit in
+    BAND_SMEM (depthwise: even at its least tile, C = 4): refused, no
+    other route."""
     with pytest.raises(ValueError, match="does not fit"):
         _band_plan(*shape, SMS)
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 1000, 3, 64, 3, 1, 1, 1),
+@pytest.mark.parametrize("shape", [(1, 8, 1000, 64, 64, 3, 1, 1, 64),
                                    (1, 8, 600, 256, 256, 3, 1, 1, 256)])
 def test_band_plan_splits_the_channels_of_a_wide_row(shape):
-    """Where a band of one row of the whole O does not fit, the channels
-    split over CTAs, halving the tile until a row fits."""
+    """Where a depthwise band of one row of every channel does not fit,
+    the channels split over CTAs, halving the tile until a row fits."""
     n, h, w, c, o, ks, stride, pad, groups = shape
     p = _band_plan(*shape, SMS)
-    ow = (w + 2 * pad - ks) // stride + 1
     assert p.chunks > 1 and p.smem <= BAND_SMEM
-    assert _band_smem(w, ow, c, o, ks, stride, 1, 2 * p.ch,
-                      groups) > BAND_SMEM
+    assert _band_smem(w, c, ks, stride, 1, 2 * p.ch, groups) > BAND_SMEM

@@ -645,18 +645,18 @@ def test_conv_narrow_and_depthwise_bit_for_bit(cuda_device, n, h, w, c, o,
 
 # (N, H, W, C, O, kernel, stride, padding, groups, rows, chunks on 132
 # SMs) of the band routes' edges: C = 3 read as it is; O in {8, 16, 24,
-# 64}; ragged last bands (13 output rows in bands of 3, 56 in bands of
-# 3) and more bands than CTAs (each CTA walks several, through both
-# output buffers); fewer bands than SMs (7, 9); stride 2 with the top and
-# left padding rows; a depthwise map whose rows are too few for the SMs,
-# its channels split over CTAs (16-byte stores of a strided band)
-CONV_BAND_CASES = [(256, 13, 11, 3, 16, 3, 1, 1, 1, 3, 1),
-                   (64, 56, 56, 3, 64, 3, 1, 1, 1, 3, 1),
+# 64}; ragged last bands (13 and 58 output rows in bands of 8) and more
+# bands than CTAs (each CTA walks several, through its ring of input
+# buffers); fewer bands than SMs (7, 9); stride 2 with the top and left
+# padding rows; a depthwise map whose rows are too few for the SMs, its
+# channels split over CTAs (each pixel's run of them stored alone)
+CONV_BAND_CASES = [(256, 13, 11, 3, 16, 3, 1, 1, 1, 8, 1),
+                   (64, 58, 58, 3, 64, 3, 1, 1, 1, 8, 1),
                    (1, 7, 9, 3, 8, 3, 1, 1, 1, 1, 1),
-                   (256, 25, 21, 3, 24, 3, 2, 1, 1, 3, 1),
+                   (256, 25, 21, 3, 24, 3, 2, 1, 1, 8, 1),
                    (2, 17, 21, 8, 16, 1, 1, 0, 1, 1, 1),
-                   (256, 25, 21, 8, 8, 3, 2, 1, 8, 3, 1),
-                   (64, 56, 56, 32, 32, 3, 1, 1, 32, 3, 1),
+                   (256, 25, 21, 8, 8, 3, 2, 1, 8, 8, 1),
+                   (64, 58, 58, 32, 32, 3, 1, 1, 32, 8, 1),
                    (1, 9, 10, 256, 256, 3, 1, 1, 256, 1, 16),
                    (3, 9, 7, 16, 16, 3, 2, 1, 16, 1, 2)]
 
@@ -719,11 +719,9 @@ def test_band_smem_is_the_kernels(cuda_device):
     lib = _library()
     for n, h, w, c, o, ks, stride, pad, groups in shapes:
         p = _band_plan(n, h, w, c, o, ks, stride, pad, groups, sms)
-        ow = (w + 2 * pad - ks) // stride + 1
-        assert p.smem == _band_smem(w, ow, c, o, ks, stride, p.rows, p.ch,
-                                    groups)
+        assert p.smem == _band_smem(w, c, ks, stride, p.rows, p.ch, groups)
         assert p.smem == lib.facekit_conv_s8_band_smem(
-            groups, w, ow, c, o, ks, stride, p.rows, p.ch)
+            groups, w, c, ks, stride, p.rows, p.ch)
 
 
 @pytest.mark.cuda
