@@ -109,9 +109,8 @@ def conv_route(c: int, groups: int = 1) -> str:
     """The kernel a CUDA tensor of ``c`` input channels runs: ``"dw"``
     (CUDA cores, 9 taps a channel) where ``groups`` > 1 (= C, depthwise),
     else ``"mma"`` (s8 ``mma.sync`` tensor cores) from MMA_MIN_C channels
-    on, else ``"dp4a"`` (CUDA cores; the stems' 3 channels and 8-channel
-    inputs; 9 to 15 channels are padded to a multiple of 4 and take the
-    tensor cores at 16, or are refused)."""
+    on, else ``"dp4a"`` (CUDA cores; at most DP4A_MAX_C channels: the
+    stems' 3 and 8-channel inputs; 9 to 15 are refused)."""
     if groups > 1:
         return "dw"
     return "mma" if c >= MMA_MIN_C else "dp4a"
@@ -328,15 +327,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
 def _conv_s8_cuda(x, w, stride, padding, groups=1):
     _check(x, w, stride, padding, groups)
     c = x.shape[3]
-    if groups == 1 and c > DP4A_MAX_C:
-        if c % 4:
-            # 9 to 15 channels: zero channels add nothing to the sum
-            x = F.pad(x, (0, 4 - c % 4))
-            w = F.pad(w, (0, 4 - c % 4))
-            c = x.shape[3]
-        if c & (c - 1):
-            raise ValueError(f"conv_s8: {c} input channels; the tensor-core "
-                             "route takes a power of two")
+    if groups == 1 and c > DP4A_MAX_C and (c < MMA_MIN_C or c & (c - 1)):
+        raise ValueError(f"conv_s8: {c} input channels; the dense routes "
+                         f"take at most {DP4A_MAX_C} or a power of two >= "
+                         f"{MMA_MIN_C}")
     x, w = x.contiguous(), w.contiguous()
     n, h, wd, _ = x.shape
     o, ks = w.shape[0], w.shape[1]

@@ -378,9 +378,8 @@ struct DwBand {
   __host__ __device__ int bytes() const { return wts + RING * tile; }
 };
 
-// `bytes` (0..16) of src to dst and zeros to the rest of its 16, or 4 or
-// 8 bytes when `valid`, zeros else (cp.async's src-size: nothing past it
-// is read)
+// `bytes` (0..16) of src to dst and zeros to the rest of its 16 bytes
+// (cp.async's src-size: nothing past them is read)
 __device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes));
@@ -401,6 +400,9 @@ __device__ __forceinline__ void copy_run(unsigned char* dst, const int8_t* src,
                  static_cast<int>(end - at < 16 ? end - at : 16));
   }
 }
+
+// V (16, 8 or 4) bytes of src to dst when `valid`, else V zeros and
+// nothing read
 template <int V>
 __device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, bool valid) {
   if constexpr (V == 16)

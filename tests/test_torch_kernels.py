@@ -405,8 +405,15 @@ def test_conv_kernel_matches_plain_bit_for_bit(cuda_device, n, h, w, c, o,
 @pytest.mark.cuda
 def test_conv_kernel_refuses_what_it_does_not_take(cuda_device):
     """What no route takes: O no multiple of 8, a 5x5 kernel, groups
-    other than 1 and C (or a depthwise 1x1), float input."""
+    other than 1 and C (or a depthwise 1x1), 9 to 15 input channels or a
+    count above them that is no power of two, float input."""
     x = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=cuda_device)
+    for c in (13, 24):
+        with pytest.raises(ValueError, match="power of two >= 16"):
+            conv_s8(torch.zeros((1, 8, 8, c), dtype=torch.int8,
+                                device=cuda_device),
+                    torch.zeros((64, 3, 3, c), dtype=torch.int8,
+                                device=cuda_device))
     with pytest.raises(ValueError, match="multiple of 8"):
         conv_s8(x, torch.zeros((12, 3, 3, 64), dtype=torch.int8,
                                device=cuda_device))
