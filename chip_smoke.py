@@ -202,12 +202,13 @@ def reset_launches():
 
 
 def launches():
-    """Every kernel's launch count, and the conv's by route
-    (``conv_s8.mma``, ``conv_s8.dp4a``, ``conv_s8.dw``)."""
-    out = {name: fn.launches for name, fn in _wrappers().items()}
-    routes = getattr(_wrappers()["conv_s8"], "route_launches", {})
-    out.update({f"conv_s8.{route}": n for route, n in routes.items()})
-    return out
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def conv_route_launches():
+    """The conv's launches by route (``mma``, ``dp4a``, ``dw``) since the
+    last ``reset_launches()``."""
+    return dict(getattr(_wrappers()["conv_s8"], "route_launches", {}))
 
 
 @contextlib.contextmanager
@@ -1646,6 +1647,7 @@ def _throughput_run(server, mode, crops, batches, enrolled_q, e_cpu, rng):
     answers = [server.recognize_batch(list(b)) for b in batches]
     torch.cuda.synchronize()
     counts = launches()
+    routes = conv_route_launches()
     forwards = n_users + len(batches)
     if counts["conv_s8"] != SITES_PER_FORWARD * forwards or \
             counts["cosine_topk_int8"] < len(batches) or \
@@ -1706,7 +1708,8 @@ def _throughput_run(server, mode, crops, batches, enrolled_q, e_cpu, rng):
            "dtype": server.config.compute_dtype, "users": n_users,
            "batches": [len(b) for b in batches], "forwards": forwards,
            "gallery_capacity": server.gallery.capacity,
-           "launches": counts, "cos_dist_vs_f32_cpu": cos_dist,
+           "launches": counts, "conv_s8_route_launches": routes,
+           "cos_dist_vs_f32_cpu": cos_dist,
            "min_enrolled_similarity": min_sim, "batch_invariant": True,
            **{f"embed_match_ms_b{b}": statistics.median(
                embed_match_ms(server, snap, rng, b)) for b in (1, 8, 64)}}
@@ -2375,6 +2378,7 @@ def phase_server_detectors(device, repo_dir, seed=9, n_users=8):
                 inserted = asyncio.run(insert_face())
                 torch.cuda.synchronize()
                 counts = launches()
+                routes = conv_route_launches()
                 forwards = 4          # enrollment, two buckets, /insert/face
                 if counts["conv_s8"] != (DET_INT8_SITES[family] * forwards
                                          if int8 else 0) or \
@@ -2439,6 +2443,7 @@ def phase_server_detectors(device, repo_dir, seed=9, n_users=8):
                        "network": cfg.rec_network, "dtype": cfg.compute_dtype,
                        "users": n_users, "frames": [1, len(queries)],
                        "forwards": forwards, "launches": counts,
+                       "conv_s8_route_launches": routes,
                        "anchors": outs[1].shape[1],
                        "anchor_share_above_threshold": above,
                        "faces_per_frame": det.valid.sum(1).tolist(),
@@ -4900,7 +4905,7 @@ def main(argv) -> int:
                 if c["batch"] == 64 and c["route"] == "dp4a")
     det_sums = det_case_sums(det_cases)
     retina_dw = det_sums["mobilenet0.25_int8 b8"]["by_route"]["dw"]
-    det_launches = {d["path"]: d["launches"] for d in detectors
+    det_launches = {d["path"]: d["conv_s8_route_launches"] for d in detectors
                     if "int8" in d["path"]}
 
     def band_regs(kernel):
@@ -5023,7 +5028,7 @@ def main(argv) -> int:
         "name": "conv_s8_band_dp4a_kernel", "route": "cuda",
         "source": "facekit_torch/ops/csrc/conv_s8.cu",
         "replaces": "docs/experiments/pallas_s8_stride2_conv.py:86",
-        "launches": tput[0]["launches"]["conv_s8.dp4a"],
+        "launches": tput[0]["conv_s8_route_launches"]["dp4a"],
         "max_abs_err": 0,
         "ms": stem["ms"], "device_ms": _ms(stem["device_us"]),
         "plain_ms": stem["plain_ms"], "bound_ms": stem["bound_ms"],
@@ -5035,13 +5040,13 @@ def main(argv) -> int:
         "launch_floor_us": floor["device_us"],
         "shape": "s8 N=64 112x112x3 -> 64, 3x3 stride 1 pad 1 (the int8 "
                  "IR-50 stem), band " + json.dumps(stem["band"]),
-        "detector_launches": {p: n["conv_s8.dp4a"]
+        "detector_launches": {p: n["dp4a"]
                               for p, n in det_launches.items()},
         "ptxas": band_regs("conv_s8_band_dp4a_kernel")}, {
         "name": "conv_s8_band_dw_kernel", "route": "cuda",
         "source": "facekit_torch/ops/csrc/conv_s8.cu",
         "replaces": "docs/experiments/pallas_s8_stride2_conv.py:86",
-        "launches": det_launches["mobilenet0.25_int8"]["conv_s8.dw"],
+        "launches": det_launches["mobilenet0.25_int8"]["dw"],
         "max_abs_err": 0,
         "ms": retina_dw["ms"], "device_ms": retina_dw["device_ms"],
         "plain_ms": retina_dw["plain_ms"], "bound_ms": retina_dw["bound_ms"],
@@ -5053,7 +5058,7 @@ def main(argv) -> int:
         "launch_floor_us": floor["flushed_device_us"],
         "shape": "s8: the 13 depthwise sites of one int8 RetinaFace "
                  "forward at 288x320, batch 8, times summed",
-        "detector_launches": {p: n["conv_s8.dw"]
+        "detector_launches": {p: n["dw"]
                               for p, n in det_launches.items()},
         "ptxas": band_regs("conv_s8_band_dw_kernel")}, {
         "name": "ir_block", "route": "cuda",
