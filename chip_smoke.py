@@ -164,9 +164,10 @@ FORWARD_REPS = 10        # int8 IR-50 forwards timed and traced per batch
 IR_BLOCKS_PER_FORWARD = 20   # float IR-50's stride-1 identity blocks
 # (H = W, C, blocks per forward) of those blocks
 IR_BLOCK_SHAPES = [(56, 64, 2), (28, 128, 3), (14, 256, 13), (7, 512, 2)]
-# batches of ir_block_case: 8 and 64, and in bf16 32, the forward WS
-# /inference runs at bucket 8 (8 frames x 4 faces)
-IR_BLOCK_BATCHES = {"bfloat16": (8, 32, 64), "float32": (8, 64)}
+# batches of ir_block_case: 8 and 64, and in bf16 also 1, 4 and 32: the
+# forwards of /recognize at bucket 1 and of WS /inference at buckets 1 and
+# 8 (4 faces a frame)
+IR_BLOCK_BATCHES = {"bfloat16": (1, 4, 8, 32, 64), "float32": (8, 64)}
 IR_BLOCK_F32_ATOL = 1e-4     # f32 sums over 9*C terms in another order
 IR_BLOCK_BF16_PAST = 1e-5    # share of bf16 outputs allowed past two steps
 DET_ATOL = {"loc": 1e-2, "conf": 2e-3, "ldm": 1e-2}  # bf16 vs f32 detector
@@ -588,19 +589,32 @@ def phase_launch_floor(device, reps: int = 20):
     return rec
 
 
+# the fused block's kernels that its ptxas line must hold
+IR_BLOCK_KERNELS = ("ir_block_bf16_kernel", "ir_block_f32_kernel")
+
+
 def ir_block_ptxas(logs):
     """Registers, stack and spill of the fused block's kernels
     (``ir_block_bf16_kernel``, ``ir_block_f32_kernel``); "not rebuilt"
     where the library was already built. Fails on a stack frame or a spill
-    in either, or where the f32 kernel is missing."""
+    in either, where either is missing, or where ptxas serialized the bf16
+    kernel's ``wgmma`` (its "wgmma.mma_async instructions are serialized"
+    warning: each then waits for the one before)."""
     if "ir_block" not in logs:
         return "not rebuilt"
     entries = ptxas_entries(logs["ir_block"], prefix="ir_block")
-    if not any("f32" in kern for kern in entries):
-        raise AssertionError(f"no ir_block_f32_kernel in {sorted(entries)}")
+    missing = [k for k in IR_BLOCK_KERNELS
+               if not any(kern.partition("<")[0] == k for kern in entries)]
+    if missing:
+        raise AssertionError(f"no ptxas -v lines of {missing} in "
+                             f"{sorted(entries)}")
     for kern, rec in entries.items():
         if rec.get("stack_bytes") or rec.get("spill_bytes"):
             raise AssertionError(f"ir_block {kern}: {rec}")
+    serialized = [line.strip() for line in logs["ir_block"].splitlines()
+                  if "wgmma" in line and "serialized" in line]
+    if serialized:
+        raise AssertionError(f"ir_block: {serialized}")
     return entries
 
 
@@ -1762,15 +1776,19 @@ def random_ir_block(c, dtype, gen, device):
 
 def phase_ir_block(device, seed=5):
     """Kernel #3, the fused IR block, against its plain version at the four
-    IR-50 identity-block shapes, batch 8 and 64 (and 32 in bf16), bf16 and
-    f32: f32 within IR_BLOCK_F32_ATOL; bf16 within two bf16 steps of each
-    output (2**-6 of its magnitude, plus 2**-9 near 0) but for a share
+    IR-50 identity-block shapes, batch 8 and 64 (and 1, 4 and 32 in bf16),
+    bf16 and f32: f32 within IR_BLOCK_F32_ATOL; bf16 within two bf16 steps
+    of each output (2**-6 of its magnitude, plus 2**-9 near 0) but for a share
     IR_BLOCK_BF16_PAST, and every output within that plus
     ``u_rounding_bound``: both versions
     round u to bf16 from f32 sums taken in another order (cuDNN's sums
     land farther from a float64 version's than the kernel's do).
     The block op by op (cuDNN convs, what the port ran before this kernel)
-    is timed beside it as a guide: no single PyTorch call computes it."""
+    is timed beside it as a guide: no single PyTorch call computes it.
+    ``ms`` is CUDA events around launches issued back to back (the host's
+    time where it issues slower than the card runs), ``host_us`` the
+    host's time a call, ``device_us`` the kernel's time on the card from a
+    trace."""
     import torch
 
     from facekit_torch.ops.ir_block import (_ir_block_cuda, block_operands,
@@ -1816,6 +1834,8 @@ def phase_ir_block(device, seed=5):
                        "max_abs_ref": float(ref.abs().max()),
                        "share_past_tolerance": past,
                        "ms": cuda_ms(_ir_block_cuda, args, 10),
+                       "host_us": host_us(_ir_block_cuda, args, 100),
+                       "device_us": device_us(_ir_block_cuda, args),
                        "plain_ms": cuda_ms(ir_block_reference, args, 3),
                        "eager_ms": eager, "library_ms": None,
                        "bound_ms": bound, "bound_by": by}

@@ -34,13 +34,18 @@ output channel) and ``par`` is (5, C) f32: s1, b1, alpha, s2, b2.
     ``ir_block`` calls it while ``torch.export`` traces;
   * ``u_rounding_bound`` is how far two right versions may lie apart
     through the rounding of u, which the comparisons of the kernel with
-    the plain version on the card allow for in bf16.
+    the plain version on the card allow for in bf16;
+  * ``bf16_plan`` mirrors how the bf16 kernel cuts a launch into bands
+    (its band height, shared memory, cluster and CTAs), so that the CPU
+    tests can hold it to the card's limits and the wrapper can refuse a
+    shape no band fits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +53,102 @@ import torch.nn.functional as F
 BN_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 512
+
+# the bf16 kernel's constants (ops/csrc/ir_block.cu)
+_TN = 64                  # output channels a CTA
+_PASS_TILES = 6           # m64 tiles of a conv pass (2 warpgroups x 3)
+_ACC_SETS = 3             # accumulators a warpgroup holds
+_MAX_CHAIN = 96           # k16 steps summed into one accumulator
+_MAX_BAND_ROWS = 16
+_MAX_SMEM = 232448        # 227 KB a CTA
+_RING_BYTES = 4 * 8192    # NST stages of 64 channels x 64 of K, bf16
+_STAGING = 8 * 16 * 144   # conv2's output rows staged by the 8 consumer warps
+H100_SMS = 132
+
+
+class Bf16Plan(NamedTuple):
+    """A bf16 launch: output rows a band, dynamic shared memory (bytes) a
+    CTA, CTAs a cluster, m64 tiles of the largest band's conv1 and conv2
+    (an image's), CTAs in all, images a CTA."""
+    rows: int
+    smem: int
+    cluster: int
+    tiles1: int
+    tiles2: int
+    ctas: int
+    images: int
+
+
+def _pass_tiles(c):
+    """The most m64 tiles a conv pass takes at c channels (``pass_tiles``):
+    no accumulator sums more than _MAX_CHAIN of the 9c/16 k16 steps."""
+    steps = 9 * c // 16
+    t = _PASS_TILES
+    while t > 1:
+        ks = _ACC_SETS // -(-t // 2)
+        if -(-steps // ks) <= _MAX_CHAIN:
+            break
+        t -= 1
+    return t
+
+
+def _band_rows(r0, r, h):
+    """conv1's u rows y1 .. y1e-1 and conv2's output rows r0 .. y2e-1 of
+    the band from r0 (``band_rows``)."""
+    return max(r0 - 1, 0), min(r0 + r + 1, h), min(r0 + r, h)
+
+
+def _bf16_layout(r, i, h, w, c):
+    """(shared memory, conv1 tiles, conv2 tiles) at band height r with i
+    images a CTA, as ``bf16_layout`` lays out the ring and its barriers,
+    the band and the u slice (a slab of the same odd number of pixels for
+    each chunk of 8 channels and image)."""
+    w2 = w + 2
+    rows1 = rows2 = 0
+    for r0 in range(0, h, r):
+        y1, y1e, y2e = _band_rows(r0, r, h)
+        rows1, rows2 = max(rows1, y1e - y1), max(rows2, y2e - r0)
+    tiles1, tiles2 = -(-rows1 * w2 // 64), -(-rows2 * w2 // 64)
+    np_ = ((rows1 + 2) * w2) | 1
+    reach1, reach2 = tiles1 * 64 + 2 * w2 + 2, tiles2 * 64 + 2 * w2 + 2
+    last = max(np_, reach1, reach2 if c > _TN else 0)
+    band = max(16 * ((c // 8 * i - 1) * np_ + last), _STAGING)
+    usl = 16 * ((8 * i - 1) * np_ + max(np_, reach2))
+    up = lambda b: -(-b // 128) * 128  # noqa: E731
+    return _RING_BYTES + 128 + up(band) + up(usl), tiles1, tiles2
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_plan(n: int, h: int, w: int, c: int,
+              sms: int = H100_SMS) -> Optional[Bf16Plan]:
+    """The bf16 kernel's launch for x (n, h, w, c) on ``sms`` SMs, as its
+    ``bf16_plan`` picks the band height: conv2 in one pass (rows * (w+2)
+    <= 64 * ``_pass_tiles(c)`` positions), the CTA within 227 KB, and of
+    those the fewest rounds of CTAs over the SMs times a CTA's weight
+    stages, a stage costed at its pass's tiles but at least 2; two images
+    a CTA where each is one tile in both convs and n is even; ties to the
+    higher band, then to one image. None where no band fits. Cached: the
+    wrapper asks it on every bf16 launch."""
+    best = None
+    pt = _pass_tiles(c)
+    for r in range(1, min(h, _MAX_BAND_ROWS) + 1):
+        if r * (w + 2) > pt * 64:
+            break
+        for i in (2, 1):
+            smem, tiles1, tiles2 = _bf16_layout(r, i, h, w, c)
+            if smem > _MAX_SMEM or (i == 2 and (n % 2 or tiles1 > 1 or
+                                                tiles2 > 1 or pt < 2)):
+                continue
+            passes = -(-tiles1 // pt)
+            per = -(-tiles1 // passes)
+            stages = max(tiles2, 2) + sum(max(min(t, per), 2)
+                                          for t in range(tiles1, 0, -per))
+            ctas = -(-h // r) * (c // _TN) * (n // i)
+            cost = -(-ctas // sms) * stages * (9 * c // 64)
+            if best is None or cost <= best[0]:
+                best = (cost, Bf16Plan(r, smem, c // _TN, tiles1, tiles2, ctas,
+                                       i))
+    return None if best is None else best[1]
 
 
 def fused_affine(scale, bias, mean, var, eps: float = BN_EPS):
@@ -212,6 +313,11 @@ def _ir_block_cuda(x, w1, w2, par):
     n, h, w, c = x.shape
     if x.numel() >= 2 ** 31:
         raise ValueError("ir_block: tensors of 2**31 elements or more")
+    if x.dtype == torch.bfloat16 and bf16_plan(n, h, w, c) is None:
+        raise ValueError(f"ir_block: no bf16 band fits {w} columns of {c} "
+                         "channels: a band of one row takes W + 2 <= 384 "
+                         "positions (128 from 256 channels on) and at most "
+                         "227 KB of shared memory")
     if any(t.data_ptr() % 16 for t in (x, w1, w2, par)):
         raise ValueError("ir_block: x, weights and par must be 16-byte "
                          "aligned")

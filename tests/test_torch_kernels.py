@@ -766,12 +766,24 @@ def test_search_past_256_queries(cuda_device, kind, b, k):
 # tensor-core tile, and f32's plans: C = 64 writes u over the t band (at
 # batch 3, and at 23x40, whose conv1 takes two passes that meet inside an
 # image row), 7-row bands at C = 256 and 512 whose last band holds 4 and
-# 1 rows (11x9, 8x7), and a band lowered to 5 rows to fit (15x14x256)
+# 1 rows (11x9, 8x7), and a band lowered to 5 rows to fit (15x14x256).
+# Then bf16's plans (ir_block.bf16_plan): batch 64 at 7x7x512 (two images
+# a CTA, one tile each, 256 CTAs: more than the SMs), 3x5x64 at batch 200
+# (two images a CTA that read their u slices themselves, G = 1),
+# 28x28x128 at batch 64 (10-row bands, the last of 8: conv1's 6 tiles 3 +
+# 3, conv2's 5 split 3 + 2), 56x56x64 at batch 8 (conv1's 6 tiles 3 + 3),
+# 22x22x128
+# (bands of 3 rows, the last of 1; 72 positions a band, no multiple of
+# 64), 13x11x512 (8-row bands, the last of 5), 9x112x64 (one-row bands of
+# 114 positions) and 40x72x64 at batch 16 (5-row bands: conv1's 9 tiles
+# in two passes of 5 and 4)
 IR_BLOCK_CASES = [(2, 56, 56, 64), (2, 28, 28, 128), (1, 14, 14, 256),
                   (1, 7, 7, 512), (3, 9, 13, 64), (1, 5, 3, 128),
                   (32, 14, 14, 256), (1, 3, 5, 512), (3, 56, 56, 64),
                   (2, 23, 40, 64), (1, 11, 9, 256), (1, 8, 7, 512),
-                  (2, 15, 14, 256)]
+                  (2, 15, 14, 256), (64, 7, 7, 512), (64, 28, 28, 128),
+                  (8, 56, 56, 64), (2, 22, 22, 128), (2, 13, 11, 512),
+                  (1, 9, 112, 64), (16, 40, 72, 64), (200, 3, 5, 64)]
 
 
 @pytest.mark.cuda
@@ -805,11 +817,69 @@ def test_ir_block_kernel_matches_plain(cuda_device, n, h, w, c, dtype):
         assert (err <= steps + u_rounding_bound(x, w1, w2, par)).all()
 
 
+def _bf16_close(got, ref, x, w1, w2, par):
+    """test_ir_block_kernel_matches_plain's bf16 bars."""
+    err = (got.float() - ref.float()).abs()
+    steps = 2.0 ** -6 * ref.float().abs() + 2.0 ** -9
+    return bool((err > steps).float().mean() <= 1e-5) and bool(
+        (err <= steps + u_rounding_bound(x, w1, w2, par)).all())
+
+
+@pytest.mark.cuda
+def test_ir_block_bf16_tensor_map_cache(cuda_device):
+    """The bf16 wrapper keeps a tensor map per weight tensor (by address
+    and shape): two weight tensors of one shape in turns each give their
+    own block, the first again bit for bit, and weights rewritten in place
+    (the same address) are read as they now are."""
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(21)
+    c = 256
+    wa1, wa2, par = (t.to(cuda_device) for t in _ir_operands(rng, c,
+                                                             torch.bfloat16))
+    wb1, wb2, _ = (t.to(cuda_device) for t in _ir_operands(rng, c,
+                                                           torch.bfloat16))
+    x = torch.tensor(rng.normal(size=(4, 14, 14, c)), dtype=torch.float32,
+                     device=cuda_device).bfloat16()
+    got_a = _ir_block_cuda(x, wa1, wa2, par)
+    got_b = _ir_block_cuda(x, wb1, wb2, par)
+    again = _ir_block_cuda(x, wa1, wa2, par)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, again) and not torch.equal(got_a, got_b)
+    for got, (w1, w2) in ((got_a, (wa1, wa2)), (got_b, (wb1, wb2))):
+        assert _bf16_close(got, ir_block_reference(x, w1, w2, par), x, w1, w2,
+                           par)
+    wa1.copy_(wb2)
+    got = _ir_block_cuda(x, wa1, wa2, par)
+    assert _bf16_close(got, ir_block_reference(x, wa1, wa2, par), x, wa1, wa2,
+                       par)
+
+
+@pytest.mark.cuda
+def test_ir_block_bf16_plan_is_the_kernels(cuda_device):
+    """ops/ir_block.py's mirror of the bf16 launch plan equals the C side's
+    (``facekit_ir_block_bf16_plan``) at every IR-50 shape and batch the
+    served paths run and at every case of the kernel test."""
+    import ctypes
+
+    from facekit_torch.ops import _build
+    from facekit_torch.ops.ir_block import bf16_plan
+    fn = _build.load("ir_block").facekit_ir_block_bf16_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    shapes = [(n, hw, hw, c) for hw, c in ((56, 64), (28, 128), (14, 256),
+                                          (7, 512))
+              for n in (1, 4, 8, 32, 64)] + IR_BLOCK_CASES
+    for n, h, w, c in shapes:
+        out = (ctypes.c_int * 7)()
+        assert fn(n, h, w, c, sms, ctypes.addressof(out)) == 0
+        assert tuple(out) == tuple(bf16_plan(n, h, w, c, sms)), (n, h, w, c)
+
+
 @pytest.mark.cuda
 def test_ir_block_f32_lowers_its_band_to_fit(cuda_device):
     """f32 at 112 columns, where a 4-row band of t does not fit in shared
-    memory: the kernel takes a lower band and stays within 1e-4 (the bf16
-    kernel refuses this width)."""
+    memory: the kernel takes a lower band and stays within 1e-4 (bf16 takes
+    one-row bands there, a case of test_ir_block_kernel_matches_plain)."""
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(9)
     w1, w2, par = (t.to(cuda_device) for t in _ir_operands(rng, 64))

@@ -165,14 +165,15 @@ def test_two_processes_build_at_once(tmp_path):
     """Two fresh interpreters build the library into one empty directory
     at the same moment: each compiles into a file of its own and renames
     it into place, so both load it and one library is left, with no
-    temporary file. Nothing is built at import."""
+    temporary file. Nothing is built at import. The directory is checked
+    empty here, before the children start: a child that looked itself
+    could find the other's temporary file already there."""
     code = (
         "import sys\n"
         "from pathlib import Path\n"
         "from facekit_torch.ops import _build\n"
         "import facekit_torch.native as native\n"
         "_build.BUILD_DIR = Path(sys.argv[1])\n"
-        "assert not any(_build.BUILD_DIR.iterdir())\n"
         "assert native._lib is None and native._error is None\n"
         "assert native.available(), native.build_error()\n"
         "print(native.gallery_top1(__import__('numpy').eye(3, dtype="
@@ -180,6 +181,7 @@ def test_two_processes_build_at_once(tmp_path):
         "[1][0])\n")
     out_dir = tmp_path / "build"
     out_dir.mkdir()
+    assert not any(out_dir.iterdir())
     procs = [subprocess.Popen([sys.executable, "-c", code, str(out_dir)],
                               cwd=REPO, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
