@@ -88,7 +88,13 @@ version. Without CUDA it exits non-zero and prints no result. Imports
 nothing of JAX. ``python3 chip_smoke.py --searches`` runs the build and
 the two search phases alone, for comparing search kernels; ``--convs``
 the conv's build, its ``ptxas`` line, the empty-launch floor
-(``launch_floor``) and the conv phase alone;
+(``launch_floor``), the conv phase and the tensor-core sites of the int8
+RetinaFace and RFB detectors (``conv_s8_det_case``, batches 1 and 8)
+alone, with ``torch._int_mm`` of each tensor-core site's im2col GEMM
+beside it as a guide;
+``--conv-tiles`` the conv's build, its ``ptxas`` line and the
+tensor-core route's tile widths at IR-50's sites of 256 and 512 output
+channels alone (``conv_s8_tile_case``);
 ``--throughput`` the int8 forward and the throughput config's /recognize
 path alone (it runs on an older checkout too, to compare the two in one
 call); ``--gen`` the build of the two kernels it runs and
@@ -547,15 +553,24 @@ def selection_ptxas(logs):
 
 # the conv's kernels that its ptxas line must hold: the tensor-core route
 # and the two band routes
-CONV_KERNELS = ("conv_s8_mma_kernel", "conv_s8_band_dp4a_kernel",
+CONV_KERNELS = ("conv_s8_wgmma_kernel", "conv_s8_band_dp4a_kernel",
                 "conv_s8_band_dw_kernel")
+
+
+def serialized_wgmma(log):
+    """ptxas's "wgmma.mma_async instructions are serialized" warnings in
+    one ``nvcc -Xptxas -v`` log: each such wgmma waits for the one
+    before."""
+    return [line.strip() for line in log.splitlines()
+            if "wgmma" in line and "serialized" in line]
 
 
 def conv_ptxas(logs):
     """Registers, stack and spill of every kernel of the s8 conv's build
     (``conv_s8_*kernel``); "not rebuilt" where the library was already
-    built. Fails on a stack frame or a spill in any of them, or where one
-    of CONV_KERNELS is missing."""
+    built. Fails on a stack frame or a spill in any of them, where ptxas
+    serialized a conv kernel's ``wgmma``, or where one of CONV_KERNELS is
+    missing."""
     if "conv_s8" not in logs:
         return "not rebuilt"
     entries = ptxas_entries(logs["conv_s8"], prefix="conv_s8")
@@ -567,6 +582,9 @@ def conv_ptxas(logs):
     for kern, rec in entries.items():
         if rec.get("stack_bytes") or rec.get("spill_bytes"):
             raise AssertionError(f"conv_s8 {kern}: {rec}")
+    serialized = serialized_wgmma(logs["conv_s8"])
+    if serialized:
+        raise AssertionError(f"conv_s8: {serialized}")
     return entries
 
 
@@ -611,8 +629,7 @@ def ir_block_ptxas(logs):
     for kern, rec in entries.items():
         if rec.get("stack_bytes") or rec.get("spill_bytes"):
             raise AssertionError(f"ir_block {kern}: {rec}")
-    serialized = [line.strip() for line in logs["ir_block"].splitlines()
-                  if "wgmma" in line and "serialized" in line]
+    serialized = serialized_wgmma(logs["ir_block"])
     if serialized:
         raise AssertionError(f"ir_block: {serialized}")
     return entries
@@ -1397,6 +1414,56 @@ def conv_bound(n, h, w, c, o, ks, stride, pad, groups=1):
                                        else "operations")
 
 
+def conv_clusters(device):
+    """The clusters of 2, 4 and 8 tensor-core CTAs that the card runs at
+    once (``max_clusters``) beside the CTAs the split plan counts on
+    (``_cluster_ctas``); fails where the plan counts on more. None on a
+    checkout without the query."""
+    import torch
+
+    try:
+        from facekit_torch.ops.conv_s8 import _cluster_ctas, max_clusters
+    except ImportError:
+        return None
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rec = {"phase": "conv_s8_clusters", "sms": sms,
+           "max_clusters": {s: max_clusters(s) for s in (2, 4, 8)},
+           "planned_ctas": {s: _cluster_ctas(s, sms) for s in (2, 4, 8)}}
+    for s in (2, 4, 8):
+        if rec["planned_ctas"][s] > s * rec["max_clusters"][s]:
+            raise AssertionError(f"conv_s8: the split plan counts on "
+                                 f"{rec['planned_ctas'][s]} CTAs in clusters "
+                                 f"of {s}; the card holds {rec}")
+    emit(rec)
+    return rec
+
+
+def int_mm_guide(device, m, k, o, gen):
+    """``torch._int_mm`` of an (m, k) by (k, o) s8 product on random
+    operands: a conv site's im2col GEMM (m = N*OH*OW pixels, k =
+    KS*KS*C, o output channels) without its gather, as a guide to the
+    rate an s8 product of that shape reaches on this card. Another
+    function, which the port never calls: a guide, not a library
+    yardstick. CUDA-event ms and traced device µs; None where
+    ``_int_mm`` refuses the shape."""
+    import torch
+    a = [torch.randint(-127, 128, (m, k), generator=gen, device=device,
+                       dtype=torch.int8) for _ in range(2)]
+    b = torch.randint(-127, 128, (o, k), generator=gen, device=device,
+                      dtype=torch.int8).t()
+    try:
+        torch._int_mm(a[0], b)
+    except RuntimeError:
+        return {"int_mm_guide_ms": None, "int_mm_guide_device_us": None}
+    args = [(x, b) for x in a]
+    # one trace, not device_us' three: a guide is not worth the time of
+    # retaken traces at every site
+    out = {"int_mm_guide_ms": cuda_ms(torch._int_mm, args, 20),
+           "int_mm_guide_device_us": device_us(torch._int_mm, args, tries=1)}
+    del a, b, args
+    return out
+
+
 def phase_conv(device, batches=CONV_BATCHES, seed=3):
     """The s8 conv kernel against its plain version (bit for bit) at every
     conv shape of the int8 IR-50 at each of ``batches`` and at the TPU
@@ -1404,7 +1471,7 @@ def phase_conv(device, batches=CONV_BATCHES, seed=3):
     (``conv_route``: ``mma`` tensor cores or ``dp4a``) and its plan
     (``_conv_plan``); cuDNN's bf16 conv of the same shape timed beside it
     as a yardstick only (another function, which the port does not
-    call)."""
+    call), and at the tensor-core sites ``int_mm_guide``."""
     import torch
     import torch.nn.functional as F
 
@@ -1465,10 +1532,64 @@ def phase_conv(device, batches=CONV_BATCHES, seed=3):
                    [(x, wb) for x in xb]),
                "library_ms": None,
                "bound_ms": bound, "bound_by": by}
+        if route == "mma":
+            rec.update(int_mm_guide(device, n * oh * ow, ks * ks * c, o,
+                                    gen))
         emit(rec)
         out.append(rec)
         del xs, xb
     torch.cuda.synchronize()
+    return out
+
+
+def phase_conv_tiles(device, batches=(8, 64), widths=(64, 128), seed=23):
+    """The tensor-core route's tile width at each IR-50 site of O >= 256
+    (``conv_s8_tile_case``): the kernel with the plan's tile and with each
+    of ``widths`` (unsplit, persistent CTAs, one an SM at most), bit for
+    bit against the plain version, its traced device µs beside the bound;
+    for choosing the plan's widths on this card."""
+    import torch
+
+    from facekit_torch.ops.conv_s8 import (_conv_s8_cuda, _launch_plan,
+                                           conv_s8_reference)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = []
+    for batch in batches:
+        for (n, h, w, c, o, ks, stride, pad), sites in ir50_conv_shapes(
+                batch).items():
+            if o < 256:
+                continue
+            oh = (h + 2 * pad - ks) // stride + 1
+            xs = [torch.randint(-127, 128, (n, h, w, c), generator=gen,
+                                device=device, dtype=torch.int8)
+                  for _ in range(2)]
+            wt = torch.randint(-127, 128, (o, ks, ks, c), generator=gen,
+                               device=device, dtype=torch.int8)
+            ref = conv_s8_reference(xs[0], wt, stride, pad)
+            base = _launch_plan(n, oh, oh, o, c, ks, sms)
+            plans = {"plan": base}
+            for bn in widths:
+                tiles = base.m_tiles * (o // bn)
+                plans[bn] = base._replace(
+                    bn=bn, n_tiles=o // bn, splits=1, per_split=base.stages,
+                    ctas=min(tiles, sms), resident=False)
+            rec = {"phase": "conv_s8_tile_case", "batch": batch,
+                   "shape": [n, h, w, c, o, ks, stride, pad],
+                   "sites": len(sites),
+                   "bound_us": conv_bound(n, h, w, c, o, ks, stride,
+                                          pad)[0] * 1e3}
+            for name, plan in plans.items():
+                def fn(x_, plan=plan):
+                    return _conv_s8_cuda(x_, wt, stride, pad, 1, plan=plan)
+                if not torch.equal(fn(xs[0]), ref):
+                    raise AssertionError(f"conv_s8_tile_case {rec['shape']}"
+                                         f" {plan}: differs from the plain "
+                                         "version")
+                rec[f"device_us_{name}"] = device_us(fn, [(x,) for x in xs])
+            emit(rec)
+            out.append(rec)
+            del xs, ref
     return out
 
 
@@ -1504,6 +1625,9 @@ def conv_forwards(convs):
                                "ms": total("ms", rs),
                                "device_ms": _ms(dev),
                                "bound_ms": total("bound_ms", rs)}
+            if route == "mma":
+                by_route[route]["int_mm_guide_device_ms"] = _ms(
+                    total("int_mm_guide_device_us", rs))
         rec = {"phase": "conv_s8_forward", "batch": batch,
                "launches_per_forward": sum(c["launches_per_forward"]
                                            for c in cs),
@@ -2162,6 +2286,7 @@ DET_PATHS = (("slim", {"det_network": "slim"}),
 # int8 sites per forward of each detector family (47 in RetinaFace)
 DET_INT8_SITES = {"mobilenet0.25": 47, "slim": 25, "rfb": 23}
 DET_THRESHOLD = 0.5          # random detector weights score near 0.55
+DET_HW = (288, 320)          # configs/default.json's detector input
 # facekit's int8 detector bars (tests/test_model_parity.py:311-369): conf
 # within 1e-3 of float, loc and ldm within this share of their largest
 INT8_DET_CONF_ATOL = 1e-3
@@ -2201,8 +2326,9 @@ def det_conv_cases(device, shapes, in_forward, gen):
     cuDNN's bf16 conv of the same shape (``groups`` = C for the depthwise
     sites) as a guide only, by CUDA events (``bf16_cudnn_ms``, which the
     host's time per call sets) and by a trace (``bf16_cudnn_device_us``,
-    every kernel of a call with the L2 flushed, ``flushed_call_us``). A
-    device time whose trace never held one kernel per call is None."""
+    every kernel of a call with the L2 flushed, ``flushed_call_us``), and
+    at the tensor-core sites ``int_mm_guide``. A device time whose trace
+    never held one kernel per call is None."""
     import torch
     import torch.nn.functional as F
 
@@ -2234,6 +2360,9 @@ def det_conv_cases(device, shapes, in_forward, gen):
                             groups=groups)
         bound, by = conv_bound(n, h, w, c, o, ks, stride, pad, groups)
         route = conv_route(c, groups)
+        guide = {} if route != "mma" else int_mm_guide(
+            device, n * ((h + 2 * pad - ks) // stride + 1)
+            * ((w + 2 * pad - ks) // stride + 1), ks * ks * c, o, gen)
         rec = {"phase": "conv_s8_det_case",
                "shape": {"N": n, "H": h, "W": w, "C": c, "O": o, "k": ks,
                          "stride": stride, "pad": pad, "groups": groups},
@@ -2247,7 +2376,7 @@ def det_conv_cases(device, shapes, in_forward, gen):
                                  for path in per_forward},
                "plain_ms": cuda_ms(conv_s8_reference, args, 2),
                "bf16_cudnn_ms": cuda_ms(cudnn, [(x, wb) for x in xb], 20),
-               "bound_ms": bound, "bound_by": by}
+               "bound_ms": bound, "bound_by": by, **guide}
         out.append(rec)
         timed.append((conv_s8, args))
         guides.append((cudnn, [(x, wb) for x in xb]))
@@ -2297,6 +2426,51 @@ def det_case_sums(cases):
             route = acc["by_route"].setdefault(c["route"], zero())
             for a in (acc, route):
                 add(a, c, per, c["in_forward_us"][path])
+    return out
+
+
+def detector_mma_shapes(device, batches=(1, 8), seed=9):
+    """{(N, H, W, C, O, k, stride, pad, groups): {path: sites per
+    forward}} of the tensor-core sites of the int8 RetinaFace and RFB
+    detectors (``quantize_detector``, random weights from ``seed``) at
+    DET_HW and ``batches``, recorded from one forward each: the dense
+    sites that ``server_detectors`` serves, without its servers."""
+    import torch
+
+    from facekit_torch.models import LightDet, RetinaFace, quantize_detector
+    from facekit_torch.ops.conv_s8 import conv_route
+    torch.manual_seed(seed)
+    shapes = {}
+    for path, net in (("mobilenet0.25_int8", RetinaFace()),
+                      ("rfb_int8", LightDet("rfb"))):
+        q = quantize_detector(net.to(device).eval())
+        for b in batches:
+            with recorded_convs() as calls, torch.inference_mode():
+                q(torch.rand((b, *DET_HW, 3), device=device))
+            sites = collections.Counter(
+                (*x.shape, w.shape[0], w.shape[1], stride, pad, groups)
+                for x, w, stride, pad, groups, _ in calls)
+            for key, count in sites.items():
+                if conv_route(key[3], key[8]) == "mma":
+                    shapes.setdefault(key, {})[path] = count
+        del q, net
+    return shapes
+
+
+def det_guide_sums(cases):
+    """The ``int_mm_guide_device_us`` of the tensor-core
+    ``conv_s8_det_case`` lines summed as ms per path and batch, each
+    times its sites per forward; None where a case has none."""
+    out = {}
+    for c in cases:
+        if c["route"] != "mma":
+            continue
+        for path, per in c["launches_per_forward"].items():
+            key = f"{path} b{c['shape']['N']}"
+            g = c.get("int_mm_guide_device_us")
+            prev = out.get(key, 0.0)
+            out[key] = None if g is None or prev is None else \
+                prev + g * per / 1e3
     return out
 
 
@@ -4748,7 +4922,9 @@ def call_trace(fn, arg, top=8):
 def main(argv) -> int:
     """No arguments: the whole smoke test. ``--searches``: the two search
     phases alone (build, ptxas, ``kernel_case``, ``kernel_int8_case``),
-    for comparing search kernels; ``--convs``: the conv phase alone
+    for comparing search kernels; ``--conv-tiles``: the tensor-core
+    route's tile widths at IR-50's sites of O >= 256 (``conv_s8_tile_case``);
+    ``--convs``: the conv phase alone
     (build, ptxas, ``launch_floor``, ``conv_s8_case``,
     ``conv_s8_forward``);
     ``--throughput``: the int8 embedder's forward and the throughput
@@ -4786,7 +4962,7 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     modes = {"--searches": ["cosine_topk", "cosine_topk_int8"],
-             "--convs": ["conv_s8"],
+             "--convs": ["conv_s8"], "--conv-tiles": ["conv_s8"],
              "--throughput": ["conv_s8", "cosine_topk_int8"],
              "--gen": ["cosine_topk", "ir_block"],
              "--detectors": ["conv_s8", "cosine_topk", "ir_block"],
@@ -4842,7 +5018,8 @@ def main(argv) -> int:
               "kernels": conv_ptxas(logs)})
         phase_launch_floor("cuda")
         _, det_cases = phase_server_detectors("cuda", repo_dir)
-        emit({"phase": "detector_sites", **det_case_sums(det_cases)})
+        emit({"phase": "detector_sites", **det_case_sums(det_cases),
+              "int_mm_guide_device_ms": det_guide_sums(det_cases)})
         print(power, flush=True)
         return 0
     if mode == "--throughput":
@@ -4850,11 +5027,22 @@ def main(argv) -> int:
         phase_server_throughput("cuda", repo_dir)
         print(power, flush=True)
         return 0
+    if mode == "--conv-tiles":
+        emit({"phase": "ptxas", "kernel": "conv_s8",
+              "kernels": conv_ptxas(logs)})
+        phase_conv_tiles("cuda")
+        print(power, flush=True)
+        return 0
     if mode == "--convs":
         emit({"phase": "ptxas", "kernel": "conv_s8",
               "kernels": conv_ptxas(logs)})
         phase_launch_floor("cuda")
+        conv_clusters("cuda")
         conv_forwards(phase_conv("cuda"))
+        det = det_conv_cases("cuda", detector_mma_shapes("cuda"), {},
+                             torch.Generator(device="cuda").manual_seed(9))
+        emit({"phase": "detector_sites", **det_case_sums(det),
+              "int_mm_guide_device_ms": det_guide_sums(det)})
         print(power, flush=True)
         return 0
     emit({"phase": "ptxas", "kernel": "topk_partial_mma_kernel",
@@ -4876,6 +5064,7 @@ def main(argv) -> int:
     int8_timings = phase_int8_kernels("cuda")
     big = phase_big_batches("cuda")
     floor = phase_launch_floor("cuda")
+    clusters = conv_clusters("cuda")
     convs = phase_conv("cuda")
     forwards = {f["batch"]: f for f in conv_forwards(convs)}
     int8_fwd = phase_int8_forward("cuda", repo_dir)
@@ -5013,7 +5202,7 @@ def main(argv) -> int:
             {key: f[key] for key in ("batch", "ms", "host_ms", "device_ms",
                                      "bound_ms", "plain_ms", "bf16_cudnn_ms",
                                      "bf16_cudnn_device_ms",
-                                     "sites_by_route")}
+                                     "sites_by_route", "by_route")}
             for f in forwards.values()],
         "in_forward": [
             {key: f[key] for key in ("batch", "back_to_back_ms",
@@ -5026,6 +5215,7 @@ def main(argv) -> int:
         "routes": [{**c["shape"], "route": c["route"], "plan": c["plan"],
                     "sites": c["launches_per_forward"]}
                    for c in convs if c["launches_per_forward"]],
+        "split_clusters": clusters,
         "kernel4_case": {
             key: k4_case[key] for key in ("ms", "device_us", "plain_ms",
                                           "bound_ms", "bound_by",

@@ -18,14 +18,15 @@ output, the exact integer sum; ``groups`` is 1 or C (depthwise):
 The kernel has three routes, and the wrapper alone chooses
 (``conv_route``): a dense conv of 16 input channels or more (every IR-50
 site but the stem, and most detector sites) runs an implicit GEMM on s8
-``mma.sync`` tensor cores, in CTA tiles and K splits that ``_conv_plan``
-chooses; the two others run on CUDA cores in bands of whole output rows
-that ``_band_plan`` chooses: a dense conv of at most 8 input channels
-(the stems' 3, read as they are, and 8-channel inputs) on ``__dp4a``, and
-a depthwise conv (``groups`` = C: the detectors' 3x3 dw sites). Both
-dense routes take any multiple of 8 output channels. The plan passed to
-the C entry point names the dense route (``bn = 0``: dp4a); ``groups``
-names the depthwise one.
+``wgmma`` warpgroup tensor cores fed by TMA, in CTA tiles and K splits
+that ``_conv_plan`` chooses, reading x through the im2col box that
+``_im2col_box`` computes; the two others run on CUDA cores in bands of
+whole output rows that ``_band_plan`` chooses: a dense conv of at most 8
+input channels (the stems' 3, read as they are, and 8-channel inputs) on
+``__dp4a``, and a depthwise conv (``groups`` = C: the detectors' 3x3 dw
+sites). Both dense routes take any multiple of 8 output channels. The
+plan passed to the C entry point names the dense route (``bn = 0``:
+dp4a); ``groups`` names the depthwise one.
 
 The convolution is also the ``torch.library`` op ``facekit_torch::conv_s8``
 (the plain version on the CPU, the kernel on CUDA), which the wrapper
@@ -45,14 +46,23 @@ import torch.nn.functional as F
 
 O_MULTIPLE = 8         # output channels must come in multiples of this
 MMA_MIN_C = 16         # input channels from which the tensor-core route runs
-CONV_BM = 128          # output pixels per CTA of the tensor-core route
+CONV_BM = 128          # output pixels per tile of the tensor-core route
 CONV_BK = 128          # bytes of K per pipeline stage of that route
+# the output channels a tile of that route takes: the s8 wgmma widths the
+# kernel is built for (m64nNk32 takes N = 8, 16, 24, 32, 48, 64, ...)
+MMA_TILES = (8, 16, 24, 32, 48, 64, 96, 128)
 # the least stages of K a split takes: one 128 x 128 stage reads 32 KiB of
 # operands, and each split adds a 64 KiB tile of int32 to the reduction
 MIN_SPLIT_STAGES = 2
 # the most splits of K: the splits of a tile run as one thread-block
 # cluster, whose portable size is 8 CTAs
 MAX_SPLITS = 8
+# a tensor-core CTA's shared memory (TcConv in ops/csrc/conv_s8.cu): at
+# most TC_SMEM, of which TC_SMEM_SPARE goes to alignment and barriers; with
+# resident weights, at least TC_MIN_RING stages of pixels beside them
+TC_SMEM = 232448
+TC_SMEM_SPARE = 2048
+TC_MIN_RING = 4
 # |sum| <= 128**2 * K must stay below 2**31 (int8 spans -128..127)
 MAX_K = (2 ** 31 - 1) // 128 ** 2
 # the band routes (CUDA cores): the most input channels of the dense one,
@@ -108,9 +118,9 @@ conv_s8.route_launches = dict.fromkeys(("mma", "dp4a", "dw"), 0)
 def conv_route(c: int, groups: int = 1) -> str:
     """The kernel a CUDA tensor of ``c`` input channels runs: ``"dw"``
     (CUDA cores, 9 taps a channel) where ``groups`` > 1 (= C, depthwise),
-    else ``"mma"`` (s8 ``mma.sync`` tensor cores) from MMA_MIN_C channels
-    on, else ``"dp4a"`` (CUDA cores; at most DP4A_MAX_C channels: the
-    stems' 3 and 8-channel inputs; 9 to 15 are refused)."""
+    else ``"mma"`` (s8 ``wgmma`` warpgroup tensor cores fed by TMA) from
+    MMA_MIN_C channels on, else ``"dp4a"`` (CUDA cores; at most DP4A_MAX_C
+    channels: the stems' 3 and 8-channel inputs; 9 to 15 are refused)."""
     if groups > 1:
         return "dw"
     return "mma" if c >= MMA_MIN_C else "dp4a"
@@ -118,48 +128,121 @@ def conv_route(c: int, groups: int = 1) -> str:
 
 class ConvPlan(NamedTuple):
     """The launch the kernel takes. ``bn = 0`` (``_NO_PLAN``): the dp4a
-    or (``groups`` > 1) the depthwise route. Else the tensor-core route: a grid of (n_tiles * m_tiles, splits)
-    CTAs, each ``CONV_BM`` pixels x ``bn`` output channels over
-    ``per_split`` of the ``stages`` stages of K (the last split may take
-    fewer); the splits of a tile are one cluster."""
+    or (``groups`` > 1) the depthwise route. Else the tensor-core route:
+    tiles of ``CONV_BM`` pixels x ``bn`` output channels, ``m_tiles`` x
+    ``n_tiles`` of them, over the ``stages`` stages of K, split into
+    ``splits`` clusters' shares (split y takes stages stages*y/splits ..
+    stages*(y+1)/splits - 1, at most ``per_split``); a grid of (``ctas``,
+    ``splits``) CTAs: with splits one a tile, else ``ctas`` persistent
+    CTAs that walk the tiles; ``resident``: each CTA loads the weights
+    once and keeps them in shared memory."""
     bn: int
     m_tiles: int
     n_tiles: int
     stages: int
     splits: int
     per_split: int
+    ctas: int
+    resident: bool
 
 
-_NO_PLAN = ConvPlan(0, 0, 0, 0, 1, 0)    # the CUDA-core routes take none
+_NO_PLAN = ConvPlan(0, 0, 0, 0, 1, 0, 0, False)  # the CUDA-core routes take none
+
+
+def _tile_n(o: int) -> int:
+    """The output channels of a tensor-core tile: ``o`` split into as few
+    tiles of at most MMA_TILES[-1] as hold it, each the least width of
+    MMA_TILES that holds its share (past ``o`` the weights are zeros and
+    the stores skipped)."""
+    n_tiles = -(-o // MMA_TILES[-1])
+    share = -(-o // n_tiles)
+    return next(t for t in MMA_TILES if t >= share)
+
+
+def _cluster_ctas(size: int, sms: int) -> int:
+    """The CTAs that clusters of ``size`` CTAs, one CTA an SM, hold at
+    once on ``sms`` SMs. A cluster lies in one GPC, and GPCs leave SMs
+    over: on an H100 SXM's 132, cudaOccupancyMaxActiveClusters gives 66
+    clusters of 2, 30 of 4 and 15 of 8 tensor-core CTAs (120 of the SMs
+    from 4 on), which this scales to ``sms``."""
+    if size <= 2:
+        return sms // size * size
+    return sms * 10 // 11 // size * size
 
 
 @functools.lru_cache(maxsize=1024)     # a model has a few dozen shapes
 def _conv_plan(n: int, oh: int, ow: int, o: int, k: int, sms: int
                ) -> ConvPlan:
-    """The tile and K split of the tensor-core route for an output of
-    ``n * oh * ow`` pixels x ``o`` channels over ``k`` bytes of K
-    (KS*KS*C) on a card of ``sms`` SMs.
+    """The tile, K split and clusters of the tensor-core route for an
+    output of ``n * oh * ow`` pixels x ``o`` channels over ``k`` bytes of
+    K (KS*KS*C) on a card of ``sms`` SMs.
 
-    Tiles are CONV_BM x 128 where ``o`` is a multiple of 128, else
-    CONV_BM x 64; the last 64-channel tile of an ``o`` that is no multiple
-    of 64 (the detectors' 8, 16 and 32) is partly past ``o``, its weight
-    rows zero-filled and its stores skipped. Where the tiles fill fewer CTAs than the card has SMs
-    (small batches, the 7x7 and 14x14 stages), K splits across CTAs in
-    whole stages: as many splits as make a CTA per SM, at most MAX_SPLITS,
-    of at least MIN_SPLIT_STAGES stages each but the last (so a 1x1 site of
-    one or two stages never splits), the stages shared as evenly as whole
-    stages allow. The splits of a tile form one cluster and sum their
-    partial tiles in distributed shared memory; int32 sums are exact in any
-    order."""
-    bn = 128 if o % 128 == 0 else 64
+    Tiles are CONV_BM x ``_tile_n(o)``. Where they fill fewer CTAs than
+    the card has SMs (small batches, the 7x7 and 14x14 stages), K splits
+    across the CTAs of a cluster in whole stages: the most splits of 8, 4
+    and 2 whose clusters all run at once (``_cluster_ctas``) and whose
+    splits each take at least MIN_SPLIT_STAGES stages (so a 1x1 site of
+    one or two stages never splits); the splits of a tile sum their
+    partial tiles in distributed shared memory, exact in int32. Unsplit,
+    one persistent CTA an SM walks the tiles; where O is one tile and its
+    weights leave room for TC_MIN_RING stages of pixels, each CTA loads
+    them once and keeps them (the large maps' CTAs would else read them
+    from L2 again for every tile)."""
+    bn = _tile_n(o)
     m_tiles = -(-(n * oh * ow) // CONV_BM)
     n_tiles = -(-o // bn)
     stages = -(-k // CONV_BK)
     tiles = m_tiles * n_tiles
-    splits = 1 if tiles >= sms else min(MAX_SPLITS, -(-stages // max(
-        MIN_SPLIT_STAGES, stages * tiles // sms)))
-    per = -(-stages // splits)
-    return ConvPlan(bn, m_tiles, n_tiles, stages, -(-stages // per), per)
+    splits = 1
+    if tiles < sms:
+        splits = next((s for s in (MAX_SPLITS, MAX_SPLITS // 2, 2)
+                       if s * MIN_SPLIT_STAGES <= stages
+                       and tiles * s <= _cluster_ctas(s, sms)), 1)
+    if splits > 1:
+        return ConvPlan(bn, m_tiles, n_tiles, stages, splits,
+                        -(-stages // splits), tiles, False)
+    resident = (n_tiles == 1 and stages * bn * CONV_BK
+                <= TC_SMEM - TC_SMEM_SPARE - TC_MIN_RING * CONV_BM * CONV_BK)
+    return ConvPlan(bn, m_tiles, n_tiles, stages, 1, stages,
+                    min(tiles, sms), resident)
+
+
+class Im2colBox(NamedTuple):
+    """How the tensor-core route reads x (N, H, W, C): im2col loads of a
+    tensor map whose bounding box holds the first (top-left) tap of every
+    output pixel, from ``lower`` (w, h) to (W - 1, H - 1) + ``upper``,
+    traversed at ``stride`` in both; a load brings ``pixels`` pixels (a
+    tile's, in output order across rows and images, zeros past the last
+    image) of ``channels`` bytes of one tap, the tap added as the load's
+    offset (zeros off the image); ``loads`` loads fill a stage of CONV_BK
+    bytes of K."""
+    lower: tuple
+    upper: tuple
+    stride: int
+    pixels: int
+    channels: int
+    loads: int
+
+
+@functools.lru_cache(maxsize=1024)
+def _im2col_box(c: int, ks: int, stride: int, pad: int) -> Im2colBox:
+    """The im2col box of a ``ks`` x ``ks`` conv of ``c`` input channels
+    (a power of two >= MMA_MIN_C) at ``stride`` and ``pad``: the first
+    taps run from -pad to W + pad - ks, so the upper corner is pad -
+    (ks - 1); a load takes a tile's CONV_BM pixels, min(c, CONV_BK)
+    channels of a tap each."""
+    channels = min(c, CONV_BK)
+    return Im2colBox((-pad, -pad), (pad - (ks - 1), pad - (ks - 1)), stride,
+                     CONV_BM, channels, CONV_BK // channels)
+
+
+@functools.lru_cache(maxsize=1024)
+def _box_arg(c: int, ks: int, stride: int, pad: int):
+    """``_im2col_box`` as the 7 ints the C entry point takes: lower w, h,
+    upper w, h, traversal stride, pixels, channels."""
+    b = _im2col_box(c, ks, stride, pad)
+    return (ctypes.c_int * 7)(*b.lower, *b.upper, b.stride, b.pixels,
+                              b.channels)
 
 
 def _launch_plan(n: int, oh: int, ow: int, o: int, c: int, ks: int,
@@ -187,8 +270,6 @@ class BandPlan(NamedTuple):
     ctas: int
     smem: int
 
-
-_NO_BAND = BandPlan(0, 0, 0, 0, 0, 0)   # the tensor-core route takes none
 
 
 def _align16(v: int) -> int:
@@ -271,16 +352,28 @@ def _library():
     """The kernel's library, built at first use: the conv's C entry point
     (``facekit_conv_s8``), the shared memory of a band CTA
     (``facekit_conv_s8_band_smem``, held to ``_band_smem`` by the tests on
-    the card) and an empty launch (``facekit_launch_floor``)."""
+    the card), the clusters of tensor-core CTAs the card runs at once
+    (``facekit_conv_s8_max_clusters``, held to ``_cluster_ctas`` there)
+    and an empty launch (``facekit_launch_floor``)."""
     from facekit_torch.ops import _build
     lib = _build.load("conv_s8")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name, args in (("facekit_conv_s8", [p, p, p] + [i] * 17 + [p]),
+    for name, args in (("facekit_conv_s8", [p, p, p] + [i] * 17 + [p, p]),
                        ("facekit_conv_s8_band_smem", [i] * 7),
+                       ("facekit_conv_s8_max_clusters", [i]),
                        ("facekit_launch_floor", [p])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
     return lib
+
+
+def max_clusters(size: int) -> int:
+    """The clusters of ``size`` tensor-core CTAs (K split along y) that the
+    current CUDA device runs at once (cudaOccupancyMaxActiveClusters)."""
+    n = _library().facekit_conv_s8_max_clusters(size)
+    if n < 0:
+        raise RuntimeError(f"max_clusters: CUDA error {-n}")
+    return n
 
 
 def launch_floor() -> None:
@@ -324,7 +417,30 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
                          f"multiple of {O_MULTIPLE}")
 
 
-def _conv_s8_cuda(x, w, stride, padding, groups=1):
+def _plan_args(plan, n, h, wd, c, o, ks, stride, pad, groups, sms):
+    """The C entry point's plan arguments under ``plan``: bn, splits,
+    resident, rows, ch, ctas and the im2col box (``_box_arg``; None on the
+    band routes, whose rows, ch and ctas ``_band_plan`` gives)."""
+    if plan.bn:
+        return (plan.bn, plan.splits, int(plan.resident), 0, 0, plan.ctas,
+                _box_arg(c, ks, stride, pad))
+    band = _band_plan(n, h, wd, c, o, ks, stride, pad, groups, sms)
+    return (0, 1, 0, band.rows, band.ch, band.ctas, None)
+
+
+@functools.lru_cache(maxsize=1024)     # a model has a few dozen shapes
+def _call_args(n, h, wd, c, o, ks, stride, pad, groups, sms):
+    """``_plan_args`` of ``_launch_plan``'s plan: what a call of this
+    shape passes, looked up once."""
+    oh = (h + 2 * pad - ks) // stride + 1
+    ow = (wd + 2 * pad - ks) // stride + 1
+    return _plan_args(_launch_plan(n, oh, ow, o, c, ks, sms, groups), n, h,
+                      wd, c, o, ks, stride, pad, groups, sms)
+
+
+def _conv_s8_cuda(x, w, stride, padding, groups=1, plan=None):
+    """The kernel's launch on CUDA tensors, with ``_launch_plan``'s plan
+    or (a test's) ``plan``."""
     _check(x, w, stride, padding, groups)
     c = x.shape[3]
     if groups == 1 and c > DP4A_MAX_C and (c < MMA_MIN_C or c & (c - 1)):
@@ -345,16 +461,15 @@ def _conv_s8_cuda(x, w, stride, padding, groups=1):
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv_s8: x and w must be 16-byte aligned")
     sms = _sms(x.device.index)
-    plan = _launch_plan(n, oh, ow, o, c, ks, sms, groups)
-    band = _NO_BAND if plan.bn else _band_plan(n, h, wd, c, o, ks, stride,
-                                               padding, groups, sms)
+    args = (_call_args(n, h, wd, c, o, ks, stride, padding, groups, sms)
+            if plan is None else _plan_args(plan, n, h, wd, c, o, ks, stride,
+                                            padding, groups, sms))
     out = torch.empty((n, oh, ow, o), dtype=torch.int32, device=x.device)
     fn = _library().facekit_conv_s8
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, o,
-                 ks, stride, padding, oh, ow, groups, plan.bn, plan.splits,
-                 plan.per_split, band.rows, band.ch, band.ctas, stream)
+                 ks, stride, padding, oh, ow, groups, *args, stream)
     if err != 0:
         raise RuntimeError(f"conv_s8: kernel launch failed with CUDA error "
                            f"{err}")

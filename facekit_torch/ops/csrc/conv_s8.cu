@@ -25,39 +25,71 @@
 // depthwise band kernel; else the plan names the route (bn = 0: the dense
 // band kernel on __dp4a).
 //
-// C >= 16: an implicit GEMM on s8 tensor cores (conv_s8_mma_kernel).
-//  * M = N*OH*OW output pixels, N_gemm = O, K = KS*KS*C in the weight's
-//    order (kh, kw, c), so a 16-byte run of K is 16 input channels of one
-//    tap, contiguous in NHWC. No im2col buffer: each CTA gathers its patch
-//    rows straight from x.
-//  * A CTA computes 128 pixels x BN channels (BN = 128 where O allows it,
-//    else 64) with 8 warps; K goes in stages of 128 bytes. An O that is no
-//    multiple of 64 (the detectors' 8, 16 and 32; any multiple of 8) ends
-//    in a tile partly past O: its weight rows past O zero-fill like the K
-//    tail, and the epilogue skips their 16-byte runs. Each thread
-//    copies 16-byte runs of A (patch rows) and B (weight rows, K-contiguous:
-//    the .col operand) with cp.async.cg into a ring of MST stages; rows are
-//    padded by 16 bytes so that ldmatrix's eight row addresses fall in
-//    distinct banks. Out-of-image taps, pixels past M and K past its end
-//    copy 0 bytes of the source and zero-fill (cp.async's src-size).
-//  * Each warp holds a (128 / WARPS_M) x 32 tile of s32 accumulators and,
-//    per 32-byte K step, loads A and B with ldmatrix.x4 into mma.sync
-//    m16n8k32 (mma_s8 in mma_bf16.cuh: the operand layout of the search's
-//    tensor-core pass 1, topk_mma.cuh).
-//  * The grid is (tiles, splits), the O / BN tiles of one run of pixels
-//    next to each other in blockIdx.x, so that they read its patch rows
-//    from L2 together.
-//  * Split-K: where the tiles give fewer CTAs than the card has SMs (small
-//    batches, late stages), blockIdx.y takes a run of whole stages and the
-//    splits of one tile run as one thread-block cluster (at most 8 CTAs,
-//    the portable size). Each CTA leaves its partial tile in its shared
-//    memory; after a cluster barrier each sums a share of the tile's rows
-//    over every CTA's tile through distributed shared memory and writes
-//    them out. No atomics, no zeroed output, no second launch; int32 sums
-//    are exact, so the result is bit-equal to a single pass.
-//  * Epilogue: the accumulator tile goes through shared memory (the ring,
-//    reused), so that each thread writes 16 bytes of one pixel's channels
-//    and a warp whole runs of a pixel row.
+// C >= 16: an implicit GEMM on warpgroup tensor cores (conv_s8_wgmma_kernel
+// <BN>). M = N*OH*OW output pixels, N_gemm = O, K = KS*KS*C in the weight's
+// order (kh, kw, c), so a run of K is channels of one tap, contiguous in
+// NHWC. What held back the mma.sync kernel it replaced (at 24x / 9x / 3.6x
+// its bound per int8 IR-50 forward at batch 1 / 8 / 64), and what this one
+// does about it:
+//  * Every thread computed tap addresses and issued 2-4 cp.async gathers a
+//    stage, then a __syncthreads, and each warp reloaded its operands into
+//    registers with ldmatrix for every 32 bytes of K. Here one producer
+//    warp keeps a ring of stages (128 pixels x 128 bytes of K, and BN
+//    output channels x the same K) full by TMA, on a full and an empty
+//    mbarrier a slot; the K loop has no barrier of the CTA. A stage of
+//    pixels is one im2col load of x's tensor map (or 128 / C of them for C
+//    < 128, one a tap), whose bounding box is the first taps of the output
+//    pixels: lower corner -pad, upper corner pad - (KS - 1), traversed at
+//    the conv's stride, the tap added as the load's offset. So the
+//    hardware gathers the patch rows, taps off the image and pixels past
+//    the last image arrive as zeros, and no address is computed a pixel.
+//    The 1x1 stride-2 shortcuts are such a map too (corners 0). The
+//    wrapper computes the box (`_im2col_box`) and passes it here. The
+//    weights come through a tiled map of (O, K), 128 bytes of K a box,
+//    zeros past O and past K.
+//  * Two consumer warpgroups, 64 pixels each, issue wgmma.mma_async
+//    m64nBNk32 s8 -> s32 with both operands read from shared memory
+//    through descriptors (the loads' swizzle: 128 bytes for C >= 128, 64 or
+//    32 at C = 64 or 32, none at C = 16, where a k32 step's two 16-byte
+//    halves are two loads apart), four a stage, one stage of them left in
+//    flight while the next stage's barrier is awaited. A stage's slot is
+//    freed by one arrive a warp once its wgmma are done.
+//  * A detector site with O = 8, 16 or 32 ran a 64-wide tile, mostly zero.
+//    BN is O's own width where O <= 128 (8, 16, 24, 32, 48, 64, 96 or 128:
+//    the s8 wgmma widths instantiated here, the least that holds O), else
+//    O split as evenly into tiles of at most 128 (`_conv_plan`).
+//  * The sums go out from registers: each thread stores two int32 of a
+//    pixel at a time, four neighbouring lanes 32 contiguous bytes. Where
+//    the tiles fill the card, a CTA is persistent (one an SM: 227 KB of
+//    shared memory holds a ring of up to 8 stages) and walks tiles
+//    blockIdx.x, += gridDim.x, the n tiles of a run of pixels next to each
+//    other so that they read its patch rows from L2 together; the producer
+//    runs on into the next tile's stages while the consumers store.
+//  * Where O is one tile and its weights leave room for 4 stages of pixels
+//    (every IR-50 site of O <= 128 but none of O >= 256), each CTA loads
+//    them once, on a barrier of their own, and the ring carries pixels
+//    alone: the large maps' CTAs read them from L2 again for every tile
+//    otherwise (a third of the 112x112 site's L2 reads at batch 64).
+//    What is left is the im2col itself: a 3x3 site reads each input row
+//    through L2 once a tap, and at batch 64 the sites move 4-5 TB/s
+//    between L2 and the SMs. (Tried and slower: multicasting the operand
+//    two or four CTAs share, pixels or weights, over a cluster, whose
+//    CTAs then wait for each other's consumers every stage; 256-wide
+//    tiles, which spill at the 168 registers a thread of 288 gets; the
+//    output stored evict-first.)
+//  * Split K, where the tiles fill fewer CTAs than the card has SMs (small
+//    batches, the 14x14 and 7x7 stages): blockIdx.y takes stages
+//    stages*y/splits .. stages*(y+1)/splits - 1, and the splits of a tile
+//    run as one thread-block cluster (2, 4 or 8 CTAs: a GPC's 16 SMs hold
+//    whole clusters of them). Each CTA leaves its partial tile in its
+//    shared memory (the ring, consumed); after a cluster barrier each sums
+//    a share of the tile's rows over every CTA's tile through distributed
+//    shared memory and writes them out in 16-byte runs. No atomics, no
+//    zeroed output, no second launch; int32 sums are exact, so the result
+//    is bit-equal to a single pass.
+//  * The weights' map and x's map are kept in a host cache by pointer and
+//    shape (a map encodes only those), so a served forward, whose buffers
+//    recur, encodes a map only on a miss.
 //
 // The two CUDA-core routes (C <= 8, and depthwise) work in row bands. In
 // NHWC, R whole output rows of one image are one contiguous run of out
@@ -103,220 +135,289 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
+#include <map>
+#include <mutex>
+
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int THREADS = 256;
+constexpr int SMEM_MAX = 232448;    // the dynamic shared memory a CTA may take
+
+// Sets a kernel's dynamic shared-memory limit to SMEM_MAX once per device.
+template <typename Kernel>
+int allow_smem(Kernel kernel, bool (&set)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) set[dev] = true;
+  }
+  return 0;
+}
 
 // ---------------------------------------------------------------------------
 // the tensor-core route (C >= 16)
 
-constexpr int BM = 128;             // output pixels per CTA
-constexpr int BK = 128;             // bytes of K per stage
-constexpr int ROWB = BK + 16;       // shared row stride in bytes
-constexpr int MAX_SPLITS = 8;       // CTAs of a cluster (the portable most)
+constexpr int TC_BM = 128;                        // output pixels a tile
+constexpr int TC_BK = 128;                        // bytes of K a stage
+constexpr int TC_CONSUMER_WARPS = 8;              // two warpgroups, 64 pixels each
+constexpr int TC_CONSUMERS = 32 * TC_CONSUMER_WARPS;
+constexpr int TC_THREADS = TC_CONSUMERS + 32;     // and the producer warp
+constexpr int TC_A_BYTES = TC_BM * TC_BK;         // a stage's pixels
+constexpr int MAX_SPLITS = 8;                     // CTAs of a cluster (the portable most)
+constexpr int TC_MIN_NST = 4;                     // stages of pixels beside resident weights
 
+// A CTA's shared memory at tile width BN, 1024-aligned (the 128-byte
+// swizzle's span of 8 rows): a ring of `nst` stages, each 128 pixels x 128
+// bytes of K and, unless the weights are resident, BN output channels x
+// the same K (128-byte rows); then, with resident weights, all the CTA's
+// weight stages; then a full and an empty mbarrier a slot and the
+// weights' barrier. A split's partial tile (CSTR words a pixel, padded so
+// that the stores of 8 pixels spread over the banks) reuses the ring.
 template <int BN>
-struct MmaConv {
-  static constexpr int MST = BN == 128 ? 3 : 4;      // stages in the ring
-  static constexpr int A_BYTES = BM * ROWB;
-  static constexpr int STAGE = (BM + BN) * ROWB;
-  static constexpr int WARPS_N = BN / 32;            // 4 or 2
-  static constexpr int WARPS_M = 8 / WARPS_N;        // 2 or 4
-  static constexpr int MT = BM / WARPS_M / 16;       // m16 tiles a warp: 4 or 2
-  static constexpr int CSTR = BN + 8;                // epilogue row, in words
-  static constexpr int SMEM = MST * STAGE > BM * CSTR * 4 ? MST * STAGE
-                                                          : BM * CSTR * 4;
+struct TcConv {
+  static constexpr int B_BYTES = BN * TC_BK;
+  static constexpr int STAGE = TC_A_BYTES + B_BYTES;
+  static constexpr int MAX_NST = 8;
+  static constexpr int CSTR = BN + 8;
+  // the ring of stages that fit beside `resident` bytes of weights
+  __host__ __device__ static constexpr int nst(int resident) {
+    return (SMEM_MAX - 2048 - resident) / (resident ? TC_A_BYTES : STAGE) < MAX_NST
+               ? (SMEM_MAX - 2048 - resident) / (resident ? TC_A_BYTES : STAGE)
+               : MAX_NST;
+  }
+  __host__ __device__ static constexpr int smem(int resident) {
+    return 1024 + nst(resident) * (resident ? TC_A_BYTES : STAGE) + resident +
+           16 * MAX_NST + 16;
+  }
+  static_assert(TC_BM * CSTR * 4 <= nst(0) * STAGE, "a partial tile fits in the ring");
+  static_assert(smem(0) <= SMEM_MAX, "a CTA fits in shared memory");
 };
 
-template <int KS, int BN>
-__global__ void __launch_bounds__(THREADS, 2)
-conv_s8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   int32_t* __restrict__ out, int H, int W, int lc, int O,
-                   int OH, int OW, int stride, int pad, int M, int per_split) {
-  using P = MmaConv<BN>;
-  constexpr int MST = P::MST, MT = P::MT, CSTR = P::CSTR;
-  extern __shared__ __align__(16) unsigned char smem[];
+// The launch's shape: the GEMM (M pixels, O channels, K = KS*KS*C bytes),
+// the conv (output size, stride, padding, kernel size, log2 of C), the
+// bytes of an im2col load (cb = min(C, TC_BK)), the stages of K, the tiles
+// (n_tiles along O for each run of TC_BM pixels) and whether the weights
+// are resident (their bytes, else 0).
+struct TcArgs {
+  int M, O, K, OH, OW, stride, pad, KS, lc, cb, stages, n_tiles, tiles, resident;
+};
 
-  const int K = KS * KS << lc;
-  const int n_tiles = (O + BN - 1) / BN;   // the n tiles of an m tile run
-                                           // together
-  const int n0 = (blockIdx.x % n_tiles) * BN;
-  const int m0 = (blockIdx.x / n_tiles) * BM;
-  const int kst = (K + BK - 1) / BK;
-  const int s0 = blockIdx.y * per_split;
-  const int nst = min(kst, s0 + per_split) - s0;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // loading role: the 16-byte column ld_col of rows ld_row + 32u of A
-  // (pixels) and B (output channels)
-  const int ld_row = tid >> 3, ld_col = (tid & 7) * 16;
-  constexpr int AU = BM / 32, BU = BN / 32;
-  int a_pix[AU], a_ih[AU], a_iw[AU];   // image's first pixel, top-left tap
-#pragma unroll
-  for (int u = 0; u < AU; ++u) {
-    const int m = m0 + ld_row + 32 * u;
-    a_pix[u] = 0;
-    a_ih[u] = -(1 << 30);                 // past M: every tap out of image
-    a_iw[u] = 0;
-    if (m < M) {
-      const int img = m / (OH * OW);
-      const int r = m - img * (OH * OW);
-      const int oh = r / OW;
-      a_pix[u] = img * H * W;
-      a_ih[u] = oh * stride - pad;
-      a_iw[u] = (r - oh * OW) * stride - pad;
-    }
-  }
-  const uint32_t smem_s = smem_u32(smem);
-  auto load_stage = [&](int s, int buf) {
-    const int kb = s * BK + ld_col;
-    const bool k_ok = kb < K;
-    const int tap = kb >> lc;
-    const int kh = tap / KS, kw = tap - (tap / KS) * KS;
-    const int c = kb & ((1 << lc) - 1);
-    const uint32_t dst = smem_s + buf * P::STAGE + ld_row * ROWB + ld_col;
-#pragma unroll
-    for (int u = 0; u < AU; ++u) {
-      const int ih = a_ih[u] + kh, iw = a_iw[u] + kw;
-      const bool ok = k_ok && (unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W;
-      const int8_t* src = ok ? x + ((size_t)(a_pix[u] + ih * W + iw) << lc) + c : x;
-      cp_async16_zfill(dst + u * 32 * ROWB, src, ok);
-    }
-#pragma unroll
-    for (int u = 0; u < BU; ++u) {
-      const int n = n0 + ld_row + 32 * u;   // rows past O: zero-fill
-      const bool ok = k_ok && n < O;
-      const int8_t* src = ok ? w + (size_t)n * K + kb : w;
-      cp_async16_zfill(dst + P::A_BYTES + u * 32 * ROWB, src, ok);
-    }
-  };
-
-  // warp tile: pixels wm*16*MT .. +16*MT-1, channels wn*32 .. +31
-  const int wm = warp / P::WARPS_N, wn = warp % P::WARPS_N;
-  uint32_t a_lane[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    a_lane[i] = smem_s + (wm * 16 * MT + i * 16 + (lane & 15)) * ROWB + (lane >> 4) * 16;
-  // B: lanes 0-7 / 8-15 / 16-23 / 24-31 address n-tile 0 bytes 0-15 /
-  // n-tile 0 bytes 16-31 / n-tile 1 bytes 0-15 / n-tile 1 bytes 16-31 of a
-  // 32-byte K step of a pair of n8 tiles
-  const uint32_t b_lane = smem_s + P::A_BYTES +
-      (wn * 32 + (lane & 7) + (lane >> 4) * 8) * ROWB + ((lane >> 3) & 1) * 16;
-
-  int acc[MT][4][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-#pragma unroll
-  for (int s = 0; s < MST - 1; ++s) {
-    if (s < nst) load_stage(s0 + s, s);
-    cp_async_commit();
-  }
-  int buf = 0, ld_buf = MST - 1;
-  for (int s = 0; s < nst; ++s) {
-    cp_async_wait<MST - 2>();          // stage s has landed
-    __syncthreads();                   // ... for every thread, and stage
-                                       // s-1 is consumed
-    if (s + MST - 1 < nst) load_stage(s0 + s + MST - 1, ld_buf);
-    cp_async_commit();
-    if (++ld_buf == MST) ld_buf = 0;
-
-    const uint32_t st = buf * P::STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t b[4][2], r[4];
-      ldmatrix_x4(r, b_lane + st + kk * 32);
-      b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
-      ldmatrix_x4(r, b_lane + st + 16 * ROWB + kk * 32);
-      b[2][0] = r[0]; b[2][1] = r[1]; b[3][0] = r[2]; b[3][1] = r[3];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        uint32_t a[4];
-        ldmatrix_x4(a, a_lane[i] + st + kk * 32);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a, b[j][0], b[j][1]);
-      }
-    }
-    if (++buf == MST) buf = 0;
-  }
-  cp_async_wait<0>();
-  __syncthreads();                     // the ring is free for the epilogue
-
-  // lane l holds pixels l/4 and l/4 + 8, channels 2(l%4) and 2(l%4)+1 of
-  // each (m16, n8) tile: to a BM x BN int32 tile in shared memory
-  int* cs = reinterpret_cast<int*>(smem);
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int row = wm * 16 * MT + i * 16 + (lane >> 2);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = wn * 32 + j * 8 + (lane & 3) * 2;
-      *reinterpret_cast<int2*>(cs + row * CSTR + col) = make_int2(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<int2*>(cs + (row + 8) * CSTR + col) = make_int2(acc[i][j][2], acc[i][j][3]);
-    }
-  }
-  __syncthreads();
-  // each thread writes 16 bytes of one pixel; BN/4 threads cover a pixel
-  constexpr int TPR = BN / 4, RPP = THREADS / TPR;
-  const int er = tid / TPR, ec = (tid % TPR) * 4;
-  const bool col_ok = n0 + ec < O;     // O % 4 == 0: a run is in or out
-  if (gridDim.y == 1) {
-    if (!col_ok) return;
-    for (int r = er; r < BM && m0 + r < M; r += RPP)
-      *reinterpret_cast<int4*>(out + (size_t)(m0 + r) * O + n0 + ec) =
-          *reinterpret_cast<const int4*>(cs + r * CSTR + ec);
-    return;
-  }
-  // split K: the gridDim.y CTAs of this tile are one cluster; CTA `rank`
-  // sums the row groups rank, rank + splits, ... over every CTA's tile
-  cg::cluster_group cluster = cg::this_cluster();
-  const int splits = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  cluster.sync();                      // every partial tile is in place
-  for (int g = rank; g * RPP < BM; g += splits) {
-    const int r = g * RPP + er;
-    if (m0 + r >= M || !col_ok) break;
-    int4 v = make_int4(0, 0, 0, 0);
-    for (int q = 0; q < splits; ++q) {
-      const int4 p = *reinterpret_cast<const int4*>(
-          cluster.map_shared_rank(cs + r * CSTR + ec, q));
-      v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
-    }
-    *reinterpret_cast<int4*>(out + (size_t)(m0 + r) * O + n0 + ec) = v;
-  }
-  cluster.sync();                      // no CTA leaves while its tile is read
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
 }
 
-// Returns the CUDA error of setting the shared-memory size or of the
-// launch, as an int.
-template <int KS, int BN>
-int launch_mma(cudaStream_t s, const void* x, const void* w, void* out, int H,
-               int W, int lc, int O, int OH, int OW, int stride, int pad, int M,
-               int splits, int per_split) {
-  constexpr int smem = MmaConv<BN>::SMEM;
-  auto kernel = conv_s8_mma_kernel<KS, BN>;
-  // the shared-memory size, set once per instantiation and device rather
-  // than on every launch
-  static bool smem_set[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64 || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 64) smem_set[dev] = true;
+// a ring position: slot and the parity of its current phase
+struct RingPos {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int n) {
+    if (++slot == n) {
+      slot = 0;
+      phase ^= 1;
+    }
   }
+};
+
+// Grid (ctas, splits), TC_THREADS threads: warps 0-7 two consumer
+// warpgroups (pixels 64*wg .. +63 of a tile), warp 8 the producer. With
+// splits > 1 the grid's y is one cluster and each CTA takes one tile;
+// else each CTA walks tiles blockIdx.x, += gridDim.x. With resident
+// weights (one n tile, splits = 1) the producer loads every weight stage
+// once, on the weights' barrier, and the ring carries pixels alone.
+template <int BN>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+conv_s8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap, int32_t* __restrict__ out,
+                     const TcArgs a) {
+  using P = TcConv<BN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nst = P::nst(a.resident);
+  const uint32_t stage = a.resident ? TC_A_BYTES : P::STAGE;
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t wres = ring + (uint32_t)nst * stage;        // resident weights
+  const uint32_t full = wres + (uint32_t)a.resident, empty = full + 8 * P::MAX_NST;
+  const uint32_t wfull = empty + 8 * P::MAX_NST;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int splits = static_cast<int>(gridDim.y);
+  // this CTA's stages of K, shared as evenly as whole stages allow
+  const int s0 = a.stages * static_cast<int>(blockIdx.y) / splits;
+  const int s1 = a.stages * static_cast<int>(blockIdx.y + 1) / splits;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nst; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, TC_CONSUMER_WARPS);
+    }
+    mbar_init(wfull, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == TC_CONSUMER_WARPS) {
+    // the producer: the stages of the CTA's walk go round the ring, each
+    // into its slot once both warpgroups have freed it
+    if (lane == 0) {
+      prefetch_tensormap(&xmap);
+      prefetch_tensormap(&wmap);
+      if (a.resident) {
+        mbar_expect_tx(wfull, (uint32_t)a.resident);
+        for (int s = 0; s < a.stages; ++s)
+          tma_load_2d(wres + (uint32_t)(s * P::B_BYTES), &wmap, s * TC_BK, 0, wfull);
+      }
+      const int per_img = a.OH * a.OW;
+      RingPos pos;
+      int it = 0;
+      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+        const int mt = t / a.n_tiles, n0 = (t - mt * a.n_tiles) * BN;
+        // the tile's first pixel (image, output row, column) and its
+        // top-left tap in x, which may lie in the padding
+        const int m0 = mt * TC_BM;
+        const int img = m0 / per_img, r = m0 - img * per_img;
+        const int oh = r / a.OW;
+        const int h0 = oh * a.stride - a.pad, w0 = (r - oh * a.OW) * a.stride - a.pad;
+        for (int s = s0; s < s1; ++s, ++it, pos.next(nst)) {
+          if (it >= nst) mbar_wait(empty + 8 * pos.slot, pos.phase ^ 1);
+          const uint32_t st = ring + (uint32_t)pos.slot * stage, bar = full + 8 * pos.slot;
+          // K bytes kb .. kb+127: one load of 128 channels of a tap, or
+          // one load a tap of C < 128 channels, up to K's end (the
+          // weights past it are zeros)
+          const int kb = s * TC_BK;
+          const int loads = min(TC_BK, a.K - kb) / a.cb;
+          mbar_expect_tx(bar, (uint32_t)(loads * TC_BM * a.cb) +
+                                  (a.resident ? 0u : (uint32_t)P::B_BYTES));
+          for (int j = 0; j < loads; ++j) {
+            const int k = kb + j * a.cb, tap = k >> a.lc, kh = tap / a.KS;
+            tma_load_im2col(st + (uint32_t)(j * TC_BM * a.cb), &xmap, k & ((1 << a.lc) - 1),
+                            w0, h0, img, (uint16_t)(tap - kh * a.KS), (uint16_t)kh, bar);
+          }
+          if (!a.resident) tma_load_2d(st + TC_A_BYTES, &wmap, kb, n0, bar);
+        }
+      }
+    }
+    __syncwarp();
+    if (splits > 1) {             // the two cluster barriers of the split sum
+      cluster_arrive();
+      cluster_wait();
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wi = warp & 3;
+  // A's descriptors: rows of cb bytes in the swizzle of that span (layout
+  // 1, 2, 3 for 128, 64, 32 bytes; 0, none, at 16, where a k32 step's two
+  // 16-byte halves are two loads apart); k32 step kk at load kk*32 / cb,
+  // byte kk*32 % cb of its rows; this warpgroup's 64 rows from row 64*wg
+  const uint32_t box = (uint32_t)(TC_BM * a.cb);
+  const uint32_t a_layout = a.cb == 128 ? 1 : a.cb == 64 ? 2 : a.cb == 32 ? 3 : 0;
+  const uint32_t a_lbo = a.cb == 16 ? box : 16, a_sbo = 8 * (uint32_t)a.cb;
+  uint32_t a_off[TC_BK / 32];
+#pragma unroll
+  for (int kk = 0; kk < TC_BK / 32; ++kk)
+    a_off[kk] = (uint32_t)(32 * kk / a.cb) * box + (uint32_t)(32 * kk % a.cb) +
+                (uint32_t)(wg * 64 * a.cb);
+  if (a.resident) mbar_wait(wfull, 0);
+  int acc[BN / 2];
+  RingPos pos, prev;
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    const int mt = t / a.n_tiles, n0 = (t - mt * a.n_tiles) * BN;
+    const int m0 = mt * TC_BM;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    fence_acc(acc);
+    for (int s = s0; s < s1; ++s) {
+      const uint32_t st = ring + (uint32_t)pos.slot * stage;
+      const uint32_t b_st = a.resident ? wres + (uint32_t)(s * P::B_BYTES) : st + TC_A_BYTES;
+      mbar_wait(full + 8 * pos.slot, pos.phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 32; ++kk)
+        wgmma_s8<BN>(acc, smem_desc(st + a_off[kk], a_lbo, a_sbo, a_layout),
+                     smem_desc(b_st + 32 * kk, 16, 1024, 1));
+      wgmma_commit();
+      wgmma_wait<1>();                 // the stage before is read
+      if (s > s0 && lane == 0) mbar_arrive(empty + 8 * prev.slot);
+      prev = pos;
+      pos.next(nst);
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * prev.slot);
+    fence_acc(acc);
+
+    // lane l holds pixels 16*wi + l/4 (+8) of the warpgroup's 64, channels
+    // 8j + 2(l%4) and the next of each n8 block j
+    const int lr = wg * 64 + wi * 16 + (lane >> 2), lc2 = 2 * (lane & 3);
+    if (splits == 1) {
+      const int m = m0 + lr;
+      int32_t* o = out + (size_t)m * a.O + n0 + lc2;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        if (n0 + 8 * j < a.O) {        // O % 8 == 0: a block is in or out
+          if (m < a.M) *reinterpret_cast<int2*>(o + 8 * j) = make_int2(acc[4 * j], acc[4 * j + 1]);
+          if (m + 8 < a.M)
+            *reinterpret_cast<int2*>(o + 8 * (size_t)a.O + 8 * j) =
+                make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+      continue;
+    }
+    // split K: this CTA's partial tile into the ring, whose stages every
+    // wgmma of both warpgroups has read; then CTA `rank` of the cluster
+    // sums the row groups rank, rank + splits, ... over every CTA's tile,
+    // its loads of the splits' partial tiles in flight together
+    consumers_sync();
+    int* cs = reinterpret_cast<int*>(smem + (ring - raw));
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      *reinterpret_cast<int2*>(cs + lr * P::CSTR + 8 * j + lc2) = make_int2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<int2*>(cs + (lr + 8) * P::CSTR + 8 * j + lc2) =
+          make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+    cluster.sync();                    // every partial tile is in place
+    constexpr int TPR = BN / 4;        // threads a pixel: 16 bytes each
+    constexpr int RPP = TC_CONSUMERS / TPR;
+    const int er = threadIdx.x / TPR, ec = (threadIdx.x % TPR) * 4;
+    if (er < RPP && n0 + ec < a.O) {
+      for (int g = rank; g * RPP < TC_BM; g += splits) {
+        const int r = g * RPP + er;
+        if (r >= TC_BM || m0 + r >= a.M) break;
+        int4 p[MAX_SPLITS];
+#pragma unroll
+        for (int q = 0; q < MAX_SPLITS; ++q)
+          if (q < splits)
+            p[q] = *reinterpret_cast<const int4*>(
+                cluster.map_shared_rank(cs + r * P::CSTR + ec, q));
+        int4 v = p[0];
+#pragma unroll
+        for (int q = 1; q < MAX_SPLITS; ++q)
+          if (q < splits) {
+            v.x += p[q].x; v.y += p[q].y; v.z += p[q].z; v.w += p[q].w;
+          }
+        *reinterpret_cast<int4*>(out + (size_t)(m0 + r) * a.O + n0 + ec) = v;
+      }
+    }
+    cluster.sync();                    // no CTA leaves while its tile is read
+  }
+}
+
+template <int BN>
+int launch_tc(cudaStream_t s, const CUtensorMap& xmap, const CUtensorMap& wmap, void* out,
+              const TcArgs& a, int ctas, int splits) {
+  static bool set[64] = {};
+  auto kernel = conv_s8_wgmma_kernel<BN>;
+  if (int err = allow_smem(kernel, set)) return err;
   // the splits of a tile are one cluster of (1, splits, 1) CTAs
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
@@ -324,23 +425,114 @@ int launch_mma(cudaStream_t s, const void* x, const void* w, void* out, int H,
   cluster.val.clusterDim.y = splits;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((O + BN - 1) / BN * ((M + BM - 1) / BM), splits);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(ctas, splits);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = TcConv<BN>::smem(a.resident);
   cfg.stream = s;
   cfg.attrs = &cluster;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(out), H, W, lc, O, OH, OW, stride, pad, M,
-      per_split));
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, static_cast<int32_t*>(out), a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The tensor maps, kept across calls: the served paths run the same
+// weights and, from the caching allocator, the same activation buffers
+// again and again, and a map encodes only the pointer, the shape and the
+// box, so a hit on those is the map itself, whatever the tensor now holds.
+// Each cache is cleared when it grows past 4096 entries.
+std::mutex map_mutex;
+std::map<std::array<int64_t, 4>, CUtensorMap> wmap_cache;
+std::map<std::array<int64_t, 12>, CUtensorMap> xmap_cache;
+
+// w (O, K) in boxes of `rows` rows x 128 bytes
+int weight_map(const void* w, int O, int K, int rows, CUtensorMap* map) {
+  const std::array<int64_t, 4> key = {reinterpret_cast<int64_t>(w), O, K, rows};
+  std::lock_guard<std::mutex> lock(map_mutex);
+  const auto hit = wmap_cache.find(key);
+  if (hit != wmap_cache.end()) {
+    *map = hit->second;
+    return 0;
+  }
+  if (int err = encode_s8_2d(map, w, (uint64_t)O, (uint64_t)K, (uint32_t)rows)) return err;
+  if (wmap_cache.size() >= 4096) wmap_cache.clear();
+  wmap_cache.emplace(key, *map);
+  return 0;
+}
+
+// x (N, H, W, C) as im2col loads of box = {lower w, lower h, upper w,
+// upper h, traversal stride, pixels, channels}
+int input_map(const void* x, int N, int H, int W, int C, const int* box, CUtensorMap* map) {
+  const std::array<int64_t, 12> key = {reinterpret_cast<int64_t>(x), N, H, W, C, box[0],
+                                       box[1], box[2], box[3], box[4], box[5], box[6]};
+  std::lock_guard<std::mutex> lock(map_mutex);
+  const auto hit = xmap_cache.find(key);
+  if (hit != xmap_cache.end()) {
+    *map = hit->second;
+    return 0;
+  }
+  const int lower[2] = {box[0], box[1]}, upper[2] = {box[2], box[3]};
+  if (int err = encode_s8_im2col(map, x, (uint64_t)N, (uint64_t)H, (uint64_t)W, (uint64_t)C,
+                                 lower, upper, (uint32_t)box[4], (uint32_t)box[5],
+                                 (uint32_t)box[6]))
+    return err;
+  if (xmap_cache.size() >= 4096) xmap_cache.clear();
+  xmap_cache.emplace(key, *map);
+  return 0;
+}
+
+// The plan, checked: tiles of 128 pixels x bn channels over `ctas` CTAs,
+// K in `splits` shares (a cluster along y, one tile a CTA), the weights
+// resident in shared memory or not (`resident`: one n tile, unsplit, and
+// ring room for at least TC_MIN_NST stages of pixels beside them); box:
+// x's im2col box.
+int launch_tensor_cores(cudaStream_t s, const void* x, const void* w, void* out, int N, int H,
+                        int W, int C, int O, int ks, int stride, int pad, int OH, int OW,
+                        int bn, int splits, int resident, int ctas, const int* box) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (C < 16 || (C & (C - 1)) || splits < 1 || splits > MAX_SPLITS || ctas < 1 ||
+      box == nullptr || box[4] != stride || box[5] != TC_BM ||
+      box[6] != (C < TC_BK ? C : TC_BK))
+    return bad;
+  TcArgs a;
+  a.M = N * OH * OW;
+  a.O = O;
+  a.K = ks * ks * C;
+  a.OH = OH;
+  a.OW = OW;
+  a.stride = stride;
+  a.pad = pad;
+  a.KS = ks;
+  a.lc = __builtin_ctz(static_cast<unsigned>(C));
+  a.cb = box[6];
+  a.stages = (a.K + TC_BK - 1) / TC_BK;
+  a.n_tiles = (O + bn - 1) / bn;
+  a.tiles = (a.M + TC_BM - 1) / TC_BM * a.n_tiles;
+  a.resident = resident ? a.stages * bn * TC_BK : 0;
+  if (splits > a.stages || (splits > 1 && ctas != a.tiles) || ctas > a.tiles ||
+      (resident && (splits > 1 || a.n_tiles > 1 ||
+                    SMEM_MAX - 2048 - a.resident < TC_MIN_NST * TC_A_BYTES)))
+    return bad;
+  CUtensorMap xmap, wmap;
+  if (int err = input_map(x, N, H, W, C, box, &xmap)) return err;
+  if (int err = weight_map(w, O, a.K, bn, &wmap)) return err;
+  switch (bn) {
+    case 8: return launch_tc<8>(s, xmap, wmap, out, a, ctas, splits);
+    case 16: return launch_tc<16>(s, xmap, wmap, out, a, ctas, splits);
+    case 24: return launch_tc<24>(s, xmap, wmap, out, a, ctas, splits);
+    case 32: return launch_tc<32>(s, xmap, wmap, out, a, ctas, splits);
+    case 48: return launch_tc<48>(s, xmap, wmap, out, a, ctas, splits);
+    case 64: return launch_tc<64>(s, xmap, wmap, out, a, ctas, splits);
+    case 96: return launch_tc<96>(s, xmap, wmap, out, a, ctas, splits);
+    case 128: return launch_tc<128>(s, xmap, wmap, out, a, ctas, splits);
+    default: return bad;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // the CUDA-core routes: row bands (C <= 8 dense; depthwise)
 
 constexpr int BAND_THREADS = 256;
-constexpr int SMEM_MAX = 232448;    // the dynamic shared memory a CTA may take
 constexpr int RING = 4;             // input buffers: a band and 3 ahead
 
 __host__ __device__ constexpr int align16(int v) { return (v + 15) & ~15; }
@@ -686,20 +878,6 @@ conv_s8_band_dw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ 
   }
 }
 
-// Sets a kernel's dynamic shared-memory limit to SMEM_MAX once per device.
-template <typename Kernel>
-int allow_smem(Kernel kernel, bool (&set)[64]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64 || !set[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 64) set[dev] = true;
-  }
-  return 0;
-}
-
 template <int KS, int CW, int OT>
 int launch_band_dp4a(cudaStream_t s, const void* x, const void* w, void* out, int N,
                      int H, int W, int cin, int O, int OH, int OW, int stride,
@@ -754,18 +932,22 @@ __global__ void launch_floor_kernel() {}
 // 8; N*OH*OW*O and N*H*W*C below 2**31; K = ks*ks*C / groups small enough
 // that no int32 sum overflows. groups = C (= O, ks = 3, C a multiple of 4)
 // runs the depthwise band kernel. Else the plans are the wrapper's: bn = 0
-// runs the dense band kernel, which takes C <= 8; bn = 128 (O a multiple
-// of 128) or 64 runs the tensor-core kernel, which takes C a power of two
-// >= 16, in `splits` (1..8) runs of `per_split` stages of K covering them
-// all. A band kernel takes bands of `rows` output rows and `ch` output
-// channels (the dense route: 8, 16, 32 or 64; the depthwise one: a
-// multiple of 4 dividing C, at most 4 * BAND_THREADS) over at most `ctas`
-// CTAs along the bands (`_band_plan`).
+// runs the dense band kernel, which takes C <= 8; bn > 0 (a width of
+// TcConv) runs the tensor-core kernel, which takes C a power of two >= 16,
+// in tiles of 128 pixels x bn channels over `ctas` CTAs, K in `splits`
+// (1..8) clusters' shares, the weights `resident` in shared memory or not
+// (launch_tensor_cores), x read through the im2col box `box` (7 ints: the
+// lower corner in w and h, the upper corner in w and h, the traversal
+// stride, the pixels and the channels of a load; `_im2col_box`). A band
+// kernel takes bands of `rows` output rows and `ch` output channels (the
+// dense route: 8, 16, 32 or 64; the depthwise one: a multiple of 4
+// dividing C, at most 4 * BAND_THREADS) over at most `ctas` CTAs along the
+// bands (`_band_plan`).
 extern "C" int facekit_conv_s8(const void* x, const void* w, void* out,
                                int N, int H, int W, int C, int O, int ks,
                                int stride, int pad, int OH, int OW, int groups,
-                               int bn, int splits, int per_split, int rows,
-                               int ch, int ctas, void* stream) {
+                               int bn, int splits, int resident, int rows, int ch,
+                               int ctas, const int* box, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (groups > 1) {
@@ -791,14 +973,8 @@ extern "C" int facekit_conv_s8(const void* x, const void* w, void* out,
     return C <= 4 ? launch_band_dp4a_ot<3, 1>(s, x, w, out, N, H, W, C, O, OH, OW, stride, pad, rows, ch, ctas)
                   : launch_band_dp4a_ot<3, 2>(s, x, w, out, N, H, W, C, O, OH, OW, stride, pad, rows, ch, ctas);
   }
-  if (C < 16 || (C & (C - 1)) || splits < 1 || splits > MAX_SPLITS) return bad;
-  const int log2_c = __builtin_ctz(static_cast<unsigned>(C));
-  const int M = N * OH * OW;
-  if (ks == 1)
-    return bn == 128 ? launch_mma<1, 128>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split)
-                     : launch_mma<1, 64>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split);
-  return bn == 128 ? launch_mma<3, 128>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split)
-                   : launch_mma<3, 64>(s, x, w, out, H, W, log2_c, O, OH, OW, stride, pad, M, splits, per_split);
+  return launch_tensor_cores(s, x, w, out, N, H, W, C, O, ks, stride, pad, OH, OW, bn, splits,
+                             resident, ctas, box);
 }
 
 // The dynamic shared memory (bytes) of a CTA of a band kernel at this
@@ -807,6 +983,30 @@ extern "C" int facekit_conv_s8_band_smem(int groups, int W, int C, int ks,
                                          int stride, int rows, int ch) {
   return groups > 1 ? DwBand(W, stride, rows, ch).bytes()
                     : DenseBand(W, C, ks, stride, rows, ch).bytes();
+}
+
+// The most clusters of `size` CTAs of the tensor-core kernel (128 wide,
+// its ring of shared memory, K split along y) that the current device
+// runs at once, as cudaOccupancyMaxActiveClusters gives it (the split
+// plan's `_cluster_ctas` must not count more); or -(the CUDA error).
+extern "C" int facekit_conv_s8_max_clusters(int size) {
+  static bool set[64] = {};
+  auto kernel = conv_s8_wgmma_kernel<128>;
+  if (int err = allow_smem(kernel, set)) return -err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = size;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, size);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = TcConv<128>::smem(0);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // One empty kernel of one CTA on `stream`: what a launch costs the card

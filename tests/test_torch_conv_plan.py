@@ -2,14 +2,15 @@
 
 ``conv_route`` (which kernel a channel count and ``groups`` run),
 ``_conv_plan`` (the tensor-core route's CTA tile and K split),
-``_launch_plan`` (the plan the C entry point takes, which names the dense
-route) and ``_band_plan`` (the row bands of the two CUDA-core routes)
-are pure functions of the shapes and the card's SM count, so they
-are checked here on the CPU at every conv site of the int8 IR-50 at the
-served batches and at every site of the int8 detectors (whose list the
-kernel tests take is held here to the sites a forward runs); the kernel
-itself is in tests/test_torch_kernels.py. Imports neither JAX nor
-facekit.
+``_im2col_box`` (how that route's TMA loads read x), ``_launch_plan``
+(the plan the C entry point takes, which names the dense route) and
+``_band_plan`` (the row bands of the two CUDA-core routes) are pure
+functions of the shapes and the card's SM count, so they are checked here
+on the CPU at every conv site of the int8 IR-50 at the served batches and
+at every site of the int8 detectors (whose list the kernel tests take is
+held here to the sites a forward runs); the im2col box also by a model
+of the loads it drives, held to the plain conv. The kernel itself is in
+tests/test_torch_kernels.py. Imports neither JAX nor facekit.
 """
 
 from collections import Counter
@@ -24,10 +25,13 @@ from facekit_torch.models.arcface import block_specs
 from facekit_torch.ops.conv_s8 import (BAND_CTAS_PER_SM, BAND_MAX_ROWS,
                                        BAND_SMEM, CONV_BK,
                                        CONV_BM, DENSE_TILES, MAX_K,
+                                       TC_MIN_RING, TC_SMEM, TC_SMEM_SPARE,
                                        MAX_SPLITS, MIN_SPLIT_STAGES,
-                                       MMA_MIN_C, _NO_PLAN, _band_plan,
-                                       _band_smem, _conv_plan, _launch_plan,
-                                       conv_route)
+                                       MMA_MIN_C, MMA_TILES, _NO_PLAN,
+                                       _band_plan, _band_smem, _box_arg,
+                                       _cluster_ctas, _conv_plan,
+                                       _im2col_box, _launch_plan, _tile_n,
+                                       conv_route, conv_s8_reference)
 from test_torch_kernels import DET_HW, _detector_conv_shapes
 
 SMS = 132                      # an H100 SXM
@@ -54,53 +58,244 @@ def test_ir50_has_sixteen_conv_shapes():
     assert [s for s in SITES if conv_route(s[1]) == "dp4a"] == [SITES[0]]
 
 
+def _split_shares(stages, splits):
+    """The stages each split takes, as the kernel shares them: split y
+    takes stages*y // splits .. stages*(y+1) // splits - 1."""
+    return [stages * (y + 1) // splits - stages * y // splits
+            for y in range(splits)]
+
+
+def _walk(p):
+    """The (m tile, n tile) each CTA of an unsplit plan computes, as the
+    kernel walks them: CTA i takes tiles i, i + ctas, ..., the n tiles
+    of a run of pixels next to each other."""
+    return [divmod(t, p.n_tiles) for cta in range(p.ctas)
+            for t in range(cta, p.m_tiles * p.n_tiles, p.ctas)]
+
+
+def _tc_smem(bn, resident_bytes):
+    """A tensor-core CTA's shared memory, as ``TcConv::smem`` lays it out:
+    1 KB of alignment, the ring (stages of pixels, and of weights unless
+    they are resident: at most 8, as many as fit), the resident weights,
+    the barriers. Returns (bytes, stages in the ring)."""
+    stage = CONV_BM * CONV_BK + (0 if resident_bytes else bn * CONV_BK)
+    nst = min(8, (TC_SMEM - TC_SMEM_SPARE - resident_bytes) // stage)
+    return 1024 + nst * stage + resident_bytes + 16 * 8 + 16, nst
+
+
 @pytest.mark.parametrize("batch", BATCHES)
 @pytest.mark.parametrize("site", SITES[1:],
                          ids=lambda s: "h{}c{}o{}k{}s{}".format(*s[:5]))
 def test_conv_plan_covers_each_site(site, batch):
-    """Tiles cover the pixels and channels, the splits cover K in whole
-    stages with no empty split, none but the last below MIN_SPLIT_STAGES
-    and at most MAX_SPLITS of them (one cluster), and each split takes no
-    more stages than a CTA per SM, MAX_SPLITS or MIN_SPLIT_STAGES makes
-    it take."""
+    """Tiles cover the pixels and channels at a wgmma width; the splits
+    cover K in whole stages, each split at least MIN_SPLIT_STAGES, in 1,
+    2, 4 or 8 CTAs a cluster, one CTA a tile and split; fewer tiles than
+    SMs take the most splits whose clusters all run at once. Unsplit,
+    persistent CTAs (one an SM at most) walk every tile once, and keep
+    the weights resident where O is one tile and they leave room for
+    TC_MIN_RING stages of pixels; a CTA's shared memory fits."""
     h, c, o, ks, stride, pad = site
     oh = (h + 2 * pad - ks) // stride + 1
     m, k = batch * oh * oh, ks * ks * c
     p = _conv_plan(batch, oh, oh, o, k, SMS)
     assert conv_route(c) == "mma"
-    assert p.bn == (128 if o % 128 == 0 else 64)
+    assert p.bn == _tile_n(o) == min(o, MMA_TILES[-1]) in MMA_TILES
     assert p.n_tiles * p.bn == o
     assert (p.m_tiles - 1) * CONV_BM < m <= p.m_tiles * CONV_BM
     assert (p.stages - 1) * CONV_BK < k <= p.stages * CONV_BK
-    assert (p.splits - 1) * p.per_split < p.stages <= p.splits * p.per_split
+    shares = _split_shares(p.stages, p.splits)
+    assert sum(shares) == p.stages and max(shares) == p.per_split
+    assert p.splits in (1, 2, 4, 8) and p.splits <= MAX_SPLITS
     tiles = p.m_tiles * p.n_tiles
-    assert 1 <= p.splits <= MAX_SPLITS
-    if tiles < SMS:
-        assert p.per_split <= max(MIN_SPLIT_STAGES, -(-p.stages // MAX_SPLITS),
-                                  -(-p.stages * tiles // SMS))
     assert _launch_plan(batch, oh, oh, o, c, ks, SMS) == p
-    if tiles >= SMS or p.stages <= MIN_SPLIT_STAGES:
-        assert (p.splits, p.per_split) == (1, p.stages)
+    weights = p.stages * p.bn * CONV_BK
     if p.splits > 1:
-        assert p.per_split >= MIN_SPLIT_STAGES
-    # the stages shared as evenly as whole stages allow
-    assert p.per_split == -(-p.stages // p.splits)
+        assert p.ctas == tiles and not p.resident
+        assert min(shares) >= MIN_SPLIT_STAGES
+        assert tiles * p.splits <= _cluster_ctas(p.splits, SMS) <= SMS
+    else:
+        assert p.ctas == min(tiles, SMS)
+        assert sorted(_walk(p)) == [(i, j) for i in range(p.m_tiles)
+                                    for j in range(p.n_tiles)]
+        assert p.resident == (p.n_tiles == 1 and _tc_smem(
+            p.bn, weights)[1] >= TC_MIN_RING)
+    smem, nst = _tc_smem(p.bn, weights if p.resident else 0)
+    assert smem <= TC_SMEM and nst >= (TC_MIN_RING if p.resident else 7)
+    if tiles < SMS and p.splits < MAX_SPLITS:
+        more = 2 * p.splits
+        assert (more * MIN_SPLIT_STAGES > p.stages
+                or tiles * more > _cluster_ctas(more, SMS))
 
 
 def test_conv_plan_at_served_shapes():
-    """The 26 sites at 14x14x256 take one wave of 98 x 2 tiles at batch 64
-    and split K at batches 1 and 8; 7x7x512 at batch 1 splits its 36
-    stages into a full cluster of 8 (4 tiles x 8 = 32 CTAs); the 1x1
-    shortcut at 14x14x256 -> 7x7x512 (two stages) never splits."""
-    assert _conv_plan(64, 14, 14, 256, 2304, SMS) == (128, 98, 2, 18, 1, 18)
-    assert _conv_plan(8, 14, 14, 256, 2304, SMS) == (128, 13, 2, 18, 6, 3)
-    assert _conv_plan(1, 14, 14, 256, 2304, SMS) == (128, 2, 2, 18, 6, 3)
-    assert _conv_plan(1, 7, 7, 512, 4608, SMS) == (128, 1, 4, 36, 8, 5)
-    assert _conv_plan(64, 7, 7, 512, 4608, SMS) == (128, 25, 4, 36, 2, 18)
+    """The 26 sites at 14x14x256 take 98 x 2 tiles at batch 64, walked by
+    132 persistent CTAs, and split K at batches 1 and 8 (26 tiles in
+    clusters of 4: 104 CTAs; 4 tiles in clusters of 8); 7x7x512 at batch
+    1 splits its 36 stages into a full cluster of 8 (4 tiles x 8 = 32
+    CTAs), and at batch 64 its 100 tiles run unsplit (200 CTAs in
+    clusters of 2 would not run at once); the 1x1 shortcut at 14x14x256
+    -> 7x7x512 (two stages) never splits; the one-tile-wide maps keep
+    their weights resident: 112x112 at batch 64 (36 KB of them, 6,272
+    tiles) and 28x28x128 (144 KB, a ring of 5 stages of pixels)."""
+    assert _conv_plan(64, 14, 14, 256, 2304, SMS) == \
+        (128, 98, 2, 18, 1, 18, 132, False)
+    assert _conv_plan(8, 14, 14, 256, 2304, SMS) == \
+        (128, 13, 2, 18, 4, 5, 26, False)
+    assert _conv_plan(1, 14, 14, 256, 2304, SMS) == \
+        (128, 2, 2, 18, 8, 3, 4, False)
+    assert _conv_plan(1, 7, 7, 512, 4608, SMS) == \
+        (128, 1, 4, 36, 8, 5, 4, False)
+    assert _conv_plan(64, 7, 7, 512, 4608, SMS) == \
+        (128, 25, 4, 36, 1, 36, 100, False)
     for n in BATCHES:
         assert _conv_plan(n, 7, 7, 512, 256, SMS).splits == 1
-    # 112x112 at batch 64: 64 output channels, no split
-    assert _conv_plan(64, 112, 112, 64, 576, SMS) == (64, 6272, 1, 5, 1, 5)
+    assert _conv_plan(64, 112, 112, 64, 576, SMS) == \
+        (64, 6272, 1, 5, 1, 5, 132, True)
+    assert _conv_plan(64, 28, 28, 128, 1152, SMS) == \
+        (128, 392, 1, 9, 1, 9, 132, True)
+    assert _tc_smem(128, 9 * 128 * CONV_BK)[1] == 5
+
+
+def test_cluster_ctas_on_an_h100():
+    """132 SMs: every SM unsplit and in clusters of 2; 120 in clusters of
+    4 and of 8 (30 and 15 of them: what the card reports it holds)."""
+    assert [_cluster_ctas(s, SMS) for s in (1, 2, 4, 8)] == \
+        [132, 132, 120, 120]
+    assert all(_cluster_ctas(s, SMS) % s == 0 for s in (1, 2, 4, 8))
+
+
+def _mma_sites():
+    """(H, W, C, KS, stride, pad) of every tensor-core site, once per
+    shape: the int8 IR-50's and the three int8 detectors' at 288x320."""
+    sites = [(h, h, c, ks, stride, pad)
+             for h, c, _, ks, stride, pad in SITES[1:]]
+    for family in ("mobilenet0.25", "slim", "rfb"):
+        sites += [(s[1], s[2], s[3], s[5], s[6], s[7])
+                  for s in _detector_conv_shapes(1, family)
+                  if conv_route(s[3], s[8]) == "mma"]
+    return list(dict.fromkeys(sites))
+
+
+MMA_SITES = _mma_sites()
+
+
+def test_mma_sites_are_ir50s_and_the_detectors():
+    """The box depends on the input and the kernel, not on O: IR-50's 15
+    tensor-core shapes read 12 distinct inputs (square maps, 112 to 7
+    pixels), the detectors' 15 more (non-square maps, 72x80 to 9x10)."""
+    assert len([s for s in MMA_SITES if s[0] == s[1]]) == 12
+    assert len([s for s in MMA_SITES if s[0] != s[1]]) == 15
+    assert all(conv_route(c) == "mma" for _, _, c, _, _, _ in MMA_SITES)
+
+
+@pytest.mark.parametrize("site", MMA_SITES,
+                         ids=lambda s: "h{}w{}c{}k{}s{}p{}".format(*s))
+def test_im2col_box_at_each_site(site):
+    """The box of every tensor-core site: its bounding box, walked from
+    the lower corner at the traversal stride, visits exactly the first
+    taps of the output pixels (-pad + stride * ow, ow < OW; the same in
+    h), and the taps added to them reach the padding and nothing past it;
+    the corners lie in a 4-D im2col map's range; a load is a tile's
+    CONV_BM pixels of min(C, CONV_BK) channels (a swizzle span: 16 to
+    128 bytes), and the loads of a stage fill its CONV_BK bytes of K.
+    The C entry point takes the same numbers."""
+    h, w, c, ks, stride, pad = site
+    box = _im2col_box(c, ks, stride, pad)
+    oh = (h + 2 * pad - ks) // stride + 1
+    ow = (w + 2 * pad - ks) // stride + 1
+    assert box.lower == (-pad, -pad)
+    assert box.upper == (pad - (ks - 1),) * 2
+    assert box.stride == stride
+    for size, out, lo, up in ((w, ow, box.lower[0], box.upper[0]),
+                              (h, oh, box.lower[1], box.upper[1])):
+        first = list(range(lo, size - 1 + up + 1, box.stride))
+        assert first == [-pad + stride * i for i in range(out)]
+        assert first[0] == -pad and first[-1] + ks - 1 <= size - 1 + pad
+        assert -2 ** 7 <= lo <= 2 ** 7 - 1 and -2 ** 7 <= up <= 2 ** 7 - 1
+    assert box.pixels == CONV_BM
+    assert box.channels == min(c, CONV_BK) in (16, 32, 64, 128)
+    assert box.loads * box.channels == CONV_BK
+    # a load is whole 8-row groups of its swizzle (1,024 bytes and more
+    # from 32 bytes a row on)
+    assert box.channels == 16 or box.pixels * box.channels % 1024 == 0
+    assert list(_box_arg(c, ks, stride, pad)) == [
+        *box.lower, *box.upper, box.stride, box.pixels, box.channels]
+
+
+def _first_taps(box, h, w, start, count):
+    """The first taps (w, h, image) of ``count`` pixels of one im2col load
+    from ``start``, as the TMA unit walks the bounding box: along w at the
+    traversal stride, past the upper corner back to the lower one and on
+    along h, past that to the next image."""
+    (lw, lh), (uw, uh) = box.lower, box.upper
+    cw, chh, cn = start
+    out = []
+    for _ in range(count):
+        out.append((cw, chh, cn))
+        cw += box.stride
+        if cw > w - 1 + uw:
+            cw, chh = lw, chh + box.stride
+            if chh > h - 1 + uh:
+                chh, cn = lh, cn + 1
+    return out
+
+
+def _conv_by_im2col_loads(x, wt, stride, pad):
+    """The conv as the tensor-core kernel computes it, on numpy arrays:
+    for each tile of CONV_BM pixels, the im2col loads of each stage of
+    K (one tap's channels each, from the tile's first pixel, the tap as
+    the offset, zeros off the image and past the last image), times the
+    weights' (O, K) rows."""
+    n, h, w, c = x.shape
+    o, ks = wt.shape[:2]
+    box = _im2col_box(c, ks, stride, pad)
+    oh = (h + 2 * pad - ks) // stride + 1
+    ow = (w + 2 * pad - ks) // stride + 1
+    m, k = n * oh * ow, ks * ks * c
+    wk = wt.reshape(o, k).astype(np.int64)
+    out = np.zeros((m, o), np.int64)
+    for m0 in range(0, m, box.pixels):
+        img, r = divmod(m0, oh * ow)
+        row, col = divmod(r, ow)
+        first = _first_taps(box, h, w, (col * stride - pad, row * stride - pad,
+                                        img), box.pixels)
+        a = np.zeros((box.pixels, k), np.int64)
+        for kb in range(0, k, CONV_BK):
+            for j in range(min(CONV_BK, k - kb) // box.channels):
+                kj = kb + j * box.channels
+                tap, c0 = divmod(kj, c)
+                kh, kw = divmod(tap, ks)
+                for i, (fw, fh, fn) in enumerate(first):
+                    if fn < n and 0 <= fh + kh < h and 0 <= fw + kw < w:
+                        a[i, kj:kj + box.channels] = \
+                            x[fn, fh + kh, fw + kw, c0:c0 + box.channels]
+        rows = min(box.pixels, m - m0)
+        out[m0:m0 + rows] = (a @ wk.T)[:rows]
+    return out.reshape(n, oh, ow, o)
+
+
+# (N, H, W, C, O, KS, stride, pad): every load width (C 16 to 256), both
+# kernel sizes, strides and paddings, odd maps (stride 2 ends a row past
+# the image's last column), tiles that cross rows and images, M no
+# multiple of 128 (the last tile's pixels past the last image: zeros)
+IM2COL_CASES = [(2, 9, 7, 16, 24, 3, 1, 1), (3, 11, 13, 32, 16, 3, 2, 1),
+                (2, 15, 9, 64, 8, 3, 2, 0), (3, 9, 9, 64, 16, 1, 2, 0),
+                (2, 7, 7, 256, 8, 3, 1, 1), (1, 5, 5, 128, 16, 3, 2, 1),
+                (2, 6, 6, 16, 8, 1, 1, 0), (2, 13, 11, 32, 8, 1, 2, 0)]
+
+
+@pytest.mark.parametrize("case", IM2COL_CASES,
+                         ids=lambda s: "n{}h{}w{}c{}o{}k{}s{}p{}".format(*s))
+def test_im2col_loads_compute_the_conv(case):
+    """The tiles' im2col loads, walked as the box says, give the plain
+    conv's exact sums at every pixel."""
+    n, h, w, c, o, ks, stride, pad = case
+    rng = np.random.default_rng(sum(case))
+    x = rng.integers(-127, 128, (n, h, w, c)).astype(np.int8)
+    wt = rng.integers(-127, 128, (o, ks, ks, c)).astype(np.int8)
+    ref = conv_s8_reference(torch.tensor(x), torch.tensor(wt), stride, pad)
+    np.testing.assert_array_equal(_conv_by_im2col_loads(x, wt, stride, pad),
+                                  ref.numpy())
 
 
 @pytest.mark.parametrize("c,route", [(3, "dp4a"), (4, "dp4a"), (8, "dp4a"),
@@ -153,13 +348,33 @@ def test_detector_site_list_is_what_a_forward_runs(family, monkeypatch):
     assert all(o % 8 == 0 for _, _, _, _, o, _, _, _, _ in expected)
 
 
-@pytest.mark.parametrize("o", [8, 16, 24, 32, 40, 192, 200])
-def test_conv_plan_covers_narrow_outputs(o):
-    """An O that is no multiple of 64 takes 64-channel tiles, the last
-    partly past O (its rows zero-filled, its stores skipped)."""
+@pytest.mark.parametrize("o,bn", [(8, 8), (16, 16), (24, 24), (32, 32),
+                                  (40, 48), (192, 96), (200, 128)])
+def test_conv_plan_covers_narrow_outputs(o, bn):
+    """A narrow O takes a tile of its own width where the kernel has that
+    width (8, 16, 24, 32), else the least wider one (40 -> 48, its last 8
+    channels past O: zero weights, stores skipped); an O past 128 splits
+    into as few tiles of at most 128 as hold it (192: two of 96; 200: two
+    of 128, the second partly past O)."""
     p = _conv_plan(8, 36, 40, o, 9 * 16, SMS)
-    assert p.bn == (128 if o % 128 == 0 else 64)
+    assert p.bn == bn in MMA_TILES
     assert (p.n_tiles - 1) * p.bn < o <= p.n_tiles * p.bn
+    # unsplit (two stages): one n tile keeps its weights resident
+    assert p.splits == 1
+    assert p.resident == (p.n_tiles == 1)
+
+
+@pytest.mark.parametrize("o", list(range(8, 264, 8)) + [384, 448, 512])
+def test_tile_width_is_the_least_wgmma_width(o):
+    """Every multiple of 8 up to 256 (and 384 to 512): the tiles are as
+    few as MMA_TILES[-1] allows, and each the least width of MMA_TILES
+    that holds an even share of O."""
+    bn = _tile_n(o)
+    n_tiles = -(-o // bn)
+    assert n_tiles == -(-o // MMA_TILES[-1])
+    share = -(-o // n_tiles)
+    assert bn >= share and all(t < share for t in MMA_TILES if t < bn)
+    assert bn % 8 == 0
 
 
 @pytest.mark.parametrize("c", [8, 16, 64, 256])

@@ -476,16 +476,15 @@ def test_conv_extreme_sums(cuda_device, sign, n):
     assert torch.equal(got, ref)
 
 
-# (N, H, W, C, O, kernel, stride, padding, splits on 132 SMs): K split
-# into clusters of 2, 3, 4, 5, 6 and 8 CTAs (no power-of-two C makes the
-# 13 or 14 stages of a cluster of 7 at one tile), over ragged
+# (N, H, W, C, O, kernel, stride, padding, splits on 132 SMs): K unsplit
+# (3 stages) and split into clusters of 2, 4 and 8 CTAs, over ragged
 # pixel tiles (5x5 pixels of 6 images: two tiles, the second of 22
-# pixels) and 64- and 128-channel tiles
-CONV_CLUSTER_CASES = [(6, 5, 5, 32, 192, 3, 1, 1, 2),
-                      (6, 5, 5, 64, 128, 3, 1, 1, 3),
+# pixels) and 64-, 96- and 128-channel tiles
+CONV_CLUSTER_CASES = [(6, 5, 5, 32, 192, 3, 1, 1, 1),
+                      (6, 5, 5, 64, 128, 3, 1, 1, 2),
                       (1, 5, 5, 1024, 64, 1, 1, 0, 4),
-                      (6, 5, 5, 128, 192, 3, 1, 1, 5),
-                      (1, 5, 5, 256, 128, 3, 1, 1, 6),
+                      (6, 5, 5, 128, 192, 3, 1, 1, 4),
+                      (1, 5, 5, 256, 128, 3, 1, 1, 8),
                       (6, 5, 5, 512, 128, 3, 1, 1, 8)]
 
 
@@ -495,7 +494,8 @@ CONV_CLUSTER_CASES = [(6, 5, 5, 32, 192, 3, 1, 1, 2),
 def test_conv_split_clusters_bit_for_bit(cuda_device, n, h, w, c, o, ks,
                                          stride, pad, splits):
     """Each split of a cluster sums a share of the tile's rows over the
-    cluster's partial tiles: bit for bit at every cluster size."""
+    cluster's partial tiles: bit for bit at every cluster size the plan
+    takes."""
     from facekit_torch.ops.conv_s8 import _launch_plan, _sms
     oh = (h + 2 * pad - ks) // stride + 1
     plan = _launch_plan(n, oh, oh, o, c, ks, _sms(cuda_device.index or 0))
@@ -506,6 +506,123 @@ def test_conv_split_clusters_bit_for_bit(cuda_device, n, h, w, c, o, ks,
     wt = _s8(rng, (o, ks, ks, c)).to(cuda_device)
     got = conv_s8(x, wt, stride, pad)
     ref = conv_s8_reference(x, wt, stride, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_split_clusters_fit_the_card(cuda_device):
+    """The clusters the split plan counts on running at once
+    (``_cluster_ctas``) are no more than the card holds."""
+    from facekit_torch.ops.conv_s8 import _cluster_ctas, _sms, max_clusters
+    sms = _sms(cuda_device.index or 0)
+    for size in (2, 4, 8):
+        assert _cluster_ctas(size, sms) <= size * max_clusters(size)
+
+
+def _forced(x, wt, stride, pad, **plan):
+    """The tensor-core kernel launched with its plan's fields replaced
+    (another split of K, other persistent CTAs, weights resident or
+    not)."""
+    from facekit_torch.ops.conv_s8 import _launch_plan, _sms
+    n, h, w, c = x.shape
+    o, ks = wt.shape[:2]
+    oh = (h + 2 * pad - ks) // stride + 1
+    ow = (w + 2 * pad - ks) // stride + 1
+    base = _launch_plan(n, oh, ow, o, c, ks, _sms(x.device.index or 0))
+    return _conv_s8_cuda(x, wt, stride, pad, 1, plan=base._replace(**plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_conv_forced_splits_bit_for_bit(cuda_device, splits):
+    """Clusters of 1 to 8 CTAs on the tensor-core kernel, whatever the
+    plan takes: one tile of 126 pixels x 96 channels, K = 2,304 in 18
+    stages shared as evenly as whole stages allow (8 splits: 2 or 3
+    each)."""
+    rng = np.random.default_rng(40 + splits)
+    x = _s8(rng, (2, 9, 7, 256)).to(cuda_device)
+    wt = _s8(rng, (96, 3, 3, 256)).to(cuda_device)
+    before = conv_s8.launches
+    got = _forced(x, wt, 1, 1, splits=splits, per_split=-(-18 // splits),
+                  ctas=1, resident=False)
+    ref = conv_s8_reference(x, wt, 1, 1)
+    torch.cuda.synchronize()
+    assert conv_s8.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+# (x shape, O, kernel, resident, ctas): fewer CTAs than tiles, each
+# walking several, the ring's stages running on from one tile into the
+# next; with the weights streamed (two n tiles of 96 channels; one of 64)
+# and resident (one n tile of 64, 11 runs of pixels; 128 channels of 1152
+# bytes of K: 144 KB of weights beside a ring of 5 stages of pixels)
+CONV_WALK_CASES = [((4, 23, 21, 32), 192, 3, False, 1),
+                   ((4, 23, 21, 32), 192, 3, False, 3),
+                   ((4, 23, 21, 32), 192, 3, False, 7),
+                   ((3, 21, 21, 64), 64, 3, False, 5),
+                   ((3, 21, 21, 64), 64, 3, True, 1),
+                   ((3, 21, 21, 64), 64, 3, True, 4),
+                   ((3, 21, 21, 64), 64, 3, True, 11),
+                   ((2, 19, 17, 128), 128, 3, True, 2),
+                   ((2, 19, 17, 128), 128, 3, True, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,ks,resident,ctas", CONV_WALK_CASES)
+def test_conv_persistent_ctas_bit_for_bit(cuda_device, shape, o, ks,
+                                          resident, ctas):
+    """Persistent CTAs walking the tiles, the producer running on into the
+    next tile's stages while the consumers store, with the weights
+    streamed each stage or resident."""
+    rng = np.random.default_rng(50 + ctas + o + resident)
+    x = _s8(rng, shape).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, shape[3])).to(cuda_device)
+    pad = ks // 2
+    got = _forced(x, wt, 1, pad, splits=1, resident=resident, ctas=ctas)
+    ref = conv_s8_reference(x, wt, 1, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+# (N, H, W, C, O, kernel, stride, padding): C = 16 and 32, whose K (1x1:
+# 16 or 32 bytes; 3x3: 144 or 288) ends inside a stage of 128 bytes; odd
+# maps at stride 2 (a row's last pixel on the image's last column, or
+# the padding past it) with M no multiple of 128
+CONV_SHORT_K_CASES = [(2, 9, 11, 16, 64, 1, 1, 0), (2, 9, 11, 32, 32, 1, 1, 0),
+                      (2, 9, 11, 32, 64, 3, 1, 1), (3, 7, 9, 16, 16, 3, 2, 1),
+                      (2, 9, 11, 16, 8, 1, 2, 0), (3, 15, 13, 64, 128, 3, 2, 1),
+                      (1, 7, 9, 128, 64, 1, 2, 0),
+                      (5, 9, 11, 256, 256, 3, 2, 1),
+                      (2, 27, 25, 64, 64, 3, 2, 1),
+                      (3, 13, 15, 32, 48, 3, 2, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,ks,stride,pad", CONV_SHORT_K_CASES)
+def test_conv_short_k_and_odd_maps_bit_for_bit(cuda_device, n, h, w, c, o,
+                                               ks, stride, pad):
+    rng = np.random.default_rng(11 * n + h + w + c + o + ks + stride + pad)
+    x = _s8(rng, (n, h, w, c)).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, c)).to(cuda_device)
+    got = conv_s8(x, wt, stride, pad)
+    ref = conv_s8_reference(x, wt, stride, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o", [8, 16, 24, 32, 40, 48, 56, 64, 72, 96, 104,
+                               128, 136, 192, 200])
+def test_conv_narrow_outputs_on_tensor_cores(cuda_device, o):
+    """O from 8 to 200 on the tensor-core route: a tile of O's own width
+    where the kernel has it, else the least wider one (its channels past
+    O: zero weights, stores skipped), O past 128 in even tiles."""
+    rng = np.random.default_rng(o)
+    x = _s8(rng, (3, 9, 7, 32)).to(cuda_device)
+    wt = _s8(rng, (o, 3, 3, 32)).to(cuda_device)
+    got = conv_s8(x, wt, 1, 1)
+    ref = conv_s8_reference(x, wt, 1, 1)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
@@ -530,6 +647,23 @@ def _ir50_conv_shapes(n):
 def test_conv_ir50_shapes_at_batch_2(cuda_device, shape):
     n, h, w, c, o, ks, stride, pad = shape
     rng = np.random.default_rng(h + c + o + ks + stride)
+    x = _s8(rng, (n, h, w, c)).to(cuda_device)
+    wt = _s8(rng, (o, ks, ks, c)).to(cuda_device)
+    got = conv_s8(x, wt, stride, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv_s8_reference(x, wt, stride, pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _ir50_conv_shapes(1)[1:]
+                         + _ir50_conv_shapes(64)[1:],
+                         ids=lambda s: "n{0}h{1}c{3}o{4}k{5}s{6}".format(*s))
+def test_conv_ir50_tensor_core_shapes_at_batches_1_and_64(cuda_device,
+                                                          shape):
+    """Every tensor-core site shape of the int8 IR-50 at batch 1 (K split
+    over clusters) and 64 (persistent CTAs over up to 6,272 tiles)."""
+    n, h, w, c, o, ks, stride, pad = shape
+    rng = np.random.default_rng(n + h + c + o + ks + stride)
     x = _s8(rng, (n, h, w, c)).to(cuda_device)
     wt = _s8(rng, (o, ks, ks, c)).to(cuda_device)
     got = conv_s8(x, wt, stride, pad)
