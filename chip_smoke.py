@@ -151,9 +151,6 @@ TIE_COPIES = 70
 # what the kernels line keeps of each B <= 8, k = 64 search case
 SMALL_BATCH_KEYS = ("dtype", "B", "k", "ms", "library_ms", "bound_ms",
                     "bound_by", "pass1_us", "pass2_us", "other_us")
-# registers of the bf16 tensor-core search pass 1 before the s8 search
-# shared it (ptxas -v, sm_90a); the shared kernel must not take more
-MMA_BF16_REGISTERS = 72
 COS_DIST_MAX = 1e-3      # bf16 embeddings vs f32 (BASELINE.json north star)
 INT8_COS_DIST_MAX = 5e-3  # int8 embeddings vs f32 (facekit's own int8 bar,
 #                           tests/test_model_parity.py:158-175)
@@ -430,18 +427,24 @@ def search_bound(n_rows: int, b: int, k: int, dtype: str):
                                        else "operations")
 
 
+# the searches' tensor-core pass 1 kernels (B > 8): (library, operand
+# type, the kernel's name and template argument as its mangled name ends)
+MMA_PASS1 = (("cosine_topk", "bf16", "topk_partial_wgmma_kernelItE"),   # uint16_t
+             ("cosine_topk_int8", "s8", "topk_partial_wgmma_kernelIaE"),  # int8_t
+             ("cosine_topk", "f32", "topk_partial_mma_kernelE"))
+
+
 def mma_ptxas(logs):
-    """The ``ptxas -v`` lines of the three instantiations of the searches'
-    shared tensor-core pass 1 (``topk_partial_mma_kernel`` in
-    ``ops/csrc/topk_mma.cuh``: bf16 and f32 in the cosine_topk build, s8 in
-    the cosine_topk_int8 build), by operand type; "not rebuilt" for a
-    library that was already built. Fails on a stack frame or a spill in
-    any, or on more than MMA_BF16_REGISTERS registers in the bf16 one."""
+    """The ``ptxas -v`` lines of the searches' tensor-core pass 1 by
+    operand type: ``topk_partial_wgmma_kernel`` (``ops/csrc/
+    topk_wgmma.cuh``) in bf16 (the cosine_topk build) and s8 (the
+    cosine_topk_int8 build), ``topk_partial_mma_kernel`` (3xTF32,
+    ``topk_mma.cuh``) in f32; "not rebuilt" for a library that was
+    already built. Fails on a stack frame or a spill in any, or where
+    ptxas serialized a search kernel's ``wgmma`` (its "wgmma.mma_async
+    instructions are serialized" warning)."""
     out = {}
-    # (library, operand type, its mangled template argument)
-    for name, typ, mangled in (("cosine_topk", "bf16", "t"),     # uint16_t
-                               ("cosine_topk", "f32", "f"),      # float
-                               ("cosine_topk_int8", "s8", "a")):  # int8_t
+    for name, typ, mangled in MMA_PASS1:
         if name not in logs:
             out[typ] = "not rebuilt"
             continue
@@ -449,7 +452,7 @@ def mma_ptxas(logs):
         for line in logs[name].splitlines():
             entry = re.search(r"Compiling entry function '(\S+)'", line)
             if entry:
-                inside = f"topk_partial_mma_kernelI{mangled}E" in entry[1]
+                inside = mangled in entry[1]
             elif inside and ("stack frame" in line or "Used" in line):
                 lines.append(line.strip())
         text = " ".join(lines)
@@ -457,14 +460,18 @@ def mma_ptxas(logs):
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", text)
         if regs is None or frame is None:
-            raise AssertionError(f"no ptxas -v lines of the {typ} "
-                                 f"topk_partial_mma_kernel in {name}'s build")
-        out[typ] = {"registers": int(regs[1]), "stack_bytes": int(frame[1]),
+            raise AssertionError(f"no ptxas -v lines of the {typ} pass 1 "
+                                 f"({mangled}) in {name}'s build")
+        out[typ] = {"kernel": mangled.rsplit("I", 1)[0].removesuffix("E"),
+                    "registers": int(regs[1]), "stack_bytes": int(frame[1]),
                     "spill_bytes": int(frame[2]) + int(frame[3]),
                     "ptxas": lines}
-        if out[typ]["stack_bytes"] or out[typ]["spill_bytes"] or (
-                typ == "bf16" and out[typ]["registers"] > MMA_BF16_REGISTERS):
-            raise AssertionError(f"topk_partial_mma_kernel {typ}: {lines}")
+        if out[typ]["stack_bytes"] or out[typ]["spill_bytes"]:
+            raise AssertionError(f"{mangled} {typ}: {lines}")
+    for name in ("cosine_topk", "cosine_topk_int8"):
+        serialized = serialized_wgmma(logs.get(name, ""))
+        if serialized:
+            raise AssertionError(f"{name}: {serialized}")
     return out
 
 
@@ -992,10 +999,11 @@ def phase_kernels(device, n=N_TOP, seed=0):
             del gt
 
         # the query tiles the timed batches do not reach: 2 and 4 queries
-        # of the CUDA-core kernel; of the tensor-core kernel one m16 tile
-        # (9, 16), a full 64-query tile, and in f32 (32 queries a CTA) a
-        # second tile with one query (33) and in part (40)
-        for b in (2, 3, 9, 16, 33, 40, 64):
+        # of the CUDA-core kernel; of the tensor-core kernels part of a
+        # tile (9, 16, 33, 40, 63), a full 64-query tile (64), a second
+        # tile with one query (65) and two full tiles (128); in f32 (32
+        # queries a CTA) a second tile with one query (33) and in part (40)
+        for b in (2, 3, 9, 16, 33, 40, 63, 64, 65, 128):
             q = unit_rows(b, g.dtype)
             max_err = max(max_err, check_search(
                 f"{dname} B={b} k=5", cosine_topk(g, q, count, 5),
@@ -1281,10 +1289,10 @@ def phase_int8_kernels(device, n=N_TOP, seed=2):
         del gqt, gst
 
     # the query tiles the timed batches do not reach: 2 and 4 queries of
-    # the CUDA-core kernel; in the tensor-core kernel one m16 tile (9), a
-    # full m16 pair (16), and queries 0-31 on warps 0-3 with one query in
-    # the first m16 tile of warps 4-7 (33)
-    for b in (2, 3, 9, 16, 33):
+    # the CUDA-core kernel; in the tensor-core kernel part of a 64-query
+    # tile (9, 16, 33, 63), a second tile with one query (65) and two full
+    # tiles (128)
+    for b in (2, 3, 9, 16, 33, 63, 65, 128):
         q = unit_rows(b)
         check(f"B={b} k=5", cosine_topk_int8(gq, gs, q, count, 5),
               cosine_topk_int8_reference(gq, gs, q, count, 5))
@@ -5045,7 +5053,7 @@ def main(argv) -> int:
               "int_mm_guide_device_ms": det_guide_sums(det)})
         print(power, flush=True)
         return 0
-    emit({"phase": "ptxas", "kernel": "topk_partial_mma_kernel",
+    emit({"phase": "ptxas", "kernel": "the searches' pass 1 at B > 8",
           "instantiations": mma_ptxas(logs)})
     emit({"phase": "ptxas", "kernel": "B <= 8 pass 1 and pass 2",
           "kernels": selection_ptxas(logs)})
@@ -5138,11 +5146,16 @@ def main(argv) -> int:
         "library_ms": main_case["library_ms"],
         "shape": f"bf16 N={main_case['N']} count={main_case['count']} "
                  "B=8 k=1",
+        # B > 8: bf16 on the wgmma pass 1, f32 on the 3xTF32 one
+        "tensor_core_pass1": "topk_partial_wgmma_kernel<uint16_t> "
+                             "(facekit_torch/ops/csrc/topk_wgmma.cuh)",
+        "f32_tensor_core_pass1": "topk_partial_mma_kernel "
+                                 "(facekit_torch/ops/csrc/topk_mma.cuh)",
         "tensor_core_cases": [
             {key: t[key] for key in ("B", "k", "ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}
+                                     "bound_by", "library_ms", "pass1_us")}
             for t in timings if t["dtype"] == "bfloat16"
-            and (t["B"], t["k"]) in ((256, 1), (256, 64), (32, 1))],
+            and (t["B"], t["k"]) in ((32, 1), (32, 64), (256, 1), (256, 64))],
         "f32_tensor_core_cases": [
             {key: t[key] for key in ("B", "k", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms", "err_vs_f64",
@@ -5168,9 +5181,11 @@ def main(argv) -> int:
         "library_call": int8_case["library_call"],
         "shape": f"int8 N={int8_case['N']} count={int8_case['count']} "
                  "B=64 k=1",
+        "tensor_core_pass1": "topk_partial_wgmma_kernel<int8_t> "
+                             "(facekit_torch/ops/csrc/topk_wgmma.cuh)",
         "tensor_core_cases": [
             {key: t[key] for key in ("B", "k", "ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}
+                                     "bound_by", "library_ms", "pass1_us")}
             for t in int8_timings if t["B"] in (64, 256)],
         "small_batch_k64_cases": [
             {key: t[key] for key in SMALL_BATCH_KEYS if key in t}

@@ -37,19 +37,21 @@
 //    threshold) over chunks twice as long, and pass 2 prunes below a bound.
 //
 // B > 8 runs the tensor-core pass 1 that the bf16 search shares,
-// topk_partial_mma_kernel<int8_t> in topk_mma.cuh: mma.sync m16n8k32 s8
-// with s32 accumulators over a 64-query tile in shared memory, so the rows
-// leave HBM about once, not once per 8 queries; the epilogue forms the same
-// score, (f32(acc) * q_scale) * g_scale, and one list per query per CTA
-// takes it. Both write (B, chunks, k) partials for the one pass 2.
+// topk_partial_wgmma_kernel<int8_t> in topk_wgmma.cuh: wgmma m64n128k32
+// s8 with s32 accumulators over a 64-query tile in shared memory, so the
+// rows leave HBM about once, not once per 8 queries, fed by TMA loads of
+// the gallery into a ring of stages; the epilogue forms the same score,
+// (f32(acc) * q_scale) * g_scale, and selection warps of their own offer
+// it to one list per query per CTA while the next tile's products run.
+// Both write (B, chunks, k) partials for the one pass 2.
 //
-// What it leaves for later: wgmma/TMA; at B = 8 the k = 64 pass 1 still
-// takes about 2x its k = 1 time (PERF.md).
+// What it leaves for later: at B = 8 the k = 64 pass 1 still takes about
+// 2x its k = 1 time (PERF.md).
 
 #include <type_traits>
 
 #include "topk_fold.cuh"
-#include "topk_mma.cuh"
+#include "topk_wgmma.cuh"
 
 namespace {
 
@@ -181,24 +183,25 @@ int launch_partial_k(int chunks, cudaStream_t s, const void* gallery,
 
 // C entry point (loaded with ctypes). Launches both passes on `stream` and
 // returns the CUDA error as an int; it never synchronizes. The caller has
-// checked shapes and alignment: gallery (>= n_rows, 512) int8 and its
-// (>= n_rows,) f32 scales, queries (B, 512) int8 (already quantized) and
-// their (B,) f32 scales, all contiguous, the int8 arrays 16-byte aligned;
-// 1 <= k <= 64, B >= 1, partials (B, chunks, k). B > 8 runs
-// topk_partial_mma_kernel<int8_t> with rows_per_cta a multiple of 128;
-// B <= 8 the CUDA-core kernel with rows_per_cta a multiple of 256 and the
-// query tile the smallest of 1, 2, 4, 8 that covers B.
+// checked shapes and alignment: gallery (gallery_rows >= n_rows, 512) int8
+// and its (gallery_rows,) f32 scales, queries (B, 512) int8 (already
+// quantized) and their (B,) f32 scales, all contiguous, the int8 arrays
+// 16-byte aligned; 1 <= k <= 64, B >= 1, partials (B, chunks, k). B > 8
+// runs topk_partial_wgmma_kernel<int8_t> with rows_per_cta a multiple of
+// 128; B <= 8 the CUDA-core kernel with rows_per_cta a multiple of 256 and
+// the query tile the smallest of 1, 2, 4, 8 that covers B.
 extern "C" int facekit_cosine_topk_int8(const void* gallery, const void* gscale,
                                         const void* queries, const void* qscale,
-                                        int n_rows, int count, int B, int k,
-                                        int rows_per_cta, int chunks,
+                                        int gallery_rows, int n_rows, int count, int B,
+                                        int k, int rows_per_cta, int chunks,
                                         void* part_v, void* part_i,
                                         void* out_v, void* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (B > 8) {
-    err = launch_partial_mma<int8_t>(chunks, s, gallery, gscale, queries, qscale,
-                                     n_rows, count, B, k, rows_per_cta, part_v, part_i);
+    err = launch_partial_wgmma<int8_t>(chunks, s, gallery, gallery_rows, gscale, queries,
+                                       qscale, n_rows, count, B, k, rows_per_cta, part_v,
+                                       part_i);
   } else if (B == 1) {
     err = launch_partial_k<1>(chunks, s, gallery, gscale, queries, qscale, n_rows, count, B, k, rows_per_cta, part_v, part_i);
   } else if (B == 2) {

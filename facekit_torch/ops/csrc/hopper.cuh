@@ -1,12 +1,14 @@
 // Hopper's asynchronous copy and tensor-core helpers for sm_90a, as inline
 // PTX: mbarriers, TMA tile and im2col loads (cp.async.bulk.tensor), bulk
 // copies into another CTA of the cluster and a split cluster barrier, the
-// proxy fence, wgmma.mma_async m64n64k16 (bf16 in, f32 accumulators) and
-// m64nNk32 (s8 in, s32 accumulators), both operands from shared memory
-// through matrix descriptors, and on the host the encoding of tiled and
-// im2col tensor maps through the driver's entry points, so that a library
-// built with nvcc needs no link flag for the driver. Used by the fused IR
-// block (ir_block.cu) and the s8 conv's tensor-core route (conv_s8.cu).
+// proxy fence, wgmma.mma_async m64n64k16 and m64n128k16 (bf16 in, f32
+// accumulators) and m64nNk32 (s8 in, s32 accumulators), both operands from
+// shared memory through matrix descriptors, and on the host the encoding of
+// tiled and im2col tensor maps through the driver's entry points, so that a
+// library built with nvcc needs no link flag for the driver. Used by the
+// fused IR block (ir_block.cu), the s8 conv's tensor-core route
+// (conv_s8.cu) and the searches' tensor-core pass 1 in bf16 and s8
+// (topk_wgmma.cuh).
 
 #pragma once
 
@@ -156,9 +158,10 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 
 // keeps the compiler from moving accesses of an accumulator across the
 // asynchronous wgmma that owns it
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 template <int R>
 __device__ __forceinline__ void fence_acc(int (&d)[R]) {
@@ -185,6 +188,35 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += a (64 x 16, K-major) * b (16 x 128, K-major: 128 rows of K), bf16
+// in, f32 accumulators; the thread layout of wgmma_m64n64k16 over 16 n8
+// blocks (d[4j] .. d[4j+3] of columns 8j ..)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
 }
 

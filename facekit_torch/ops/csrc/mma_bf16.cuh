@@ -1,9 +1,9 @@
 // Warp-level tensor-core helpers for sm_90a, as inline PTX: cp.async
-// copies from global to shared memory, ldmatrix, mma.sync m16n8k16 (bf16 in,
-// f32 accumulators), m16n8k32 (s8 in, s32 accumulators) and m16n8k8 (tf32
-// in, f32 accumulators), and two splits of an f32 into two tf32 for
-// 3xTF32. Shared by the fused IR block (ir_block.cu), the gallery searches'
-// tensor-core pass 1 (topk_mma.cuh) and the s8 conv (conv_s8.cu).
+// copies from global to shared memory, ldmatrix, mma.sync m16n8k8 (tf32 in,
+// f32 accumulators), and two splits of an f32 into two tf32 for 3xTF32.
+// Shared by the fused IR block (ir_block.cu), the f32 search's tensor-core
+// pass 1 (topk_mma.cuh), and for smem_u32 the s8 conv (conv_s8.cu) and the
+// bf16 and int8 searches' pass 1 (topk_wgmma.cuh).
 // Functions only, no constants, so that no name clashes with a kernel's
 // own.
 
@@ -45,33 +45,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16x32, row) * b (32x8, col), s8 in, s32 accumulators. A lane holds
-// the same bytes of a and b as in mma_bf16 (4 consecutive bytes of K per
-// register, the same row and column groups), so the same ldmatrix loads
-// feed both, and d has mma_bf16's layout.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulators. A lane
-// holds the same bytes of a and b as in mma_bf16 (one f32 of K per
-// register, in the same row and column groups), and d has its layout. The
-// tensor cores read each register as f32 bits and ignore the low 13.
+// holds the bytes of a and b that ldmatrix.x4 (.b16) gives it for an
+// m16n8k16 bf16 product (one f32 of K per register, in the same row and
+// column groups); d: lane l holds rows l/4 and l/4 + 8, columns 2(l%4) and
+// the next. The tensor cores read each register as f32 bits and ignore the
+// low 13.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(

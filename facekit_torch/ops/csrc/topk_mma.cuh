@@ -1,56 +1,45 @@
-// The tensor-core pass 1 that both gallery searches run at B > 8: the bf16
-// and f32 search (cosine_topk.cu) and the int8 search (cosine_topk_int8.cu).
-// One kernel, templated on the operand type, so that the three cannot
-// diverge, as facekit's two Pallas search kernels share `_fold_tile`
-// (facekit/ops/similarity.py:127-133) and the port's share topk_fold.cuh.
+// The tensor-core pass 1 of the f32 search at B > 8 (cosine_topk.cu): its
+// products as 3xTF32 on mma.sync m16n8k8. (bf16 and int8 run the wgmma
+// kernel of topk_wgmma.cuh.)
 //
-// The products of a batch are 2*B*N*D operations, 2.75e11 at B = 256, too
-// many for CUDA cores, and the CUDA-core kernels read the gallery once per 8
-// queries. So a CTA takes one tile of MQ queries (64 in bf16 and s8, 32 in
-// f32, whose 64-query tile would not fit in shared memory beside the ring;
-// in shared memory, rows padded by 16 bytes against ldmatrix bank
-// conflicts, in f32 split once into a hi and a lo tile; slots past the
-// batch are zero) and one chunk of rows; the grid is (query tiles, chunks)
-// with the query tile in blockIdx.x, so the CTAs that read the same rows
-// run together and all but the first find them in L2: the gallery leaves
-// HBM about once.
+// The products of a batch are 2*B*N*D operations, 2.75e11 at B = 256,
+// which f32 digits need three TF32 passes of (1.67 ms at the TF32 peak),
+// and the CUDA-core kernels read the gallery once per 8 queries. So a CTA
+// takes one tile of MQ = 32 queries (a 64-query f32 tile would not fit in
+// shared memory beside the ring; split once into a hi and a lo tile, rows
+// padded by 16 bytes against ldmatrix bank conflicts; slots past the batch
+// are zero) and one chunk of rows; the grid is (query tiles, chunks) with
+// the query tile in blockIdx.x, so the CTAs that read the same rows run
+// together and all but the first find them in L2: the gallery leaves HBM
+// about once.
 //  * Rows stream in stages of 128 rows x 128 bytes of K (+16 padding) with
-//    cp.async.cg into a ring of MST (4, three stages ahead; 3 in f32, where
-//    the split query tile takes the room): a row tile is 8 stages in bf16,
-//    4 in s8, 16 in f32. Rows at or past min(n_rows, count) are not read
-//    (zeros, masked below).
-//  * Each 32-byte K step is one mma.sync per (m16, n8) tile: m16n8k16 bf16
-//    with f32 accumulators, or m16n8k32 s8 with s32 accumulators; in f32 it
-//    is three m16n8k8 tf32 (3xTF32): each operand x splits into hi (11
-//    bits) and lo = x - hi (split_tf32), and lo_a*hi_b, hi_a*lo_b, hi_a*hi_b
-//    go into an f32 accumulator in that order, which keeps about 22 bits of
-//    each product where one tf32 pass keeps 11. The tensor cores round
-//    toward zero as they accumulate, so one chain of 192 mma per score
-//    drifts by up to an ulp of the score a step, past an f32 GEMM's error;
-//    each stage (4 k8 steps) sums into a fresh accumulator instead, which
-//    is then added to the score's, rounded to nearest. A lane holds the
-//    same bytes of A and B in all three (mma_bf16.cuh), so the ldmatrix
-//    addresses, in bytes, and the accumulator layout are the same. A is the query tile, B the gallery
+//    cp.async.cg into a ring of MST = 3 (two stages ahead): a row tile is
+//    16 stages. Rows at or past min(n_rows, count) are not read (zeros,
+//    masked below).
+//  * Each 32-byte K step is three m16n8k8 tf32 mma per (m16, n8) tile
+//    (3xTF32): each operand x splits into hi (11 bits) and lo = x - hi
+//    (split_tf32), and lo_a*hi_b, hi_a*lo_b, hi_a*hi_b go into an f32
+//    accumulator in that order, which keeps about 22 bits of each product
+//    where one tf32 pass keeps 11. The tensor cores round toward zero as
+//    they accumulate, so one chain of 192 mma per score drifts by up to an
+//    ulp of the score a step, past an f32 GEMM's error; each stage (4 k8
+//    steps) sums into a fresh accumulator instead, which is then added to
+//    the score's, rounded to nearest. A is the query tile, B the gallery
 //    stage (a row is K-contiguous: the .col layout), both through
-//    ldmatrix.x4. The 8 warps cover an MQ x 128 score tile, MQ/2 x 32 each
-//    (MQ/32 m16 x 4 n8); warps 0-3 hold the first MQ/2 queries, so a batch
-//    of MQ/2 runs on every SM sub-partition, and m16 tiles wholly past the
-//    batch are skipped. Every score sums its K steps in the same order with
-//    the same instructions (no split-K), so equal rows get bit-equal scores
-//    in bf16 and f32 wherever they fall; in s8 the sum is an exact integer
-//    (|acc| <= 127^2 * 512 < 2^24) in any order.
-//  * After each row tile the scores go to an MQ x 128 f32 tile in shared
-//    memory, -1e30 past count: in bf16 and f32 the f32 accumulator, in s8
-//    (f32(acc) * q_scale) * g_scale, the plain version's two multiplies in
-//    its order. Then each warp offers them to the sorted top-k of its
-//    queries (one list per query per CTA, MQ/8 queries per warp), ballot
-//    against the k-th entry first, so only the winners are inserted. The
-//    CTA writes the lists as the (B, chunks, k) partials of the CUDA-core
-//    kernels, which pass 2 (topk_fold.cuh) reduces.
+//    ldmatrix.x4 (a lane holds the same bytes as for m16n8k16 bf16,
+//    mma_bf16.cuh). The 8 warps cover a 32 x 128 score tile, 16 x 32 each
+//    (one m16 x 4 n8); warps 0-3 hold the first 16 queries, and an m16
+//    tile wholly past the batch is skipped. Every score sums its K steps in
+//    the same order with the same instructions (no split-K), so equal rows
+//    get bit-equal scores wherever they fall.
+//  * After each row tile the scores go to a 32 x 128 f32 tile in shared
+//    memory, -1e30 past count. Then each warp offers them to the sorted
+//    top-k of its queries (one list per query per CTA, 4 queries per warp),
+//    ballot against the k-th entry first, so only the winners are
+//    inserted. The CTA writes the lists as the (B, chunks, k) partials of
+//    the CUDA-core kernels, which pass 2 (topk_fold.cuh) reduces.
 
 #pragma once
-
-#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "topk_fold.cuh"
@@ -63,64 +52,42 @@ constexpr int MPAD = 16;               // bytes of padding per shared row
 constexpr int SSTR = MR + 8;           // row stride (f32) of the score tile
 static_assert(MR * MKB / 16 == 4 * THREADS, "four 16-byte pieces per thread a stage");
 
-// The shapes of pass 1 for operand type T: uint16_t (bf16 bits), int8_t or
-// float. Shared memory at MQ = 64 would be 273,408 bytes in f32 (query tile
-// 132,096, ring 73,728, score tile 34,816, lists 32,768), past the 232,448
-// a CTA may have, so f32 takes 32 queries a CTA. Its query tile is split
-// once into hi and lo tiles (132,096), which the mma read as they stand,
-// where a warp would otherwise split its A fragments again at every stage;
-// with a ring of 3 (55,296), the score tile (17,408) and the lists
-// (16,384) that is 221,184 bytes.
-template <typename T>
+// The shapes of the f32 pass 1. Shared memory at 64 queries would be
+// 273,408 bytes (query tile 132,096, ring 73,728, score tile 34,816, lists
+// 32,768), past the 232,448 a CTA may have, so it takes MQ = 32 queries a
+// CTA. Its query tile is split once into hi and lo tiles (132,096), which
+// the mma read as they stand, where a warp would otherwise split its A
+// fragments again at every stage; with a ring of 3 (55,296), the score
+// tile (17,408) and the lists (16,384) that is 221,184 bytes.
 struct MmaTile {
-  static constexpr bool S8 = std::is_same_v<T, int8_t>;
-  static constexpr bool F32 = std::is_same_v<T, float>;
-  using Acc = std::conditional_t<S8, int, float>;
-  static constexpr int MQ = F32 ? 32 : 64;         // queries per CTA
-  static constexpr int MT = MQ / 32;               // m16 tiles per warp
-  static constexpr int MST = F32 ? 3 : 4;          // gallery stages in the ring
-  static constexpr int ROW = D * (int)sizeof(T);    // bytes of a row
+  static constexpr int MQ = 32;                     // queries per CTA
+  static constexpr int MST = 3;                     // gallery stages in the ring
+  static constexpr int ROW = D * 4;                 // bytes of a row
   static constexpr int KSTAGES = ROW / MKB;         // stages per row tile
   static constexpr int QSTR = ROW + MPAD;           // bytes per query-tile row
   static constexpr int GSTR = MKB + MPAD;           // bytes per stage row
-  static constexpr uint32_t Q_BYTES = (F32 ? 2 : 1) * MQ * QSTR;   // f32: hi, lo
+  static constexpr uint32_t Q_BYTES = 2 * MQ * QSTR;   // hi, then lo
   static constexpr uint32_t STAGE_BYTES = MR * GSTR;
   static constexpr uint32_t S_BYTES = MQ * SSTR * 4;
   static constexpr uint32_t L_BYTES = MQ * KMAX * 4;   // the lists' scores (or indices)
   static constexpr uint32_t SMEM = Q_BYTES + MST * STAGE_BYTES + S_BYTES + 2 * L_BYTES;
 };
 
-__device__ __forceinline__ void mma_step(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  mma_bf16(d, a, b0, b1);
-}
-
-__device__ __forceinline__ void mma_step(int (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  mma_s8(d, a, b0, b1);
-}
-
 // Grid (query tiles of MQ, chunks of rows_per_cta rows, a multiple of MR).
-// gscale and qscale (the s8 rows' and queries' f32 scales) are read in s8
-// only.
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 topk_partial_mma_kernel(const char* __restrict__ gallery,
-                        const float* __restrict__ gscale,
                         const char* __restrict__ queries,
-                        const float* __restrict__ qscale,
                         int n_rows, int count, int B, int k, int rows_per_cta,
                         float* __restrict__ part_v, int* __restrict__ part_i) {
-  using Tile = MmaTile<T>;
-  using Acc = typename Tile::Acc;
-  constexpr int MQ = Tile::MQ, MT = Tile::MT, MST = Tile::MST;
+  using Tile = MmaTile;
+  constexpr int MQ = Tile::MQ, MST = Tile::MST;
   constexpr int ROW = Tile::ROW, KSTAGES = Tile::KSTAGES;
   constexpr int QSTR = Tile::QSTR, GSTR = Tile::GSTR;
   constexpr uint32_t STAGE_BYTES = Tile::STAGE_BYTES;
   static_assert(Tile::SMEM <= 232448, "227 KB of shared memory per CTA");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* qs = smem;                      // (MQ, QSTR); f32: hi, then lo
+  unsigned char* qs = smem;                      // (MQ, QSTR) hi, then lo
   unsigned char* ring = smem + Tile::Q_BYTES;                      // MST x (MR, GSTR)
   float* sc = reinterpret_cast<float*>(ring + MST * STAGE_BYTES);  // (MQ, SSTR)
   float* list_v = sc + MQ * SSTR;                                  // (MQ, KMAX)
@@ -144,12 +111,10 @@ topk_partial_mma_kernel(const char* __restrict__ gallery,
     const int r = e / (ROW / 16), c = (e % (ROW / 16)) * 16;
     uint4 v = zero;
     if (r < nq) v = __ldg(reinterpret_cast<const uint4*>(queries + (size_t)(q0 + r) * ROW + c));
-    if constexpr (Tile::F32) {
-      uint4 lo;
-      split_tf32(v.x, v.x, lo.x); split_tf32(v.y, v.y, lo.y);
-      split_tf32(v.z, v.z, lo.z); split_tf32(v.w, v.w, lo.w);
-      *reinterpret_cast<uint4*>(qs + MQ * QSTR + r * QSTR + c) = lo;
-    }
+    uint4 lo;
+    split_tf32(v.x, v.x, lo.x); split_tf32(v.y, v.y, lo.y);
+    split_tf32(v.z, v.z, lo.z); split_tf32(v.w, v.w, lo.w);
+    *reinterpret_cast<uint4*>(qs + MQ * QSTR + r * QSTR + c) = lo;
     *reinterpret_cast<uint4*>(qs + r * QSTR + c) = v;
   }
   // warp w keeps the lists of queries w, w + WARPS, ...
@@ -178,41 +143,23 @@ topk_partial_mma_kernel(const char* __restrict__ gallery,
     }
   };
 
-  // warp tile: queries wm*MQ/2 .. + MQ/2 - 1 (m16 tiles past the batch
-  // skipped), rows wn*32 .. +31 of the row tile
+  // warp tile: queries wm*MQ/2 .. + MQ/2 - 1 (skipped wholly past the
+  // batch), rows wn*32 .. +31 of the row tile
   const int wm = warp >> 2, wn = warp & 3;
   const int wq = wm * (MQ / 2);
-  const int ntile = max(0, min(MT, (nq - wq + 15) / 16));
-  uint32_t a_lane[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    a_lane[i] = smem_u32(qs) + (wq + i * 16 + (lane & 15)) * QSTR + (lane >> 4) * 16;
+  const bool active = wq < nq;
+  const uint32_t a_lane = smem_u32(qs) + (wq + (lane & 15)) * QSTR + (lane >> 4) * 16;
   // B: lanes 0-7 / 8-15 / 16-23 / 24-31 address n-tile 0 bytes 0-15 /
   // n-tile 0 bytes 16-31 / n-tile 1 bytes 0-15 / n-tile 1 bytes 16-31 of a
   // 32-byte K step of a pair of n8 tiles
   const uint32_t b_lane = ring_s +
       (wn * 32 + (lane & 7) + (lane >> 4) * 8) * GSTR + ((lane >> 3) & 1) * 16;
 
-  // s8: the scales of this lane's queries (those of m16 tile i, rows lane/4
-  // and lane/4 + 8); 0 past the batch, whose scores no list takes
-  float q_sc[MT][2];
-  if constexpr (Tile::S8) {
+  float acc[4][4];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = wq + i * 16 + h * 8 + (lane >> 2);
-        q_sc[i][h] = q < nq ? __ldg(qscale + q0 + q) : 0.f;
-      }
-  }
-
-  Acc acc[MT][4][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < MST - 1; ++s) {
@@ -229,19 +176,15 @@ topk_partial_mma_kernel(const char* __restrict__ gallery,
     if (++ld_buf == MST) ld_buf = 0;
 
     const int ks = gs % KSTAGES;
-    if (ntile > 0) {
+    if (active) {
       const uint32_t b_st = b_lane + buf * STAGE_BYTES;
-      // f32: this stage's sums, added to acc (rounded to nearest) once the
+      // this stage's sums, added to acc (rounded to nearest) once the
       // stage is done; a chain of 12 mma drifts by ulps of a 32-term sum
-      float part[MT][4][4];
-      if constexpr (Tile::F32) {
+      float part[4][4];
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-      }
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < MKB / 32; ++kk) {
         uint32_t b[4][2], r[4];
@@ -249,47 +192,26 @@ topk_partial_mma_kernel(const char* __restrict__ gallery,
         b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
         ldmatrix_x4(r, b_st + 16 * GSTR + kk * 32);
         b[2][0] = r[0]; b[2][1] = r[1]; b[3][0] = r[2]; b[3][1] = r[3];
-        if constexpr (Tile::F32) {
-          // 3xTF32: every score runs lo*hi, hi*lo, hi*hi of each k8 step
-          uint32_t bh[4][2], bl[4][2];
+        // 3xTF32: every score runs lo*hi, hi*lo, hi*hi of each k8 step
+        uint32_t bh[4][2], bl[4][2];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) split_tf32(b[j][h], bh[j][h], bl[j][h]);
+          for (int h = 0; h < 2; ++h) split_tf32(b[j][h], bh[j][h], bl[j][h]);
+        uint32_t ah[4], al[4];
+        ldmatrix_x4(ah, a_lane + ks * MKB + kk * 32);
+        ldmatrix_x4(al, a_lane + MQ * QSTR + ks * MKB + kk * 32);
 #pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            if (i < ntile) {
-              uint32_t ah[4], al[4];
-              ldmatrix_x4(ah, a_lane[i] + ks * MKB + kk * 32);
-              ldmatrix_x4(al, a_lane[i] + MQ * QSTR + ks * MKB + kk * 32);
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                mma_tf32(part[i][j], al, bh[j][0], bh[j][1]);
-                mma_tf32(part[i][j], ah, bl[j][0], bl[j][1]);
-                mma_tf32(part[i][j], ah, bh[j][0], bh[j][1]);
-              }
-            }
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            if (i < ntile) {
-              uint32_t a[4];
-              ldmatrix_x4(a, a_lane[i] + ks * MKB + kk * 32);
-#pragma unroll
-              for (int j = 0; j < 4; ++j) mma_step(acc[i][j], a, b[j][0], b[j][1]);
-            }
-          }
+        for (int j = 0; j < 4; ++j) {
+          mma_tf32(part[j], al, bh[j][0], bh[j][1]);
+          mma_tf32(part[j], ah, bl[j][0], bl[j][1]);
+          mma_tf32(part[j], ah, bh[j][0], bh[j][1]);
         }
       }
-      if constexpr (Tile::F32) {
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-      }
+        for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
     }
     if (++buf == MST) buf = 0;
     if (ks < KSTAGES - 1) continue;
@@ -297,32 +219,18 @@ topk_partial_mma_kernel(const char* __restrict__ gallery,
     // the row tile is done: lane l holds queries l/4 and l/4+8, rows 2(l%4)
     // and 2(l%4)+1 of each n8 tile; to the score tile, -1e30 past count
     const int row0 = begin + (gs / KSTAGES) * MR;
+    if (active) {
+      const int q = wq + (lane >> 2);
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      if (i < ntile) {
-        const int q = wq + i * 16 + (lane >> 2);
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn * 32 + j * 8 + (lane & 3) * 2;
+        const bool l0 = row0 + n < count, l1 = row0 + n + 1 < count;
+        *reinterpret_cast<float2*>(sc + q * SSTR + n) =
+            make_float2(l0 ? acc[j][0] : NEG_INF, l1 ? acc[j][1] : NEG_INF);
+        *reinterpret_cast<float2*>(sc + (q + 8) * SSTR + n) =
+            make_float2(l0 ? acc[j][2] : NEG_INF, l1 ? acc[j][3] : NEG_INF);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = wn * 32 + j * 8 + (lane & 3) * 2;
-          const bool l0 = row0 + n < count, l1 = row0 + n + 1 < count;
-          float v[4];
-          if constexpr (Tile::S8) {
-            const float g0 = l0 ? __ldg(gscale + row0 + n) : 0.f;
-            const float g1 = l1 ? __ldg(gscale + row0 + n + 1) : 0.f;
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              v[e] = (static_cast<float>(acc[i][j][e]) * q_sc[i][e >> 1]) * (e & 1 ? g1 : g0);
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) v[e] = acc[i][j][e];
-          }
-          *reinterpret_cast<float2*>(sc + q * SSTR + n) =
-              make_float2(l0 ? v[0] : NEG_INF, l1 ? v[1] : NEG_INF);
-          *reinterpret_cast<float2*>(sc + (q + 8) * SSTR + n) =
-              make_float2(l0 ? v[2] : NEG_INF, l1 ? v[3] : NEG_INF);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-        }
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
       }
     }
     __syncthreads();
@@ -348,23 +256,20 @@ topk_partial_mma_kernel(const char* __restrict__ gallery,
   }
 }
 
-// Pass 1 on tensor cores: grid (ceil(B / MQ), chunks), MQ of MmaTile<T>.
-// Returns the CUDA error of setting the shared-memory size or of the
-// launch, as an int.
-template <typename T>
-int launch_partial_mma(int chunks, cudaStream_t s, const void* gallery,
-                       const void* gscale, const void* queries,
-                       const void* qscale, int n_rows, int count, int B, int k,
-                       int rows_per_cta, void* part_v, void* part_i) {
-  constexpr uint32_t smem = MmaTile<T>::SMEM;
+// The f32 pass 1 on tensor cores: grid (ceil(B / MQ), chunks). Returns
+// the CUDA error of setting the shared-memory size or of the launch, as an
+// int.
+int launch_partial_mma(int chunks, cudaStream_t s, const void* gallery, const void* queries,
+                       int n_rows, int count, int B, int k, int rows_per_cta,
+                       void* part_v, void* part_i) {
+  constexpr uint32_t smem = MmaTile::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      topk_partial_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int mq = MmaTile<T>::MQ;
+  constexpr int mq = MmaTile::MQ;
   const dim3 grid((B + mq - 1) / mq, chunks);
-  topk_partial_mma_kernel<T><<<grid, THREADS, smem, s>>>(
-      static_cast<const char*>(gallery), static_cast<const float*>(gscale),
-      static_cast<const char*>(queries), static_cast<const float*>(qscale),
+  topk_partial_mma_kernel<<<grid, THREADS, smem, s>>>(
+      static_cast<const char*>(gallery), static_cast<const char*>(queries),
       n_rows, count, B, k, rows_per_cta,
       static_cast<float*>(part_v), static_cast<int*>(part_i));
   return static_cast<int>(cudaGetLastError());

@@ -15,12 +15,15 @@ and a wrapper:
     its wrapper, launching ``ops/csrc/cosine_topk_int8.cu`` (the port of
     ``cosine_topk_int8_pallas``) for CUDA tensors.
 
-Batches above 8 of every search run one tensor-core pass 1,
-``topk_partial_mma_kernel`` in ``ops/csrc/topk_mma.cuh``, shared by both
-kernels: ``mma.sync`` in bf16 or s8, and in f32 three TF32 passes
-(3xTF32, which keeps f32's digits where one TF32 pass would not);
-batches up to 8 run each kernel's CUDA-core pass 1. ``_mma_queries`` is
-that rule. At k > 1 the CUDA-core pass 1 buffers the scores that pass its
+Batches above 8 run a tensor-core pass 1: in bf16 and int8 one kernel
+shared by both searches, ``topk_partial_wgmma_kernel`` in
+``ops/csrc/topk_wgmma.cuh`` (``wgmma`` over 64 queries a CTA, the gallery
+streamed by TMA, the top-k selection on warps of its own while the next
+row tile's products run); in f32 ``topk_partial_mma_kernel`` in
+``ops/csrc/topk_mma.cuh`` (three TF32 passes on ``mma.sync``, 3xTF32,
+which keeps f32's digits where one TF32 pass would not). Batches up to 8
+run each kernel's CUDA-core pass 1. ``_mma_queries`` is that rule. At
+k > 1 the CUDA-core pass 1 buffers the scores that pass its
 thresholds and merges them into its lists 32 at a time, over chunks twice
 as long as at k = 1 (``_search_plan``), and the one pass 2 of every search
 keeps only the partials at or above a lower bound on each query's k-th
@@ -61,10 +64,12 @@ NEG_INF = -1e30
 DIM = 512           # embedding width the kernel is built for; narrower
 #                     widths are zero-padded to it (see the module docstring)
 MAX_K = 64          # the server caps /search at k <= 64
-# batches from MMA_MIN_B on take the tensor-core pass 1 (topk_mma.cuh
-# topk_partial_mma_kernel): MMA_QUERIES queries (MMA_QUERIES_F32 in f32,
-# whose 64-query tile does not fit in shared memory) and row tiles of
-# MMA_ROWS per CTA
+# batches from MMA_MIN_B on take a tensor-core pass 1 (bf16 and int8:
+# topk_wgmma.cuh topk_partial_wgmma_kernel, the wgmma's M = MMA_QUERIES
+# queries and N = MMA_ROWS rows a tile; f32: topk_mma.cuh
+# topk_partial_mma_kernel, MMA_QUERIES_F32 queries, whose 64-query tile
+# does not fit in shared memory, and MMA_ROWS rows a tile), one partial
+# list a query per CTA, so chunks partials a query
 MMA_MIN_B = 9
 MMA_QUERIES = 64
 MMA_QUERIES_F32 = 32
@@ -318,7 +323,7 @@ def _library():
     from facekit_torch.ops import _build
     fn = _build.load("cosine_topk").facekit_cosine_topk
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -329,7 +334,7 @@ def _library_int8():
     from facekit_torch.ops import _build
     fn = _build.load("cosine_topk_int8").facekit_cosine_topk_int8
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -353,8 +358,8 @@ def _cosine_topk_cuda(gallery, queries, count, k):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(gallery.data_ptr(), queries.data_ptr(),
-                 int(gallery.dtype == torch.bfloat16), n_rows, count, b, k,
-                 rows_per_cta, chunks, part_v.data_ptr(), part_i.data_ptr(),
+                 int(gallery.dtype == torch.bfloat16), n, n_rows, count, b,
+                 k, rows_per_cta, chunks, part_v.data_ptr(), part_i.data_ptr(),
                  out_v.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"cosine_topk: kernel launch failed with CUDA "
@@ -381,7 +386,7 @@ def _cosine_topk_int8_cuda(gallery_q, gallery_scale, queries, count, k):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(gallery_q.data_ptr(), gallery_scale.data_ptr(),
-                 qq.data_ptr(), qs.data_ptr(), n_rows, count, b, k,
+                 qq.data_ptr(), qs.data_ptr(), n, n_rows, count, b, k,
                  rows_per_cta, chunks, part_v.data_ptr(), part_i.data_ptr(),
                  out_v.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:

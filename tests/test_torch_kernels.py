@@ -7,6 +7,8 @@ without one; on a card run them with
 (``tests/conftest.py`` imports JAX).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -258,6 +260,153 @@ def test_int8_kernel_ties_and_checks(cuda_device, b):
     with pytest.raises(TypeError):
         cosine_topk_int8(gq, gs, torch.tensor(q, device=cuda_device)
                          .to(torch.bfloat16), N, 1)
+
+
+# the wgmma pass 1 (bf16 and int8 at B > 8) over a gallery whose plan gives
+# each CTA several 128-row tiles: at B <= 64 105 chunks of 384 rows, at
+# B = 257 25 chunks of 1,664 rows for each of 5 query tiles
+N_WG = 40000
+WG_TILE = 128
+
+
+@functools.cache
+def _wg_gallery():
+    return _data(29, n=N_WG, b=1)[0]
+
+
+def _wg_search(kind, g, q, count, k, device):
+    """A bf16 or int8 search of f32 rows ``g`` and queries ``q`` against the
+    plain version; checks that the kernel launched once. int8 bit for bit;
+    bf16 scores within 1e-5 and indices equal wherever the plain scores lie
+    more than 1e-5 from their neighbours (its order among closer scores is
+    the sums' rounding). Returns the kernel's (vals, idx)."""
+    fn = cosine_topk_int8 if kind == "int8" else cosine_topk
+    if kind == "int8":
+        args = (*(t.to(device) for t in _int8_gallery(g)),
+                torch.tensor(q, device=device))
+        plain = cosine_topk_int8_reference(*args, count, k)
+    else:
+        args = (torch.tensor(g, device=device).bfloat16(),
+                torch.tensor(q, device=device).bfloat16())
+        plain = cosine_topk_reference(*args, count, k + 1)
+    before = fn.launches
+    vals, idx = fn(*args, count, k)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    kv, ki = vals.cpu().numpy(), idx.cpu().numpy()
+    pv, pi = (t.cpu().numpy() for t in plain)
+    if kind == "int8":
+        np.testing.assert_array_equal(ki, pi)
+        np.testing.assert_array_equal(kv, pv)
+        return vals, idx
+    np.testing.assert_allclose(kv, pv[:, :k], rtol=0, atol=1e-5)
+    gap = np.full(pv.shape, np.inf)
+    gap[:, :-1] = pv[:, :-1] - pv[:, 1:]
+    gap[:, 1:] = np.minimum(gap[:, 1:], gap[:, :-1])
+    clear = gap[:, :k] > 1e-5
+    np.testing.assert_array_equal(np.where(clear, ki, -1),
+                                  np.where(clear, pi[:, :k], -1))
+    return vals, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("b", [9, 33, 63, 64, 65, 128, 257])
+@pytest.mark.parametrize("k", [1, 5, 64])
+@pytest.mark.parametrize("count", [150 * WG_TILE - 1, 150 * WG_TILE,
+                                   150 * WG_TILE + 1])
+def test_wgmma_pass1_matches_plain(cuda_device, kind, b, k, count):
+    """The wgmma pass 1 at batches that fill part of a 64-query tile, one
+    tile, one tile and one query, two tiles and five; ``count`` at a row
+    tile's (and at B <= 64 a chunk's) end, one below it and one past it."""
+    rng = np.random.default_rng(b * 131 + k)
+    q = rng.normal(size=(b, 512))
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    _wg_search(kind, _wg_gallery(), q, count, k, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("n,count", [(N_WG, 100), (100, 100), (100, 90),
+                                     (WG_TILE, WG_TILE), (1000, 1000)])
+@pytest.mark.parametrize("k", [1, 64])
+def test_wgmma_pass1_short_galleries(cuda_device, kind, n, count, k):
+    """A count below one row tile of a large gallery; galleries of fewer
+    rows than one stage (the tensor map fills the rest of the box with
+    zeros), of one stage, and of a few stages with a ragged last tile."""
+    g, q = _data(31 + n + count + k, n=n, b=20)
+    _wg_search(kind, g, q, count, k, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("b", [16, 65])
+def test_wgmma_pass1_equal_rows(cuda_device, kind, b):
+    """Query j is row lo_j of the gallery, duplicated at lo_j + 129 (the
+    next row tile of the same CTA, so the other score tile, and another
+    column of it) and at lo_j + 40 * 384 + 77 (another chunk); the three
+    scores must be bit-equal and come back lowest index first."""
+    g = _wg_gallery().copy()
+    lo = 5 + np.arange(b)
+    mid, far = lo + WG_TILE + 1, lo + 40 * 384 + 77
+    g[mid] = g[lo]
+    g[far] = g[lo]
+    vals, idx = _wg_search(kind, g, g[lo], N_WG, 3, cuda_device)
+    np.testing.assert_array_equal(idx.cpu().numpy(),
+                                  np.stack([lo, mid, far], 1))
+    assert torch.equal(vals, vals[:, :1].expand(-1, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+def test_wgmma_gallery_map_cache(cuda_device, kind):
+    """The wgmma pass 1 keeps a tensor map per gallery (by address, rows
+    and type): two galleries of one shape searched in turns each give
+    their own top k, the first again bit for bit; a gallery rewritten in
+    place (the same address) is read as it now is; and a view of its first
+    rows (the same address, fewer rows) is searched over those rows."""
+    # multiples of 1/16, exact in bf16: every score is an exact sum, so
+    # bf16 scores and indices equal the plain version's too
+    rng = np.random.default_rng(41)
+    g1, g2 = ((rng.integers(-16, 17, (5000, 512)) / 16).astype(np.float32)
+              for _ in range(2))
+    q = (rng.integers(-16, 17, (24, 512)) / 16).astype(np.float32)
+
+    def prep(g):
+        if kind == "int8":
+            return tuple(t.to(cuda_device) for t in _int8_gallery(g))
+        return (torch.tensor(g, device=cuda_device).bfloat16(),)
+
+    def search(gal, count, k=8):
+        if kind == "int8":
+            return cosine_topk_int8(*gal, torch.tensor(q, device=cuda_device),
+                                    count, k)
+        return cosine_topk(*gal, torch.tensor(q, device=cuda_device)
+                           .bfloat16(), count, k)
+
+    def plain(gal, count, k=8):
+        if kind == "int8":
+            return cosine_topk_int8_reference(
+                *gal, torch.tensor(q, device=cuda_device), count, k)
+        return cosine_topk_reference(*gal, torch.tensor(
+            q, device=cuda_device).bfloat16(), count, k)
+
+    a, b = prep(g1), prep(g2)
+    got_a, got_b, again = search(a, 5000), search(b, 5000), search(a, 5000)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a[1], again[1]) and torch.equal(got_a[0], again[0])
+    assert not torch.equal(got_a[1], got_b[1])
+    for gal in (a, b):
+        got, ref = search(gal, 4321), plain(gal, 4321)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    for t, s in zip(a, b):
+        t.copy_(s)
+    got, ref = search(a, 5000), plain(b, 5000)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    view = tuple(t[:300] for t in a)
+    got, ref = search(view, 300, 64), plain(view, 300, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.cuda

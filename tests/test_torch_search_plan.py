@@ -2,8 +2,13 @@
 
 ``_search_plan`` and the route rule ``_mma_queries`` are pure functions of
 the shapes and the card's SM count, so they are checked here on the CPU;
-the kernels themselves are in tests/test_torch_kernels.py. Imports neither
-JAX nor facekit.
+the kernels themselves are in tests/test_torch_kernels.py. At B > 8 the
+bf16 and int8 searches run ``topk_partial_wgmma_kernel`` (topk_wgmma.cuh:
+the wgmma's M = MMA_QUERIES queries a CTA, N = MMA_ROWS rows a tile) and
+f32 runs ``topk_partial_mma_kernel`` (topk_mma.cuh: MMA_QUERIES_F32
+queries a CTA, MMA_ROWS rows a tile); each CTA writes one partial list a
+query, so a query has ``chunks`` partials. Imports neither JAX nor
+facekit.
 """
 
 import pytest
