@@ -63,22 +63,21 @@
 //    chunks' first entries. That fold lives in topk_fold.cuh, shared with
 //    the int8 search (cosine_topk_int8.cu).
 //
-// At B > 8 both types run a tensor-core pass 1 over 128-row tiles with
-// one list per query per CTA, which writes the same (B, chunks, k)
-// partials: bf16 the wgmma kernel that the int8 search shares
-// (topk_wgmma.cuh: m64n128k16 over 64 queries a CTA, the gallery by TMA,
-// the selection on warps of its own, overlapped with the next tile's
-// products), f32 its own (topk_mma.cuh: 3xTF32 on mma.sync m16n8k8, 32
-// queries per CTA: one TF32 pass alone misses the plain version's 1e-4,
-// three keep f32's digits).
+// At B > 8 both types run the tensor-core pass 1 that the int8 search
+// shares (topk_wgmma.cuh: the gallery by TMA, the selection on warps of its
+// own, overlapped with the next row tile's products), over 128-row tiles
+// with one list per query per CTA, which writes the same (B, chunks, k)
+// partials: bf16 on wgmma m64n128k16 over 64 queries a CTA; f32 as 3xTF32
+// (one TF32 pass alone misses the plain version's 1e-5, three keep f32's
+// digits) on wgmma m64n32k8 with the gallery's rows as A and 32 queries a
+// CTA as B.
 //
-// What it leaves for later: the f32 pass 1 on wgmma TF32; at B = 8 the
-// k = 64 pass 1 still takes about 1.3-1.8x its k = 1 time (PERF.md).
+// What it leaves for later: at B = 8 the k = 64 pass 1 still takes about
+// 1.3-1.8x its k = 1 time (PERF.md).
 
 #include <type_traits>
 
 #include "topk_fold.cuh"
-#include "topk_mma.cuh"
 #include "topk_wgmma.cuh"
 
 namespace {
@@ -254,8 +253,8 @@ int launch_partial_tiled(int chunks, cudaStream_t s, const void* gallery,
 // has checked shapes and alignment: gallery (gallery_rows >= n_rows, 512)
 // and queries (B, 512) contiguous and 16-byte aligned, 1 <= k <= 64,
 // B >= 1, rows_per_cta a multiple of 256 (of 128 at B > 8, which runs
-// topk_partial_wgmma_kernel in bf16 and topk_partial_mma_kernel in f32),
-// partials (B, chunks, k).
+// topk_partial_wgmma_kernel<uint16_t> in bf16, <float> in f32), partials
+// (B, chunks, k).
 extern "C" int facekit_cosine_topk(const void* gallery, const void* queries,
                                    int is_bf16, int gallery_rows, int n_rows,
                                    int count, int B, int k, int rows_per_cta,
@@ -267,8 +266,9 @@ extern "C" int facekit_cosine_topk(const void* gallery, const void* queries,
     err = is_bf16 ? launch_partial_wgmma<uint16_t>(chunks, s, gallery, gallery_rows, nullptr,
                                                    queries, nullptr, n_rows, count, B, k,
                                                    rows_per_cta, part_v, part_i)
-                  : launch_partial_mma(chunks, s, gallery, queries, n_rows, count, B, k,
-                                       rows_per_cta, part_v, part_i);
+                  : launch_partial_wgmma<float>(chunks, s, gallery, gallery_rows, nullptr,
+                                                queries, nullptr, n_rows, count, B, k,
+                                                rows_per_cta, part_v, part_i);
   } else if (is_bf16) {
     err = launch_partial_tiled<true>(chunks, s, gallery, queries, n_rows, count, B, k,
                                      rows_per_cta, part_v, part_i);

@@ -3,12 +3,13 @@
 // copies into another CTA of the cluster and a split cluster barrier, the
 // proxy fence, wgmma.mma_async m64n64k16 and m64n128k16 (bf16 in, f32
 // accumulators) and m64nNk32 (s8 in, s32 accumulators), both operands from
-// shared memory through matrix descriptors, and on the host the encoding of
-// tiled and im2col tensor maps through the driver's entry points, so that a
-// library built with nvcc needs no link flag for the driver. Used by the
-// fused IR block (ir_block.cu), the s8 conv's tensor-core route
-// (conv_s8.cu) and the searches' tensor-core pass 1 in bf16 and s8
-// (topk_wgmma.cuh).
+// shared memory through matrix descriptors, and m64nNk8 (tf32 in, f32
+// accumulators) with A from registers; and on the host the encoding of
+// tiled (bf16, 8-bit, f32) and im2col tensor maps through the driver's
+// entry points, so that a library built with nvcc needs no link flag for
+// the driver. Used by the fused IR block (ir_block.cu), the s8 conv's
+// tensor-core route (conv_s8.cu) and the searches' tensor-core pass 1 in
+// bf16, s8 and f32 (topk_wgmma.cuh).
 
 #pragma once
 
@@ -383,6 +384,50 @@ __device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d = (scale_d ? d : 0) + a (64 x 8 tf32, from registers) * b (8 x N,
+// K-major: N rows of 8 f32 in shared memory), f32 accumulators; the
+// tensor cores read the top 19 bits of each operand. A warpgroup's thread
+// holds a0 (row 16*(warp%4) + lane/4, column lane%4), a1 (that row + 8),
+// a2 (the first row, column lane%4 + 4) and a3, as mma.sync m16n8k8 tf32
+// lays out a warp's A; d as wgmma_m64n64k16 (N/8 n8 blocks of 4
+// registers). N: 24 or 32, the query tiles of the f32 search's pass 1.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<24>(float (&d)[12], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // ---- host: tensor maps ---------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -412,22 +457,36 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 2-D bf16 tensor map over `rows` rows of `cols` elements (row-major,
-// rows 16-byte aligned), boxes of box_rows x box_cols with the 128-byte
-// swizzle (box_cols * 2 bytes must be 128). Returns a CUDA error code.
-inline int encode_bf16_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
-                          uint32_t box_rows, uint32_t box_cols) {
+// A 2-D tensor map of `type` (elements of esize bytes) over `rows` rows of
+// `cols` elements (row-major, rows 16-byte aligned), boxes of box_rows x
+// box_cols with the 128-byte swizzle (box_cols * esize bytes must be 128);
+// boxes past either end fill with zeros. Returns a CUDA error code.
+inline int encode_rows_2d(CUtensorMap* map, CUtensorMapDataType type, uint32_t esize,
+                          const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
+                          uint32_t box_cols) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint64_t strides[1] = {cols * esize};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 rows in boxes of box_rows x box_cols (box_cols * 2 bytes must be 128)
+inline int encode_bf16_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
+                          uint32_t box_rows, uint32_t box_cols) {
+  return encode_rows_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, cols, box_rows,
+                        box_cols);
+}
+
+// f32 rows in boxes of box_rows x 32 floats
+inline int encode_f32_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
+                         uint32_t box_rows) {
+  return encode_rows_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows, cols, box_rows, 32);
 }
 
 typedef CUresult (*EncodeIm2colFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -465,22 +524,10 @@ inline CUtensorMapSwizzle swizzle_of(uint32_t bytes) {
                        : CU_TENSOR_MAP_SWIZZLE_NONE;
 }
 
-// A 2-D 8-bit tensor map over `rows` rows of `cols` bytes (row-major, rows
-// 16-byte aligned), boxes of box_rows x 128 bytes with the 128-byte
-// swizzle; boxes past either end fill with zeros. Returns a CUDA error code.
+// 8-bit rows in boxes of box_rows x 128 bytes
 inline int encode_s8_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
                         uint32_t box_rows) {
-  const EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols};
-  const cuuint32_t box[2] = {128, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode_rows_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, rows, cols, box_rows, 128);
 }
 
 // An im2col tensor map over x (n, h, w, c) 8-bit NHWC: the bounding box of

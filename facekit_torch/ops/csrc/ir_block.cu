@@ -94,11 +94,11 @@
 // tiles takes several times its tensor-core time (PERF.md, section 6).
 //
 // f32 (ir_block_f32_kernel): warp-level tensor cores as 3xTF32, mma.sync
-// m16n8k8 tf32 -> f32 (the f32 gallery search's scheme, topk_mma.cuh). One
-// TF32 product keeps 11 bits of each operand, which would miss the plain
-// version's f32 convs by about 1e-3; so each operand splits into hi + lo
-// and lo*hi + hi*lo + hi*hi go into the accumulator, small terms first,
-// about 21 bits of each product.
+// m16n8k8 tf32 -> f32 (the f32 gallery search runs the same 3xTF32 on
+// wgmma, topk_wgmma.cuh). One TF32 product keeps 11 bits of each
+// operand, which would miss the plain version's f32 convs by about
+// 1e-3; so each operand splits into hi + lo and lo*hi + hi*lo + hi*hi go
+// into the accumulator, small terms first, about 21 bits of each product.
 //  * The band's pixels are split into m16 tiles. The 8 warps are WM (pixels)
 //    x 2 (32 channels each) x WK = 4/WM (split-K over the k8 steps of a
 //    stage), WM chosen per conv so that a warp holds 2-3 tiles (MT at

@@ -1,9 +1,10 @@
 // Warp-level tensor-core helpers for sm_90a, as inline PTX: cp.async
 // copies from global to shared memory, ldmatrix, mma.sync m16n8k8 (tf32 in,
 // f32 accumulators), and two splits of an f32 into two tf32 for 3xTF32.
-// Shared by the fused IR block (ir_block.cu), the f32 search's tensor-core
-// pass 1 (topk_mma.cuh), and for smem_u32 the s8 conv (conv_s8.cu) and the
-// bf16 and int8 searches' pass 1 (topk_wgmma.cuh).
+// Used by the fused IR block (ir_block.cu: its f32 kernel on mma.sync,
+// split_tf32_trunc), by the searches' wgmma pass 1 (topk_wgmma.cuh:
+// split_tf32 for the f32 gallery's A fragments and its query tile,
+// smem_u32) and for smem_u32 by the s8 conv (conv_s8.cu).
 // Functions only, no constants, so that no name clashes with a kernel's
 // own.
 

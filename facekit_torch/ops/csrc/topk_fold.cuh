@@ -18,7 +18,8 @@
 // per query (`topk_merge_kernel`), at k > 1 one CTA per query that prunes
 // below a bound taken from the chunks' sorted lists
 // (`topk_prune_merge_kernel`). Both serve the tensor-core pass 1 of
-// topk_mma.cuh (B > 8) too.
+// topk_wgmma.cuh (B > 8, every type) too, whose selection warps use
+// `warp_offer`, `warp_append` and `warp_flush`.
 
 #pragma once
 

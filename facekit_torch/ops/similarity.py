@@ -15,13 +15,14 @@ and a wrapper:
     its wrapper, launching ``ops/csrc/cosine_topk_int8.cu`` (the port of
     ``cosine_topk_int8_pallas``) for CUDA tensors.
 
-Batches above 8 run a tensor-core pass 1: in bf16 and int8 one kernel
-shared by both searches, ``topk_partial_wgmma_kernel`` in
-``ops/csrc/topk_wgmma.cuh`` (``wgmma`` over 64 queries a CTA, the gallery
-streamed by TMA, the top-k selection on warps of its own while the next
-row tile's products run); in f32 ``topk_partial_mma_kernel`` in
-``ops/csrc/topk_mma.cuh`` (three TF32 passes on ``mma.sync``, 3xTF32,
-which keeps f32's digits where one TF32 pass would not). Batches up to 8
+Batches above 8 run a tensor-core pass 1 that every type shares,
+``topk_partial_wgmma_kernel`` in ``ops/csrc/topk_wgmma.cuh`` (``wgmma``,
+the gallery streamed by TMA, the top-k selection on warps of its own while
+the next row tile's products run): bf16 and int8 over 64 queries a CTA;
+f32 over 32 (``MMA_QUERIES_F32``) as three TF32 passes (3xTF32, which
+keeps f32's digits where one TF32 pass would not), the gallery's rows as
+the product's A from registers and the queries as its B
+(``pass1_layout`` mirrors each type's shared memory). Batches up to 8
 run each kernel's CUDA-core pass 1. ``_mma_queries`` is that rule. At
 k > 1 the CUDA-core pass 1 buffers the scores that pass its
 thresholds and merges them into its lists 32 at a time, over chunks twice
@@ -64,16 +65,57 @@ NEG_INF = -1e30
 DIM = 512           # embedding width the kernel is built for; narrower
 #                     widths are zero-padded to it (see the module docstring)
 MAX_K = 64          # the server caps /search at k <= 64
-# batches from MMA_MIN_B on take a tensor-core pass 1 (bf16 and int8:
-# topk_wgmma.cuh topk_partial_wgmma_kernel, the wgmma's M = MMA_QUERIES
-# queries and N = MMA_ROWS rows a tile; f32: topk_mma.cuh
-# topk_partial_mma_kernel, MMA_QUERIES_F32 queries, whose 64-query tile
-# does not fit in shared memory, and MMA_ROWS rows a tile), one partial
-# list a query per CTA, so chunks partials a query
+# batches from MMA_MIN_B on take the tensor-core pass 1 (topk_wgmma.cuh
+# topk_partial_wgmma_kernel): bf16 and int8 with MMA_QUERIES queries a CTA
+# (the wgmma's M), f32 with MMA_QUERIES_F32 (its N: 64 f32 queries split
+# into hi and lo would take 262,144 bytes of shared memory, more than a CTA
+# may have), each over row tiles of MMA_ROWS rows; one partial list a
+# query per CTA, so chunks partials a query
 MMA_MIN_B = 9
 MMA_QUERIES = 64
 MMA_QUERIES_F32 = 32
 MMA_ROWS = 128
+# pass 1's shared memory (topk_wgmma.cuh WgTile): what a CTA may take, a
+# gallery stage (MMA_ROWS rows x 128 bytes of K), the most stages in the
+# ring, the mbarriers' bytes (a full and an empty one a slot of the most,
+# a full and an empty one of two score tiles), the swizzled operands'
+# alignment
+PASS1_SMEM = 232448
+PASS1_STAGE = MMA_ROWS * 128
+PASS1_MAX_STAGES = 8
+PASS1_BARRIERS = 8 * (2 * PASS1_MAX_STAGES + 4)
+PASS1_ALIGN = 1024
+
+
+def pass1_layout(dtype: torch.dtype, k: int) -> dict:
+    """The shared memory of the tensor-core pass 1 for a gallery of
+    ``dtype`` at top ``k``, as ``WgTile`` lays it out from the CTA's
+    1024-aligned base (the C side static_asserts the same numbers):
+    {region: (offset, bytes)} for the query tile (f32: a hi and a lo tile),
+    the ring, the score tiles (two; one in f32 at k > 1), the lists, at
+    k > 1 the buffers, the buffers' fills and the barriers; ``stages`` in
+    the ring (what is left, at most PASS1_MAX_STAGES) and ``total``
+    bytes."""
+    f32 = dtype == torch.float32
+    per_cta = MMA_QUERIES_F32 if f32 else MMA_QUERIES
+    row = DIM * torch.empty((), dtype=dtype).element_size()
+    score_tiles = 1 if f32 and k > 1 else 2
+    sizes = {"queries": (2 if f32 else 1) * per_cta * row,
+             "ring": 0,
+             "scores": score_tiles * per_cta * MMA_ROWS * 4,
+             "lists": per_cta * k * 8,
+             "buffers": per_cta * 32 * 8 if k > 1 else 0,
+             "fills": per_cta * 4,
+             "barriers": PASS1_BARRIERS}
+    stages = min((PASS1_SMEM - sum(sizes.values())) // PASS1_STAGE,
+                 PASS1_MAX_STAGES)
+    sizes["ring"] = stages * PASS1_STAGE
+    out, at = {}, 0
+    for name, n in sizes.items():
+        out[name] = (at, n)
+        at += n
+    out["stages"], out["total"] = stages, at
+    return out
 
 
 def cosine_topk_reference(gallery: torch.Tensor, queries: torch.Tensor,
@@ -280,9 +322,10 @@ def _check_int8(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
 
 def _mma_queries(dtype: torch.dtype, b: int) -> int:
     """Queries per CTA of the tensor-core pass 1 that a search over a
-    gallery of ``dtype`` (bfloat16, float32 or int8) runs at batch ``b``,
-    or 0 where it runs its CUDA-core pass 1: the C entry points' rule,
-    B > 8 on tensor cores."""
+    gallery of ``dtype`` (bfloat16, float32 or int8) runs at batch ``b``
+    (f32 its own tile: the queries are the product's N there), or 0 where
+    it runs its CUDA-core pass 1: the C entry points' rule, B > 8 on
+    tensor cores."""
     if b < MMA_MIN_B:
         return 0
     return MMA_QUERIES_F32 if dtype == torch.float32 else MMA_QUERIES

@@ -262,9 +262,11 @@ def test_int8_kernel_ties_and_checks(cuda_device, b):
                          .to(torch.bfloat16), N, 1)
 
 
-# the wgmma pass 1 (bf16 and int8 at B > 8) over a gallery whose plan gives
+# the wgmma pass 1 (every type at B > 8) over a gallery whose plan gives
 # each CTA several 128-row tiles: at B <= 64 105 chunks of 384 rows, at
-# B = 257 25 chunks of 1,664 rows for each of 5 query tiles
+# B = 257 25 chunks of 1,664 rows for each of 5 query tiles (f32, 32
+# queries a CTA: at B <= 32 105 chunks, at B = 33-64 52 chunks of 768 rows,
+# at B = 257 9 query tiles of 14 chunks of 2,944 rows)
 N_WG = 40000
 WG_TILE = 128
 
@@ -275,19 +277,21 @@ def _wg_gallery():
 
 
 def _wg_search(kind, g, q, count, k, device):
-    """A bf16 or int8 search of f32 rows ``g`` and queries ``q`` against the
-    plain version; checks that the kernel launched once. int8 bit for bit;
-    bf16 scores within 1e-5 and indices equal wherever the plain scores lie
-    more than 1e-5 from their neighbours (its order among closer scores is
-    the sums' rounding). Returns the kernel's (vals, idx)."""
+    """A bf16, f32 or int8 search of f32 rows ``g`` and queries ``q``
+    against the plain version; checks that the kernel launched once. int8
+    bit for bit; bf16 and f32 scores within 1e-5 and indices equal
+    wherever the plain scores lie more than 1e-5 from their neighbours
+    (their order among closer scores is the sums' rounding). Returns the
+    kernel's (vals, idx)."""
     fn = cosine_topk_int8 if kind == "int8" else cosine_topk
     if kind == "int8":
         args = (*(t.to(device) for t in _int8_gallery(g)),
                 torch.tensor(q, device=device))
         plain = cosine_topk_int8_reference(*args, count, k)
     else:
-        args = (torch.tensor(g, device=device).bfloat16(),
-                torch.tensor(q, device=device).bfloat16())
+        td = getattr(torch, kind)
+        args = (torch.tensor(g, device=device).to(td),
+                torch.tensor(q, device=device).to(td))
         plain = cosine_topk_reference(*args, count, k + 1)
     before = fn.launches
     vals, idx = fn(*args, count, k)
@@ -310,15 +314,17 @@ def _wg_search(kind, g, q, count, k, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8"])
 @pytest.mark.parametrize("b", [9, 33, 63, 64, 65, 128, 257])
 @pytest.mark.parametrize("k", [1, 5, 64])
 @pytest.mark.parametrize("count", [150 * WG_TILE - 1, 150 * WG_TILE,
                                    150 * WG_TILE + 1])
 def test_wgmma_pass1_matches_plain(cuda_device, kind, b, k, count):
     """The wgmma pass 1 at batches that fill part of a 64-query tile, one
-    tile, one tile and one query, two tiles and five; ``count`` at a row
-    tile's (and at B <= 64 a chunk's) end, one below it and one past it."""
+    tile, one tile and one query, two tiles and five (f32, 32 queries a
+    tile: part of one, two in part, two, three in part, four, nine);
+    ``count`` at a row tile's (and at B <= 64 a chunk's) end, one below it
+    and one past it."""
     rng = np.random.default_rng(b * 131 + k)
     q = rng.normal(size=(b, 512))
     q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
@@ -326,7 +332,7 @@ def test_wgmma_pass1_matches_plain(cuda_device, kind, b, k, count):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8"])
 @pytest.mark.parametrize("n,count", [(N_WG, 100), (100, 100), (100, 90),
                                      (WG_TILE, WG_TILE), (1000, 1000)])
 @pytest.mark.parametrize("k", [1, 64])
@@ -339,7 +345,7 @@ def test_wgmma_pass1_short_galleries(cuda_device, kind, n, count, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8"])
 @pytest.mark.parametrize("b", [16, 65])
 def test_wgmma_pass1_equal_rows(cuda_device, kind, b):
     """Query j is row lo_j of the gallery, duplicated at lo_j + 129 (the
@@ -358,15 +364,16 @@ def test_wgmma_pass1_equal_rows(cuda_device, kind, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8"])
 def test_wgmma_gallery_map_cache(cuda_device, kind):
     """The wgmma pass 1 keeps a tensor map per gallery (by address, rows
     and type): two galleries of one shape searched in turns each give
     their own top k, the first again bit for bit; a gallery rewritten in
     place (the same address) is read as it now is; and a view of its first
     rows (the same address, fewer rows) is searched over those rows."""
-    # multiples of 1/16, exact in bf16: every score is an exact sum, so
-    # bf16 scores and indices equal the plain version's too
+    # multiples of 1/16, exact in bf16 and in a tf32 hi: every score is an
+    # exact sum, so bf16 and f32 scores and indices equal the plain
+    # version's too
     rng = np.random.default_rng(41)
     g1, g2 = ((rng.integers(-16, 17, (5000, 512)) / 16).astype(np.float32)
               for _ in range(2))
@@ -375,21 +382,21 @@ def test_wgmma_gallery_map_cache(cuda_device, kind):
     def prep(g):
         if kind == "int8":
             return tuple(t.to(cuda_device) for t in _int8_gallery(g))
-        return (torch.tensor(g, device=cuda_device).bfloat16(),)
+        return (torch.tensor(g, device=cuda_device).to(getattr(torch, kind)),)
 
     def search(gal, count, k=8):
         if kind == "int8":
             return cosine_topk_int8(*gal, torch.tensor(q, device=cuda_device),
                                     count, k)
         return cosine_topk(*gal, torch.tensor(q, device=cuda_device)
-                           .bfloat16(), count, k)
+                           .to(gal[0].dtype), count, k)
 
     def plain(gal, count, k=8):
         if kind == "int8":
             return cosine_topk_int8_reference(
                 *gal, torch.tensor(q, device=cuda_device), count, k)
         return cosine_topk_reference(*gal, torch.tensor(
-            q, device=cuda_device).bfloat16(), count, k)
+            q, device=cuda_device).to(gal[0].dtype), count, k)
 
     a, b = prep(g1), prep(g2)
     got_a, got_b, again = search(a, 5000), search(b, 5000), search(a, 5000)

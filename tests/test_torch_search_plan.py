@@ -2,13 +2,12 @@
 
 ``_search_plan`` and the route rule ``_mma_queries`` are pure functions of
 the shapes and the card's SM count, so they are checked here on the CPU;
-the kernels themselves are in tests/test_torch_kernels.py. At B > 8 the
-bf16 and int8 searches run ``topk_partial_wgmma_kernel`` (topk_wgmma.cuh:
-the wgmma's M = MMA_QUERIES queries a CTA, N = MMA_ROWS rows a tile) and
-f32 runs ``topk_partial_mma_kernel`` (topk_mma.cuh: MMA_QUERIES_F32
-queries a CTA, MMA_ROWS rows a tile); each CTA writes one partial list a
-query, so a query has ``chunks`` partials. Imports neither JAX nor
-facekit.
+the kernels themselves are in tests/test_torch_kernels.py. At B > 8 every
+search runs ``topk_partial_wgmma_kernel`` (topk_wgmma.cuh): bf16 and int8
+with the wgmma's M = MMA_QUERIES queries a CTA and N = MMA_ROWS rows a
+tile, f32 with the roles swapped (the rows as M, two warpgroups of 64,
+MMA_QUERIES_F32 queries as N); each CTA writes one partial list a query,
+so a query has ``chunks`` partials. Imports neither JAX nor facekit.
 """
 
 import pytest
@@ -16,7 +15,8 @@ import torch
 
 from facekit_torch.ops.similarity import (MMA_MIN_B, MMA_QUERIES,
                                           MMA_QUERIES_F32, MMA_ROWS,
-                                          _mma_queries, _search_plan)
+                                          PASS1_SMEM, _mma_queries,
+                                          _search_plan, pass1_layout)
 
 SMS = 132                      # an H100 SXM
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
@@ -104,9 +104,9 @@ def test_small_batch_plan_at_full_gallery(kind, b):
 def test_route_rule(kind, b):
     """Which batches take the tensor-core pass 1, and with how many queries
     a CTA: every type above 8 (the C entry points' B > 8), f32 with its own
-    tile height (a 64-query f32 tile does not fit in shared memory), bf16
-    and int8 with MMA_QUERIES; batches up to 8 take the CUDA-core pass 1
-    (0)."""
+    tile (the wgmma's N: 64 f32 queries split into hi and lo do not fit in
+    shared memory), bf16 and int8 with MMA_QUERIES; batches up to 8 take
+    the CUDA-core pass 1 (0)."""
     height = MMA_QUERIES_F32 if kind == "f32" else MMA_QUERIES
     want = height if b > 8 else 0
     assert _mma_queries(DTYPES[kind], b) == want
@@ -151,3 +151,21 @@ def test_search_plan_at_512_queries_full_gallery():
                             SMS, k) == (40448, 26)
         assert _search_plan(1 << 20, 257, _queries("f32", 257),
                             SMS, k) == (75008, 14)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+def test_query_tile_is_the_kernels(kind):
+    """The queries a CTA that the plan takes are those of the kernel's
+    query tile (``pass1_layout``): f32 a hi and a lo tile of
+    MMA_QUERIES_F32 rows of 2,048 bytes (the wgmma's N, a multiple of 8
+    up to 256), bf16 and int8 one of MMA_QUERIES rows (its M, 64)."""
+    dtype = DTYPES[kind]
+    per_cta = _mma_queries(dtype, 256)
+    row = 512 * torch.empty((), dtype=dtype).element_size()
+    queries = pass1_layout(dtype, 1)["queries"][1]
+    assert queries == (2 if kind == "f32" else 1) * per_cta * row
+    if kind == "f32":
+        assert per_cta % 8 == 0 and per_cta <= 256
+        assert 2 * MMA_QUERIES * row > PASS1_SMEM     # a 64-query tile
+    else:
+        assert per_cta == 64
